@@ -1,0 +1,101 @@
+"""Weight bridge between the JAX package's flax variables and the port.
+
+The port's module names are detectron2's ``state_dict`` names, which
+``lvc_tpu/checkpoint/convert.py:28`` (``torch_to_flax``) already maps onto the
+flax tree. ``from_flax`` is the inverse of that mapping (as ``flax_to_torch``
+at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
+(in, out) -> (out, in), FrozenBN affine and statistics to ``<conv>.norm.*``.
+``to_flax`` goes the other way. Both work on plain nested dicts of numpy
+arrays, so the port needs neither flax nor jax.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_RES_BLOCK = re.compile(r"res\d\.\d+")
+_RES_STAGE = re.compile(r"res\d")
+
+
+def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, v in flat.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return tree
+
+
+def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(variables.get("params", {})).items():
+        parts = list(path)
+        if parts[-1] == "kernel" and parts[-2] == "conv":
+            out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
+        elif parts[-1] == "bias" and parts[-2] == "conv":
+            out[".".join(parts[:-2]) + ".bias"] = v
+        elif parts[-1] == "kernel":
+            out[".".join(parts[:-1]) + ".weight"] = v.T
+        elif parts[-2] == "FrozenBatchNorm_0":
+            out[".".join(parts[:-2]) + ".norm." + parts[-1]] = v
+        else:
+            out[".".join(parts)] = v
+    for path, v in _flatten(variables.get("batch_stats", {})).items():
+        if path[-2] != "FrozenBatchNorm_0":
+            raise KeyError(f"unexpected batch_stats entry {'/'.join(path)}")
+        out[".".join(path[:-2]) + ".norm." + path[-1]] = v
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """The port's state_dict -> ``{"params", "batch_stats"}`` numpy tree, the
+    layout ``torch_to_flax`` produces."""
+    params: Dict[Tuple[str, ...], np.ndarray] = {}
+    stats: Dict[Tuple[str, ...], np.ndarray] = {}
+    for key, val in state_dict.items():
+        if key in ("pixel_mean", "pixel_std"):
+            continue
+        v = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        parts = []
+        for p in key.split("."):
+            # flax names stage blocks "res2.0": re-fuse stage and block index
+            if parts and _RES_STAGE.fullmatch(parts[-1]) and p.isdigit():
+                parts[-1] = parts[-1] + "." + p
+            else:
+                parts.append(p)
+        name, mod = parts[-1], parts[:-1]
+        if mod and mod[-1] == "norm":
+            base = mod[:-1] + ["FrozenBatchNorm_0"]
+            if name in ("weight", "bias"):
+                params[tuple(base + [name])] = v
+            elif name in ("running_mean", "running_var"):
+                stats[tuple(base + [name])] = v
+            else:
+                raise KeyError(f"unrecognized norm key {key}")
+        elif name == "weight" and v.ndim == 4:
+            params[tuple(mod + ["conv", "kernel"])] = v.transpose(2, 3, 1, 0)
+        elif name == "weight" and v.ndim == 2:
+            params[tuple(mod + ["kernel"])] = v.T
+        elif name == "bias" and state_dict[".".join(key.split(".")[:-1]) + ".weight"].dim() == 4:
+            params[tuple(mod + ["conv", "bias"])] = v
+        else:
+            params[tuple(mod + [name])] = v
+    out = {"params": _unflatten(params)}
+    if stats:
+        out["batch_stats"] = _unflatten(stats)
+    return out

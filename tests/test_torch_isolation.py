@@ -1,0 +1,63 @@
+"""The port stands alone: importing it and building a model pulls in neither
+jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
+and without a GPU the entry points refuse to run unless asked for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    files = sorted((ROOT / "lvc_tpu_torch").rglob("*.py"))
+    assert len(files) > 20
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "lvc_tpu"), f"{path}: imports {name}"
+
+
+def test_import_and_build_leave_jax_out():
+    code = (
+        "import sys\n"
+        "import lvc_tpu_torch\n"
+        "from lvc_tpu_torch.config import get_cfg\n"
+        "from lvc_tpu_torch.modeling.meta_arch.build import build_model\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/Base-RCNN-FPN.yaml')\n"
+        "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
+        "build_model(cfg, device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_default_raises_without_gpu(monkeypatch):
+    from lvc_tpu_torch.modeling.meta_arch.build import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
