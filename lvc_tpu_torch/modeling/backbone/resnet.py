@@ -5,7 +5,9 @@ BottleneckBlock:52, ResNet:208, build_resnet:319): same topology, stride
 placement (STRIDE_IN_1X1) and FrozenBN default, with detectron2's module
 names (``stem.conv1``, ``res{2..5}.{i}.conv{1..3}``, ``shortcut``). Only the
 bottleneck depths 50/101/152 exist; the deformable and CLIP blocks are not
-ported yet.
+ported yet. ``remat`` (``MODEL.BACKBONE.REMAT``, default True) recomputes each
+bottleneck block in the backward pass instead of keeping its activations, in
+training only (``resnet.py:229-232,294-295``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lvc_tpu_torch.modeling.layers import Conv2d, max_pool_torch
 
@@ -96,9 +99,11 @@ class ResNet(nn.Module):
         res5_dilation: int = 1,
         norm: str = "FrozenBN",
         out_features: Sequence[str] = ("res4",),
+        remat: bool = False,
     ):
         super().__init__()
         self.out_features = tuple(out_features)
+        self.remat = remat
         self.stem = BasicStem(3, stem_out_channels, norm)
         out_channels = res2_out_channels
         bottleneck_channels = num_groups * width_per_group
@@ -134,8 +139,10 @@ class ResNet(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         if "stem" in self.out_features:
             out["stem"] = x
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.stage_names:
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if name in self.out_features:
                 out[name] = x
         return out
@@ -159,4 +166,5 @@ def build_resnet(cfg) -> ResNet:
         res5_dilation=r.RES5_DILATION,
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
+        remat=cfg.MODEL.BACKBONE.REMAT,
     )

@@ -1,7 +1,8 @@
 """Model construction from config (counterpart of
 ``lvc_tpu/modeling/meta_arch/build.py``: _build_generalized_rcnn:195,
-build_model:366). Only ``GeneralizedRCNN`` with a ResNet-FPN backbone, the
-RPN and ``StandardROIHeads`` is ported.
+build_rpn:34, _roi_heads_kwargs:125, build_model:366). Only
+``GeneralizedRCNN`` with a ResNet-FPN backbone, the RPN (or ``RPN_Ignore``)
+and ``StandardROIHeads`` is ported, with its training keys.
 """
 from __future__ import annotations
 
@@ -33,15 +34,16 @@ def _unported(what: str, item: str):
 
 def build_model(cfg, device=None) -> GeneralizedRCNN:
     """cfg -> ``GeneralizedRCNN`` on ``device`` (default ``cuda``), with
-    parameters in float32 and activations in ``MODEL.DTYPE``. Weights come
-    from ``checkpoint.convert.from_flax`` or ``utils.init.damped_init``."""
+    parameters in float32 and activations in ``MODEL.DTYPE``, in eval mode
+    (``model.train()`` for the losses). Weights come from
+    ``checkpoint.convert.from_flax`` or ``utils.init.damped_init``."""
     device = resolve_device(device)
     m = cfg.MODEL
     if m.META_ARCHITECTURE != "GeneralizedRCNN":
         _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, items 9-10")
     if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
         _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
-    if m.PROPOSAL_GENERATOR.NAME != "RPN":
+    if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "RPN_Ignore"):
         _unported(f"proposal generator {m.PROPOSAL_GENERATOR.NAME!r}", "queue 1, item 9")
     if m.ROI_HEADS.NAME != "StandardROIHeads":
         _unported(f"ROI heads {m.ROI_HEADS.NAME!r}", "queue 1, item 9")
@@ -66,6 +68,15 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
         post_nms_topk_test=m.RPN.POST_NMS_TOPK_TEST,
         nms_thresh=m.RPN.NMS_THRESH,
         min_box_size=float(m.PROPOSAL_GENERATOR.MIN_SIZE),
+        iou_thresholds=tuple(m.RPN.IOU_THRESHOLDS),
+        iou_labels=tuple(m.RPN.IOU_LABELS),
+        batch_size_per_image=m.RPN.BATCH_SIZE_PER_IMAGE,
+        positive_fraction=m.RPN.POSITIVE_FRACTION,
+        smooth_l1_beta=m.RPN.SMOOTH_L1_BETA,
+        loss_weight=m.RPN.LOSS_WEIGHT,
+        pre_nms_topk_train=m.RPN.PRE_NMS_TOPK_TRAIN,
+        post_nms_topk_train=m.RPN.POST_NMS_TOPK_TRAIN,
+        ignore_regions=m.PROPOSAL_GENERATOR.NAME == "RPN_Ignore",
     )
     h = m.ROI_BOX_HEAD
     roi_heads = StandardROIHeads(
@@ -87,6 +98,15 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
         nms_thresh_test=m.ROI_HEADS.NMS_THRESH_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         pooler_impl=m.ROI_HEADS.POOLER_IMPL,
+        iou_thresholds=tuple(m.ROI_HEADS.IOU_THRESHOLDS),
+        iou_labels=tuple(m.ROI_HEADS.IOU_LABELS),
+        batch_size_per_image=m.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        positive_fraction=m.ROI_HEADS.POSITIVE_FRACTION,
+        proposal_append_gt=m.ROI_HEADS.PROPOSAL_APPEND_GT,
+        dropout=h.DROPOUT,
+        smooth_l1_beta=h.SMOOTH_L1_BETA,
+        box_reg_loss_type=h.BBOX_REG_LOSS_TYPE,
+        reg_off=m.ROI_HEADS.REG_OFF,
     )
     model = GeneralizedRCNN(
         backbone, rpn, roi_heads,

@@ -1,5 +1,6 @@
 """Box feature head (counterpart of ``lvc_tpu/modeling/roi_heads/box_head.py:17``):
-N convs then M fcs with ReLU. Inference only, so dropout is not ported."""
+N convs then M fcs with ReLU, and dropout after each fc's ReLU in training
+(``ROI_BOX_HEAD.DROPOUT``, default 0)."""
 from __future__ import annotations
 
 import torch
@@ -19,10 +20,12 @@ class FastRCNNConvFCHead(nn.Module):
         num_fc: int = 2,
         fc_dim: int = 1024,
         norm: str = "",
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.num_conv = num_conv
         self.num_fc = num_fc
+        self.dropout = dropout
         c = in_channels
         for k in range(num_conv):
             self.add_module(
@@ -47,4 +50,6 @@ class FastRCNNConvFCHead(nn.Module):
             for k in range(self.num_fc):
                 fc = getattr(self, f"fc{k + 1}")
                 x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
+                if self.dropout > 0:
+                    x = F.dropout(x, self.dropout, training=self.training)
         return x

@@ -1,18 +1,21 @@
 """Fast R-CNN output layers and fixed-shape inference.
 
 Counterpart of ``lvc_tpu/modeling/roi_heads/fast_rcnn.py``
-(FastRCNNOutputLayers:24, Detections:181, fast_rcnn_inference:198-261). The
-whole batch is processed at once on padded (B, R, ...) slots with validity
-masks. Losses are not ported yet.
+(FastRCNNOutputLayers:24, fast_rcnn_losses:123-173, Detections:181,
+fast_rcnn_inference:198-261). The whole batch is processed at once on padded
+(B, R, ...) slots with validity masks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lvc_tpu_torch.modeling.box_regression import Box2BoxTransform
+from lvc_tpu_torch.modeling.proposal_generator.rpn import smooth_l1
+from lvc_tpu_torch.modeling.sampling import global_ratio
 from lvc_tpu_torch.ops.nms import batched_nms_mask, masked_topk
 from lvc_tpu_torch.structures import boxes as box_ops
 
@@ -31,6 +34,53 @@ class FastRCNNOutputLayers(nn.Module):
         scores = F.linear(x, self.cls_score.weight.to(x.dtype), self.cls_score.bias.to(x.dtype))
         deltas = F.linear(x, self.bbox_pred.weight.to(x.dtype), self.bbox_pred.bias.to(x.dtype))
         return scores.float(), deltas.float()
+
+
+def fast_rcnn_losses(
+    class_logits: torch.Tensor,  # (N, K+1)
+    proposal_deltas: torch.Tensor,  # (N, K*4) or (N, 4)
+    proposal_boxes: torch.Tensor,  # (N, 4)
+    gt_boxes: torch.Tensor,  # (N, 4) matched gt per proposal
+    gt_classes: torch.Tensor,  # (N,) in [0, K] (K = background), -1 = ignore
+    valid: torch.Tensor,  # (N,) slot validity
+    box2box: Box2BoxTransform,
+    smooth_l1_beta: float = 0.0,
+    box_reg_loss_type: str = "smooth_l1",
+) -> Dict[str, torch.Tensor]:
+    """Softmax CE as the mean over valid non-ignore slots; box regression as
+    the sum over foreground slots divided by ALL valid slots (the reference's
+    normalization). The loss math runs in float32."""
+    if box_reg_loss_type == "giou":
+        raise NotImplementedError(
+            "BBOX_REG_LOSS_TYPE 'giou' (the UBBR heads) is not ported yet "
+            "(ROADMAP.md queue 1, item 5: it comes with the LVC pipeline)"
+        )
+    if box_reg_loss_type != "smooth_l1":
+        raise ValueError(box_reg_loss_type)
+    num_classes = class_logits.shape[-1] - 1
+    class_logits = class_logits.float()
+    proposal_deltas = proposal_deltas.float()
+    zero = torch.zeros((), device=class_logits.device)
+    n_valid = valid.sum()
+
+    ce_valid = valid & (gt_classes >= 0)
+    safe_cls = gt_classes.clamp(0, num_classes).long()
+    logp = F.log_softmax(class_logits, dim=-1)
+    ce = -torch.gather(logp, 1, safe_cls[:, None])[:, 0]
+    loss_cls = global_ratio(torch.where(ce_valid, ce, zero).sum(), ce_valid.sum())
+
+    fg = ce_valid & (gt_classes < num_classes)
+    box_dim = proposal_boxes.shape[-1]
+    if proposal_deltas.shape[-1] == box_dim:
+        pred_deltas = proposal_deltas
+    else:
+        d = proposal_deltas.reshape(proposal_deltas.shape[0], num_classes, box_dim)
+        cls = gt_classes.clamp(0, num_classes - 1).long()
+        pred_deltas = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, box_dim))[:, 0]
+    gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
+    reg = smooth_l1(pred_deltas, gt_deltas, smooth_l1_beta).sum(-1)
+    loss_box_reg = global_ratio(torch.where(fg, reg, zero).sum(), n_valid)
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box_reg}
 
 
 class Detections(NamedTuple):

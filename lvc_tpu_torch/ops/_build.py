@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file exposes a plain C interface. It is compiled by hand
+Each ``csrc/*.cu`` file (``roi_align_fwd``: K1, K2; ``roi_align_bwd``: K3)
+exposes a plain C interface. It is compiled by hand
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) on first use, and loaded
 with ``ctypes``. That takes seconds, where ``torch.utils.cpp_extension.load``
@@ -23,7 +24,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("roi_align_fwd",)
+SOURCES = ("roi_align_fwd", "roi_align_bwd")
 
 _loaded = {}
 
@@ -34,11 +35,17 @@ _I = ctypes.c_int
 _ROI_ALIGN_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 7 + [
     _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
 ]
+# roi_align_paired_bwd(acc_ptrs, acc_rows, widths, L, C, P, NR, NT, n, lvl, xs,
+#   inv, rows, wy, tcol, wx, gout, is_bf16, stream) -> cudaError_t
+_ROI_ALIGN_BWD_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 6 + [
+    _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+]
 SIGNATURES = {
     "roi_align_fwd": {
         "roi_align_band_fwd": _ROI_ALIGN_ARGS,
         "roi_align_paired_fwd": _ROI_ALIGN_ARGS,
     },
+    "roi_align_bwd": {"roi_align_paired_bwd": _ROI_ALIGN_BWD_ARGS},
 }
 
 

@@ -1,5 +1,6 @@
 """Multi-level RoIAlign: the exact torch gather, the preps of the two serving
-pools, their plain versions and the wrappers of their Hopper kernels.
+pools, their plain versions and the wrappers of their Hopper kernels, and the
+training pool (K2 forward, K3 backward, as one ``torch.autograd.Function``).
 
 Counterpart of ``lvc_tpu/ops/roi_align.py``. Layouts are the JAX package's:
 features are per-level (B, H, W, C) and boxes (B, R, 4); the pools return
@@ -39,7 +40,7 @@ the box's own level instead, so a NaN elsewhere cannot leak in through 0*NaN.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -48,8 +49,10 @@ __all__ = [
     "batched_multilevel_roi_align",
     "roi_align_band",
     "roi_align_paired",
+    "roi_align_paired_bwd",
     "pool_band",
     "pool_paired",
+    "pool_paired_train",
 ]
 
 
@@ -636,6 +639,10 @@ class RoiAlignKernel:
                 raise ValueError("levels must be contiguous (B, H, W, C)")
             if feat.device.type == "cuda" and (C % vec or f.data_ptr() % 16):
                 raise ValueError(f"kernel needs C % {vec} == 0 and 16-byte aligned levels")
+        RoiAlignKernel._check_taps(taps, feat.device)
+
+    @staticmethod
+    def _check_taps(taps: RoiTaps, device) -> None:
         n, P, NR = taps.rows.shape
         NT = taps.tcol.shape[-1]
         if P > _MAX_P or NR > _MAX_TAPS or NT > _MAX_TAPS:
@@ -649,8 +656,8 @@ class RoiAlignKernel:
             t = getattr(taps, name)
             if tuple(t.shape) != shape or t.dtype != dtype:
                 raise ValueError(f"taps.{name}: {tuple(t.shape)} {t.dtype}, want {shape} {dtype}")
-            if t.device != feat.device or not t.is_contiguous():
-                raise ValueError(f"taps.{name} must be contiguous on {feat.device}")
+            if t.device != device or not t.is_contiguous():
+                raise ValueError(f"taps.{name} must be contiguous on {device}")
 
 
 roi_align_band = RoiAlignKernel("roi_align_band_fwd", paired=False)
@@ -694,4 +701,161 @@ def pool_paired(
         canonical_box_size, canonical_level, tile, dtype=features[0].dtype,
     )
     out = roi_align_paired(features, paired_taps(prep, shapes, tile))
+    return out.reshape(B, R, output_size, output_size, -1)
+
+
+# ---------------------------------------------------------------------------
+# The training pool: K2 forward, K3 backward
+# ---------------------------------------------------------------------------
+
+
+def roi_align_taps_plain_backward(
+    level_shapes: Sequence[Tuple[int, int, int, int]], taps: RoiTaps, gout: torch.Tensor,
+    chunk: int = 128,
+) -> List[torch.Tensor]:
+    """The exact transpose of ``roi_align_taps_plain`` (paired taps): d out ->
+    d levels, summed in float32 with ``index_add_``. ``level_shapes`` are the
+    levels' (B, H, W, C); ``gout`` is (n, P, P, C). Each term is
+    ``(wy * wx) * (inv * gout)``, K3's product. Returns float32 (B, H, W, C)
+    per level."""
+    n, P, NR = taps.rows.shape
+    NT = taps.tcol.shape[-1]
+    device = gout.device
+    lvl = taps.lvl.long()
+    g = gout.float() * taps.inv[:, None, None, None]  # (n, Py, Px, C)
+    grads = []
+    for l, (B, H, W, C) in enumerate(level_shapes):
+        acc = torch.zeros(B * H * W, C, dtype=torch.float32, device=device)
+        idx = (lvl == l).nonzero().squeeze(1)
+        for s in range(0, idx.numel(), chunk):
+            ci = idx[s : s + chunk]
+            rows = taps.rows[ci].long()  # (m, Py, NR)
+            cols = taps.xs[ci].long()[:, None, None] + taps.tcol[ci].long()  # (m, Px, NT)
+            ok = (rows >= 0)[:, :, :, None, None] & (cols < W)[:, None, None, :, :]
+            w = taps.wy[ci][:, :, :, None, None] * taps.wx[ci][:, None, None, :, :]
+            w = torch.where(ok, w, torch.zeros((), device=device))  # (m, Py, NR, Px, NT)
+            pos = rows.clamp(min=0)[:, :, :, None, None] * W + cols.clamp(max=W - 1)[:, None, None]
+            contrib = w[..., None] * g[ci][:, :, None, :, None, :]  # (m, Py, NR, Px, NT, C)
+            acc.index_add_(0, pos.reshape(-1), contrib.reshape(-1, C))
+        grads.append(acc.reshape(B, H, W, C))
+    return grads
+
+
+class RoiAlignBackwardKernel:
+    """Wrapper of K3, ``roi_align_paired_bwd`` in ``csrc/roi_align_bwd.cu``.
+
+    Returns the float32 per-level accumulators (B, H, W, C). On CPU tensors it
+    returns the plain version; on CUDA tensors it zeroes the accumulators and
+    launches the kernel (building it on first use) or raises. ``launch``
+    adds into accumulators the caller zeroed. ``launches`` counts the
+    launches and nothing else."""
+
+    symbol = "roi_align_paired_bwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(
+        self, level_shapes: Sequence[Tuple[int, int, int, int]], taps: RoiTaps, gout: torch.Tensor
+    ) -> List[torch.Tensor]:
+        level_shapes = [tuple(int(d) for d in s) for s in level_shapes]
+        self._check(level_shapes, taps, gout)
+        if gout.device.type == "cpu":
+            return roi_align_taps_plain_backward(level_shapes, taps, gout)
+        if gout.device.type != "cuda":
+            raise RuntimeError(f"RoIAlign backward kernel: unsupported device {gout.device}")
+        from lvc_tpu_torch.ops import _build
+
+        _build.load_library("roi_align_bwd")  # builds on first use, or raises
+        accs = [torch.zeros(s, dtype=torch.float32, device=gout.device) for s in level_shapes]
+        self.launch(accs, taps, gout)
+        return accs
+
+    def launch(self, accs: Sequence[torch.Tensor], taps: RoiTaps, gout: torch.Tensor) -> None:
+        """Add d levels into the float32 CUDA accumulators ``accs``."""
+        import ctypes
+
+        from lvc_tpu_torch.ops import _build
+
+        level_shapes = [tuple(a.shape) for a in accs]
+        self._check(level_shapes, taps, gout)
+        if gout.device.type != "cuda" or any(
+            a.dtype != torch.float32 or a.device != gout.device or not a.is_contiguous() for a in accs
+        ):
+            raise ValueError("K3 adds into contiguous float32 accumulators on gout's CUDA device")
+        lib = _build.load_library("roi_align_bwd")
+        n, P, NR = taps.rows.shape
+        if n == 0:
+            return
+        ptrs = (ctypes.c_void_p * _MAX_LEVELS)(*[a.data_ptr() for a in accs])
+        nrows = (ctypes.c_int * _MAX_LEVELS)(*[b * h for b, h, _, _ in level_shapes])
+        ws = (ctypes.c_int * _MAX_LEVELS)(*[w for _, _, w, _ in level_shapes])
+        err = getattr(lib, self.symbol)(
+            ptrs, nrows, ws, len(accs), gout.shape[-1], P, NR, taps.tcol.shape[-1], n,
+            taps.lvl.data_ptr(), taps.xs.data_ptr(), taps.inv.data_ptr(),
+            taps.rows.data_ptr(), taps.wy.data_ptr(), taps.tcol.data_ptr(),
+            taps.wx.data_ptr(), gout.data_ptr(), 1 if gout.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream(gout.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
+        self.launches += 1
+
+    @staticmethod
+    def _check(level_shapes, taps: RoiTaps, gout: torch.Tensor) -> None:
+        if not 1 <= len(level_shapes) <= _MAX_LEVELS:
+            raise ValueError(f"RoIAlign backward takes 1..{_MAX_LEVELS} levels, got {len(level_shapes)}")
+        if gout.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"RoIAlign backward kernel: gout dtype {gout.dtype}")
+        C = gout.shape[-1]
+        if any(len(s) != 4 or s[3] != C or s[0] != level_shapes[0][0] for s in level_shapes):
+            raise ValueError(f"level shapes {level_shapes} do not match gout's C={C}")
+        n, P, NR = taps.rows.shape
+        if tuple(gout.shape) != (n, P, P, C) or not gout.is_contiguous():
+            raise ValueError(f"gout must be contiguous ({n}, {P}, {P}, {C}), got {tuple(gout.shape)}")
+        if gout.device.type == "cuda" and (C % (16 // gout.element_size()) or gout.data_ptr() % 16):
+            raise ValueError("kernel needs 16-byte vectors of gout channels")
+        RoiAlignKernel._check_taps(taps, gout.device)
+
+
+roi_align_paired_bwd = RoiAlignBackwardKernel()
+
+
+class _PairedPool(torch.autograd.Function):
+    """The training pool (``batched_multilevel_roi_align_pallas_train_ml`` and
+    ``..._pallas_trainable``, the custom VJPs at ``roi_align.py:3223`` and
+    ``:2388``): forward K2, backward K3, feature grads in the feature dtype
+    (f32 accumulation, then a cast, as ``roi_align.py:3276``) and none for
+    the boxes (their taps carry no gradient: zero box grads, as ``:3277``)."""
+
+    @staticmethod
+    def forward(ctx, taps: RoiTaps, *levels: torch.Tensor) -> torch.Tensor:
+        ctx.taps = taps
+        ctx.level_shapes = [tuple(f.shape) for f in levels]
+        ctx.dtype = levels[0].dtype
+        return roi_align_paired(list(levels), taps)
+
+    @staticmethod
+    def backward(ctx, gout: torch.Tensor):
+        accs = roi_align_paired_bwd(ctx.level_shapes, ctx.taps, gout.contiguous())
+        return (None, *[a.to(ctx.dtype) for a in accs])
+
+
+def pool_paired_train(
+    features, boxes, strides, output_size=7, sampling_ratio=0, max_grid=2,
+    min_level=None, canonical_box_size=224, canonical_level=4, tile=48,
+) -> torch.Tensor:
+    """Differentiable paired pool (``POOLER_IMPL`` pallas_train and
+    pallas_train_flat): K2 forward (the same output as the JAX per-level
+    train forward ``..._pallas_paired_ml``, whose clamped windows equal the
+    padded form) and K3 backward, on any number of levels. (B, R, P, P, C)."""
+    B, R = boxes.shape[:2]
+    shapes = [tuple(f.shape[1:3]) for f in features]
+    with torch.no_grad():
+        prep = tiled_prep_2d(
+            shapes, B, boxes.detach(), strides, output_size, sampling_ratio, max_grid,
+            min_level, canonical_box_size, canonical_level, tile, dtype=features[0].dtype,
+        )
+        taps = paired_taps(prep, shapes, tile)
+    out = _PairedPool.apply(taps, *features)
     return out.reshape(B, R, output_size, output_size, -1)

@@ -1,7 +1,7 @@
 """Box primitives as plain functions on ``(..., 4)`` XYXY tensors.
 
-Counterpart of ``lvc_tpu/structures/boxes.py:45-87`` (area, clip, nonempty,
-pairwise_iou), with the same formulas in the same operation order so the
+Counterpart of ``lvc_tpu/structures/boxes.py:45-95`` (area, clip, nonempty,
+pairwise_iou, pairwise_ioa), with the same formulas in the same operation order so the
 NMS decisions made from these IoUs match the JAX package bit for bit.
 """
 from __future__ import annotations
@@ -50,4 +50,14 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = pairwise_intersection(boxes1, boxes2)
     union = area1[..., :, None] + area2[..., None, :] - inter
     safe = torch.where(union > 0, union, torch.ones_like(union))
+    return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))
+
+
+def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """(..., N, M) intersection over the area of ``boxes2``; 0 where the
+    intersection is 0 (``lvc_tpu/structures/boxes.py:88``). The RPN's
+    ignore-region filter uses it."""
+    area2 = area(boxes2)
+    inter = pairwise_intersection(boxes1, boxes2)
+    safe = torch.where(area2 > 0, area2, torch.ones_like(area2))[..., None, :]
     return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))

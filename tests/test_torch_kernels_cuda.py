@@ -5,9 +5,16 @@ The file imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-The kernels sum in their plain version's order and forbid FMA contraction,
-so they must agree bit for bit, in float32 and in bf16.
+The forward kernels (K1, K2) sum in their plain version's order and forbid
+FMA contraction, so they must agree bit for bit, in float32 and in bf16. The
+backward kernel (K3) adds with float32 atomics in no fixed order, so each
+accumulator element must be within 1e-5 * S of the plain backward, where S
+is the plain backward run on |gout| and |weights| (the absolute sum of the
+element's contributions); after the cast to bf16, within 1 bf16 ulp of the
+plain version's cast plus that float32 tolerance (a sum that cancels to near
+0 has an ulp below the float32 error).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -85,6 +92,76 @@ def test_pools_on_card_match_cpu(cuda_device, impl):
     torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
 
 
+def _paired(feats, boxes, strides, dtype, device):
+    shapes = [f.shape[1:3] for f in feats]
+    prep = tra.tiled_prep_2d(shapes, feats[0].shape[0], torch.from_numpy(boxes).to(device), strides, dtype=dtype)
+    return tra.paired_taps(prep, shapes, 48)
+
+
+def _abs_sum(level_shapes, taps, gout):
+    """S: the plain backward on |gout| and |weights|."""
+    return tra.roi_align_taps_plain_backward(
+        level_shapes, taps._replace(wy=taps.wy.abs(), wx=taps.wx.abs()), gout.abs()
+    )
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    feats, boxes, strides = CASES[case]()
+    dt = getattr(torch, dtype)
+    taps = _paired(feats, boxes, strides, dt, cuda_device)
+    n, P, _ = taps.rows.shape
+    level_shapes = [f.shape for f in feats]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    gout = torch.randn(n, P, P, feats[0].shape[-1], generator=gen, device=cuda_device).to(dt)
+    before = tra.roi_align_paired_bwd.launches
+    got = tra.roi_align_paired_bwd(level_shapes, taps, gout)
+    torch.cuda.synchronize()
+    assert tra.roi_align_paired_bwd.launches == before + 1
+    want = tra.roi_align_taps_plain_backward(level_shapes, taps, gout)
+    for g, w, s in zip(got, want, _abs_sum(level_shapes, taps, gout)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(((g - w).abs() <= 1e-5 * s).all())
+        cast, ref = g.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        assert bool(((cast - ref).abs() <= _bf16_ulp(ref) + 1e-5 * s).all())
+
+
+@pytest.mark.cuda
+def test_train_pool_on_card_matches_cpu(cuda_device):
+    """The autograd Function (K2 forward, K3 backward) on the card against
+    the same Function on the CPU (plain versions), float32: the forward to
+    1e-6, the feature grads to 1e-5 * S."""
+    feats, boxes, strides = CASES["pyramid"]()
+    gout = torch.from_numpy(np.random.RandomState(1).randn(*boxes.shape[:2], 7, 7, feats[0].shape[-1]).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        levels = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+        out = tra.pool_paired_train(levels, torch.from_numpy(boxes).to(dev), strides)
+        grads = torch.autograd.grad(out, levels, gout.to(dev))
+        res[str(dev)] = out.detach().cpu(), [g.cpu() for g in grads]
+    before = _launches()
+    levels = [torch.from_numpy(f).to(cuda_device).requires_grad_() for f in feats]
+    tra.pool_paired_train(levels, torch.from_numpy(boxes).to(cuda_device), strides).sum().backward()
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1] + 1)
+    (want_out, want_g), (got_out, got_g) = res["cpu"], res[str(cuda_device)]
+    torch.testing.assert_close(got_out, want_out, atol=1e-6, rtol=0)
+    taps = _paired(feats, boxes, strides, torch.float32, "cpu")
+    S = _abs_sum([f.shape for f in feats], taps, gout.reshape(-1, 7, 7, gout.shape[-1]))
+    for g, w, s in zip(got_g, want_g, S):
+        assert bool(((g - w).abs() <= 1e-5 * s).all())
+
+
+def _launches():
+    return tra.roi_align_paired.launches, tra.roi_align_paired_bwd.launches
+
+
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """A CUDA tensor launches the kernel or raises: with no library to load,
     the wrapper raises instead of falling back to torch ops."""
@@ -116,3 +193,23 @@ class _DeviceView:
 
     def __getattr__(self, name):
         return getattr(self._t, name)
+
+
+def test_cuda_gout_never_takes_the_plain_backward(monkeypatch):
+    """The backward wrapper too: a CUDA gout launches K3 or raises."""
+    from lvc_tpu_torch.ops import _build
+
+    feats, boxes, strides = CASES["pyramid"]()
+    taps = _paired(feats, boxes, strides, torch.float32, "cpu")
+    gout = torch.zeros(taps.rows.shape[0], 7, 7, feats[0].shape[-1])
+
+    class FakeCuda:
+        type = "cuda"
+
+    def refuse(name="roi_align_bwd"):
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(tra.RoiAlignBackwardKernel, "_check", staticmethod(lambda *a: None))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        tra.roi_align_paired_bwd([f.shape for f in feats], taps, _DeviceView(gout, FakeCuda()))

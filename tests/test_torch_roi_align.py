@@ -99,6 +99,22 @@ def test_plain_kernels_match_jax_interpret(case, jax_fn, port):
     _close(got.numpy(), want, 1e-5)
 
 
+def test_paired_plain_matches_jax_flat_prep_pallas():
+    """``batched_multilevel_roi_align_pallas`` (the flat-prep paired kernel,
+    tile 32, in interpret mode) is K2's function too: K2's plain version on
+    paired taps at tile 32 gives its output (atol 1e-5)."""
+    feats, boxes, strides = _pyramid()
+    want = jra.batched_multilevel_roi_align_pallas(
+        [jnp.asarray(f) for f in feats], jnp.asarray(boxes), strides, tile=32, interpret=True
+    )
+    shapes = _shapes(feats)
+    taps = tra.paired_taps(
+        tra.tiled_prep_2d(shapes, feats[0].shape[0], torch.from_numpy(boxes), strides, tile=32), shapes, 32
+    )
+    got = tra.roi_align_paired([torch.from_numpy(f) for f in feats], taps)
+    _close(got.reshape(want.shape).numpy(), want, 1e-5)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_exact_gather_matches_jax(case):
     feats, boxes, strides = CASES[case]()
