@@ -27,7 +27,21 @@ Phases, each of which raises (non-zero exit) on failure:
    POOLER_IMPL pallas_train, B=8 at 832x1344 with 100 gt slots, seeded damped
    weights, 1 warm-up + 5 timed steps with every kernel count set to 0 just
    before and read just after; one profiled step with the device time of
-   each stage (the profiler ranges of the step and the model's forward).
+   each stage (the profiler ranges of the step and the model's forward);
+8. attention kernel phase: the flash-attention kernel and its plain version
+   on the same seeded qkv at the verifier's shape (B, N, H, d) =
+   (64, 785, 6, 64), float32 and bf16: error (also on a peaked qkv whose
+   logits span tens), card ms, plain ms, the bound, and
+   scaled_dot_product_attention's ms on the same tensors as a yardstick;
+9. verify reference check: a narrow ViT (N = 197) at float32 on the card and
+   on the CPU from the same weights, and knn_vote on the card and the CPU;
+10. verify main path: DINO ViT-S/8 at full width, seeded random weights,
+   B=64 crops of 224 through DescriptorExtractor.embed_crops, float32 and
+   bf16, 1 warm-up + 5 timed calls with the kernel's count set to 0 just
+   before and read just after, one profiled call with the device time of the
+   ViT's profiler ranges; knn_vote at S=2,400, Q=50,000, D=384, k=10;
+11. the verification CLI (run_nearest_neighbours) on the card on a seeded
+   mini COCO tree written to a temporary directory.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
@@ -53,6 +67,7 @@ KERNEL_SOURCE = {
     "roi_align_paired": "lvc_tpu_torch/ops/csrc/roi_align_fwd.cu",
     "roi_align_paired_bwd": "lvc_tpu_torch/ops/csrc/roi_align_bwd.cu",
 }
+HAND_KERNELS = ("roi_align_rows_kernel", "roi_align_paired_bwd_kernel", "flash_attention_fwd_kernel")
 TRAIN_BOXES = 512  # ROI_HEADS.BATCH_SIZE_PER_IMAGE: the sampled boxes per image
 MAIN_SHAPES = [(208, 336), (104, 168), (52, 84), (26, 42)]  # p2-p5 of 832x1344
 STRIDES = (4, 8, 16, 32)
@@ -385,9 +400,9 @@ def profile_call(fn, untraced_ms, what, tag, stages=()):
     the device's busy time (union of kernel intervals), its idle share of the
     traced device span and of the untraced call's time (the profiler slows
     the host, so the traced share overstates idling), the device time of the
-    profiler ranges named in ``stages``, and the ops that take the most
-    device time. Prints "not measured" if the profiler records no device
-    activity."""
+    profiler ranges named in ``stages``, the device time of the hand-written
+    kernels, and the ops that take the most device time. Prints "not
+    measured" if the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -422,6 +437,17 @@ def profile_call(fn, untraced_ms, what, tag, stages=()):
           f"{1 - busy / 1e3 / untraced_ms:.3f} of the untraced {untraced_ms:.2f} ms {tag}")
     if stages:
         stage_times(prof.events(), stages, tag)
+    # the hand-written kernels, launched through ctypes, are linked to no torch
+    # op, so neither the stage ranges nor the op table below count them
+    hand = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = next((k for k in HAND_KERNELS if k in e.name), None)
+            if name:
+                t, n = hand.get(name, (0.0, 0))
+                hand[name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    print("hand-written kernels, device ms: " + (", ".join(
+        f"{k} {t / 1e3:.3f} (x{n})" for k, (t, n) in sorted(hand.items())) or "none") + f" {tag}")
     # device time attributed to the host-side ops that launched it
     rows = [
         (a.self_device_time_total, a.count, a.key)
@@ -678,6 +704,390 @@ def check_detections(dets, B):
             raise AssertionError(f"non-finite detection {name}")
 
 
+# ---------------------------------------------------------------------------
+# The label-verification path (DINO ViT + kNN vote)
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPE = (64, 785, 6, 64)  # (B, N, H, d): 64 crops of 224 through ViT-S/8
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores: float32's tensor-core path
+VIT_STAGES = ("patch_embed", "attention", "mlp")  # the profiler ranges in the ViT
+MINI_SPLITS = (  # (dataset name, annotation file under the root; "" for the K-shot files)
+    ("coco_trainval_all", "cocosplit/datasplit/trainvalno5k.json"),
+    ("coco_trainval_all_2shot", ""),
+)
+
+
+def attention_bound(B, N, H, d, isz, ops_per_s):
+    """Least time for the attention function: 4*B*H*N^2*d operations (QK^T
+    and PV) at the dtype's dense tensor-core rate, against q, k, v read once
+    and the output written once at the memory rate."""
+    ops = 4 * B * H * N * N * d
+    nbytes = 4 * B * N * H * d * isz
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), nbytes, ops
+
+
+def peaked(qkv):
+    """A peaked copy of qkv (B, N, 3, H, d) with N(0, 0.25) entries, numpy or
+    torch: q and k scaled by 4, so at d = 64 and scale 1/8 the logits have a
+    std of about 4, a row spans about 26 and its largest weight is about
+    0.4; and the keys at N//2 + 3, N - 40 and N - 1 scaled by 2 more (logits
+    of std about 8 there), so in about a sixth of the rows the running max
+    jumps by tens late in the row and the online softmax's rescale
+    exp(m_old - m_new) falls far below 1, as in trained attention. v is left
+    as it is, so |out| stays under 2."""
+    N = qkv.shape[1]
+    out = qkv * 1
+    out[:, :, :2] *= 4
+    out[:, [N // 2 + 3, N - 40, N - 1], 1] *= 2
+    return out
+
+
+def attention_error(got, want, shape):
+    """(max abs err, its share of the tolerance, text): float32 1e-5 max abs;
+    bf16 2 bf16 ulps of the largest |out| of each (batch, head)."""
+    import torch
+
+    B, N, H, d = shape
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(err.max()), float(err.max()) / 1e-5, "tolerance 1e-5"
+    mx = want.float().abs().view(B, N, H, d).amax(dim=(1, 3))
+    ratio = float((err.view(B, N, H, d).amax(dim=(1, 3)) / bf16_ulp(mx)).max())
+    return float(err.max()), ratio / 2, f"{ratio:.2f} bf16 ulps of the largest |out| of a (b, h); tolerance 2"
+
+
+def attention_kernel_phase(tag):
+    """The attention kernel and its plain version on the same seeded qkv at
+    the main path's shape, float32 and bf16: error, card ms, the plain
+    version's ms, the bound and scaled_dot_product_attention's ms on the same
+    (B, H, N, d) tensors (a yardstick only; the port never calls it). The
+    error is also held on a peaked qkv (``peaked``), whose logits span tens.
+    Tolerances: float32 1e-5 max abs; bf16 2 bf16 ulps of the largest |out|
+    of each (batch, head). Returns the float32 row (the CLI's dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    B, N, H, d = ATTN_SHAPE
+    scale = d ** -0.5
+    rows = {}
+    for dtype, rate in ((torch.float32, TF32_OPS_PER_S), (torch.bfloat16, BF16_OPS_PER_S)):
+        name = str(dtype).replace("torch.", "")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        mild = (torch.randn(B, N, 3 * H * d, generator=g, device="cuda") * 0.5).view(B, N, 3, H, d)
+        errs = {}
+        for case, qkv in (("peaked", peaked(mild).to(dtype)), ("mild", mild.to(dtype))):
+            got = flash_attention(qkv, scale)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(qkv, scale)
+            if tuple(got.shape) != (B, N, H * d) or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention_fwd {name} {case}: shape {tuple(got.shape)} or non-finite")
+            errs[case] = attention_error(got, want, ATTN_SHAPE)
+            if errs[case][1] > 1:
+                raise AssertionError(f"flash_attention_fwd {name} {case}: max abs err {errs[case][0]} "
+                                     f"({errs[case][2]})")
+            if case == "peaked" and dtype == torch.float32:
+                # both against float64 softmax attention: how much of their
+                # difference is float32 rounding of logits that reach tens
+                q, k, v = (t.transpose(1, 2).double() for t in qkv.unbind(2))
+                exact = (torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1) @ v).transpose(1, 2)
+                exact = exact.reshape(B, N, H * d)
+                vs64 = [float((t.double() - exact).abs().max()) for t in (got, want)]
+                del q, k, v, exact
+            del got, want
+        del mild
+        max_abs_err, _, tol_text = errs["mild"]
+        peak_text = f"peaked qkv max_abs_err {errs['peaked'][0]} ({errs['peaked'][2]})"
+        if dtype == torch.float32:
+            peak_text += f", against float64: kernel {vs64[0]:.3e}, plain {vs64[1]:.3e}"
+        ms = cuda_ms(lambda: flash_attention(qkv, scale), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(qkv, scale), 3)
+        q, k, v = (t.transpose(1, 2).contiguous() for t in qkv.unbind(2))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+        bound_ms, bound_by, nbytes, ops = attention_bound(B, N, H, d, qkv.element_size(), rate)
+        print(f"kernel flash_attention_fwd {name}: (B, N, H, d) {ATTN_SHAPE} max_abs_err {max_abs_err} "
+              f"({tol_text}); {peak_text}; "
+              f"ms {ms:.4f} plain_ms {plain_ms:.3f} sdpa_ms {library_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({bound_by}; {nbytes} bytes at 3.35 TB/s, {ops} flops at "
+              f"{rate / 1e12:.0f} TFLOP/s) share of bound {bound_ms / ms:.3f}, kernel/sdpa "
+              f"{ms / library_ms:.2f} {tag}")
+        rows[name] = dict(
+            name="flash_attention_fwd", route="cuda", source="lvc_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            replaces="lvc_tpu/modeling/backbone/vit.py:80", launches=0, max_abs_err=max_abs_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            dtype=name,
+        )
+        del qkv, q, k, v
+    torch.cuda.empty_cache()
+    return rows["float32"]
+
+
+def clustered(seed, n_shot, n_query, classes, dim, device):
+    """Seeded shot and query descriptors around class centres (float32)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(classes, dim) * 2
+    s_cls = rng.randint(0, classes, n_shot)
+    q_cls = rng.randint(0, classes, n_query)
+    shots = centers[s_cls] + rng.randn(n_shot, dim)
+    queries = centers[q_cls] + rng.randn(n_query, dim) * 1.5
+    return tuple(torch.from_numpy(np.asarray(a, t)).to(device)
+                 for a, t in ((shots, np.float32), (s_cls, np.int64), (queries, np.float32)))
+
+
+def verify_reference_check(tag):
+    """A narrow ViT at float32 (depth 2, dim 128, 2 heads, patch 16, 224
+    crops: N = 197, not a multiple of any tile) on the card (kernel) and on
+    the CPU (plain version) from the same weights: CLS descriptors within
+    1e-5 of the largest |descriptor|. Then knn_vote on the card and on the
+    CPU on seeded clustered descriptors: similarities within 1e-5, and equal
+    top-k labels and modes where the k-th and (k+1)-th similarities are more
+    than 1e-4 apart (all but near-ties, which are counted)."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.backbone.vit import VisionTransformer, random_init
+    from lvc_tpu_torch.ops.attention import flash_attention
+    from lvc_tpu_torch.ops.knn import knn_vote, similarity
+
+    cpu = random_init(VisionTransformer(16, 128, 2, 2), seed=1).eval()
+    gpu = VisionTransformer(16, 128, 2, 2).cuda().eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(2).randn(4, 224, 224, 3).astype(np.float32))
+    before = flash_attention.launches
+    with torch.no_grad():
+        want = cpu(x)
+        got = gpu(x.cuda()).cpu()
+    launched = flash_attention.launches - before
+    rel = float((got - want).abs().max() / want.abs().max())
+    if launched != 2 or rel > 1e-5:
+        raise AssertionError(f"narrow ViT card vs CPU: rel err {rel}, kernel launches {launched}")
+
+    k = 10
+    cs, cl, cq = clustered(3, 600, 2000, 12, 128, "cpu")
+    sim_c = similarity(cs, cq)
+    sim_g = similarity(cs.cuda(), cq.cuda()).cpu()
+    sim_err = float((sim_c - sim_g).abs().max())
+    top = sim_c.sort(dim=-1, descending=True).values
+    clear = (top[:, k - 1] - top[:, k]) > 1e-4
+    tk_c, mode_c = knn_vote(cs, cl, cq, k=k)
+    tk_g, mode_g = knn_vote(cs.cuda(), cl.cuda(), cq.cuda(), k=k)
+    tk_g, mode_g = tk_g.cpu(), mode_g.cpu()
+    if sim_err > 1e-5 or not torch.equal(tk_c[clear], tk_g[clear]) or not torch.equal(mode_c[clear], mode_g[clear]):
+        raise AssertionError(f"knn_vote card vs CPU: sim err {sim_err}, labels or modes differ")
+    print(f"verify reference: narrow ViT (patch 16, dim 128, depth 2, N=197) card vs CPU at float32 "
+          f"rel err {rel:.2e} (tol 1e-5), {launched} kernel launches; knn_vote S=600 Q=2000 D=128 k={k}: "
+          f"sim err {sim_err:.2e} (tol 1e-5), top-k labels and modes equal on {int(clear.sum())} queries "
+          f"({int((~clear).sum())} near-ties skipped; modes equal on all: {torch.equal(mode_c, mode_g)}) {tag}")
+
+
+def verify_main_path(tag, kernels):
+    """DINO ViT-S/8 at full width, seeded random weights, B=64 uint8 crops of
+    224 through DescriptorExtractor.embed_crops, float32 (the CLI's dtype)
+    and bf16: 1 warm-up and 5 timed calls each, with the kernel's count set to
+    0 just before and read just after (12 launches per forward), one profiled
+    call with the device time of the ViT's profiler ranges. Then knn_vote at
+    a COCO size: S = 2,400 shots (30 x 80 classes), Q = 50,000 candidates,
+    D = 384, k = 10, cosine."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.ops.attention import flash_attention
+    from lvc_tpu_torch.ops.knn import knn_vote
+    from lvc_tpu_torch.pipeline.verification import DescriptorExtractor, build_dino
+
+    B, iters = 64, 5
+    crops = (np.random.RandomState(0).rand(B, 224, 224, 3) * 255).astype(np.uint8)
+    mean, std = [103.530, 116.280, 123.675], [57.375, 57.120, 58.395]
+    desc = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        model = build_dino("dino_vits8", compute_dtype=dtype)
+        ext = DescriptorExtractor(model, mean, std, batch=B)
+        ext.embed_crops(crops)  # warm-up
+        flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = ext.embed_crops(crops)  # returns numpy: synchronised
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches != 12 * iters:
+            raise AssertionError(f"verify main path {name}: {launches} kernel launches, want {12 * iters}")
+        if out.shape != (B, 384) or not np.isfinite(out).all():
+            raise AssertionError(f"verify main path {name}: descriptors {out.shape} or non-finite")
+        if dtype == torch.float32:
+            kernels["flash_attention_fwd"]["launches"] = launches
+        desc[name] = out
+        print(f"verify main path DINO ViT-S/8 224 {name} B={B}: {ms:.2f} ms/batch {B * 1e3 / ms:.1f} crops/s, "
+              f"launches {launches} ({iters} forwards), peak memory {peak / 2 ** 30:.2f} GiB {tag}")
+        profile_call(lambda: ext.embed_crops(crops), ms, f"{name} forward", tag, VIT_STAGES)
+        del model, ext
+        torch.cuda.empty_cache()
+    # the host's share of embed_crops: its float32 normalisation in numpy
+    mean32, std32 = np.asarray(mean, np.float32), np.asarray(std, np.float32)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        (crops.astype(np.float32) - mean32) / std32
+    norm_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"verify main path: host normalisation of {B} crops in numpy {norm_ms:.2f} ms (host clock) {tag}")
+    a, b = desc["float32"], desc["bfloat16"]
+    cos = (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+    print(f"verify main path: bf16 vs float32 descriptor cosine min {cos.min():.6f} mean {cos.mean():.6f} {tag}")
+
+    shots, classes, queries = clustered(4, 2400, 50000, 80, 384, "cuda")
+    topk, mode = knn_vote(shots, classes, queries, k=10)
+    torch.cuda.synchronize()
+    if tuple(topk.shape) != (50000, 10) or int(mode.min()) < 0 or int(mode.max()) >= 80:
+        raise AssertionError(f"knn_vote: top-k {tuple(topk.shape)}, modes in [{int(mode.min())}, {int(mode.max())}]")
+    knn_ms = cuda_ms(lambda: knn_vote(shots, classes, queries, k=10), 10)
+    print(f"knn_vote S=2400 Q=50000 D=384 k=10 cosine: {knn_ms:.3f} ms ({50000 / knn_ms * 1e3:.0f} queries/s) {tag}")
+
+
+def cli_phase(tag):
+    """The port's verification CLI on the card, on a seeded mini COCO tree
+    (DINO ViT-S/16 with seeded random weights, k=3): the output JSON must
+    exist, and the kernel must have been launched."""
+    import json
+    import os
+    import tempfile
+
+    from lvc_tpu_torch.data import builtin  # noqa: F401
+    from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.meta_coco import register_meta_coco
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.ops.attention import flash_attention
+    from lvc_tpu_torch.tools import run_nearest_neighbours
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        candidates = write_mini_coco(root, seed=0)
+        os.environ["DETECTRON2_DATASETS"] = root
+        os.environ.pop("DINO_WEIGHTS", None)
+        register_mini_coco(root, DatasetCatalog, register_meta_coco, _get_builtin_metadata("coco_fewshot"))
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        run_nearest_neighbours.main(default_argument_parser().parse_args(
+            cli_args(root, candidates, os.path.join(tmp, "out"))))
+        secs = time.perf_counter() - t0
+        out = candidates.replace(".json", "_dino_vits16_03_cosine.json")
+        with open(out) as f:
+            kept = json.load(f)["annotations"]
+        with open(candidates) as f:
+            n = len(json.load(f)["annotations"])
+    launched = flash_attention.launches - before
+    if launched < 12:
+        raise AssertionError(f"the CLI launched the attention kernel {launched} times")
+    print(f"cli: run_nearest_neighbours on the mini COCO tree (6 images, {n} candidates), DINO ViT-S/16 "
+          f"random weights: kept {len(kept)} of {n}, {launched} kernel launches, {secs:.2f} s {tag}")
+
+
+def write_mini_coco(root: str, seed: int = 0) -> str:
+    """A seeded mini COCO tree in the layout the COCO registration reads:
+    six PNG images under ``coco/trainval2014``, their instances
+    (``cocosplit/datasplit/trainvalno5k.json``), 2-shot files for all 80
+    classes (``cocosplit/full_box_2shot_<class>_trainval.json``; person and
+    dog have 3 candidates each, so the 2-shot subsample draws) and
+    ``candidates.json``, detector candidates on the other images with ids and
+    scores, one of them on a truck (a seen class). Returns the candidates'
+    path."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "coco", "trainval2014")
+    split_dir = os.path.join(root, "cocosplit", "datasplit")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(split_dir, exist_ok=True)
+    H, W = 160, 200
+    images = []
+    for i in range(1, 7):
+        low = rng.randint(0, 256, (H // 8, W // 8, 3)).astype(np.uint8)
+        img = np.kron(low, np.ones((8, 8, 1), np.uint8))
+        Image.fromarray(img).save(os.path.join(img_dir, f"img_{i}.png"))
+        images.append({"id": i, "file_name": f"img_{i}.png", "height": H, "width": W})
+
+    def box():
+        w, h = rng.randint(24, 90, 2)
+        x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+        return [float(x), float(y), float(w), float(h)]
+
+    PERSON, DOG, TRUCK = 1, 18, 8
+    gt = []
+    for img in images:
+        for cat in (PERSON, DOG, TRUCK):
+            gt.append({"id": len(gt) + 1, "image_id": img["id"], "category_id": cat, "bbox": box(),
+                       "iscrowd": 0})
+    for a in gt:
+        a["area"] = a["bbox"][2] * a["bbox"][3]
+    cats = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]
+
+    def dump(path, imgs, anns):
+        with open(path, "w") as f:
+            json.dump({"images": imgs, "annotations": anns, "categories": cats}, f)
+
+    dump(os.path.join(split_dir, "trainvalno5k.json"), images, gt)
+    shot_imgs = {PERSON: (1, 2, 3), DOG: (1, 2, 4)}
+    for c in COCO_CATEGORIES:
+        ids = shot_imgs.get(c["id"], ())
+        anns = [a for a in gt if a["category_id"] == c["id"] and a["image_id"] in ids]
+        dump(os.path.join(root, "cocosplit", f"full_box_2shot_{c['name']}_trainval.json"),
+             [im for im in images if im["id"] in ids], anns)
+    cands = []
+    for img in images[3:]:
+        for k in range(4):
+            cands.append({"id": 1000 + len(cands), "image_id": img["id"], "category_id": (PERSON, DOG)[k % 2],
+                          "bbox": box(), "score": float(rng.uniform(0.3, 1.0)), "iscrowd": 0})
+        truck = next(a for a in gt if a["image_id"] == img["id"] and a["category_id"] == TRUCK)
+        cands.append({"id": 1000 + len(cands), "image_id": img["id"], "category_id": PERSON,
+                      "bbox": list(truck["bbox"]), "score": 0.9, "iscrowd": 0})
+    for a in cands:
+        a["area"] = a["bbox"][2] * a["bbox"][3]
+    path = os.path.join(root, "candidates.json")
+    dump(path, images[3:], cands)
+    return path
+
+
+def register_mini_coco(root: str, catalog, register_meta_coco, metadata) -> None:
+    """(Re)register the splits of ``MINI_SPLITS`` on the mini tree at
+    ``root``, as ``register_all_coco(root)`` registers them."""
+    import os
+
+    for name, annofile in MINI_SPLITS:
+        if name in catalog:
+            catalog.remove(name)
+        register_meta_coco(name, metadata, os.path.join(root, "coco", "trainval2014"),
+                           os.path.join(root, annofile))
+
+
+def cli_args(root: str, candidates: str, out_dir: str):
+    """The verification CLI's arguments on the mini tree: ViT-S/16, k=3,
+    cosine, seed 0 (the K-shot subsample draws from numpy's seeded state)."""
+    return [
+        "--eval-only",
+        "QUERY_EXPAND.NN_MODEL", "dino_vits16",
+        "QUERY_EXPAND.KNN", "3",
+        "QUERY_EXPAND.COSINE_SIM", "True",
+        "QUERY_EXPAND.NN_DSET", "('coco_trainval_all_2shot',)",
+        "DATASETS.DT_PATH", f"('{candidates}',)",
+        "DATASETS.TRAIN", "('coco_trainval_all',)",
+        "SEED", "0",
+        "OUTPUT_DIR", out_dir,
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -712,6 +1122,10 @@ def main() -> int:
     kernels["roi_align_paired_bwd"] = backward_kernel_phase(tag)
     train_reference_check(tag)
     train_main_path(tag, kernels)
+    kernels["flash_attention_fwd"] = attention_kernel_phase(tag)
+    verify_reference_check(tag)
+    verify_main_path(tag, kernels)
+    cli_phase(tag)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ The port's module names are detectron2's ``state_dict`` names, which
 flax tree. ``from_flax`` is the inverse of that mapping (as ``flax_to_torch``
 at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
 (in, out) -> (out, in), FrozenBN affine and statistics to ``<conv>.norm.*``.
-``to_flax`` goes the other way. Both work on plain nested dicts of numpy
+``to_flax`` goes the other way. ``vit_from_flax`` and ``vit_to_flax`` do the
+same for the DINO verifier ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
 """
 from __future__ import annotations
@@ -99,3 +100,53 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     if stats:
         out["batch_stats"] = _unflatten(stats)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The DINO verifier ViT (``modeling/backbone/vit.py``)
+# ---------------------------------------------------------------------------
+
+
+def vit_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX ViT's ``{"params"}`` numpy tree -> the port's (DINO's) state
+    dict: the inverse of ``convert_dino_torch_params``
+    (``lvc_tpu/modeling/backbone/vit.py:214``). Dense kernels (in, out) ->
+    (out, in), the patch-embed kernel (kh, kw, in, out) -> (out, in, kh, kw),
+    LayerNorm ``scale`` -> ``weight``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(variables["params"]).items():
+        parts, name = list(path[:-1]), path[-1]
+        if parts == ["patch_embed"]:
+            parts.append("proj")
+            if name == "kernel":
+                v = v.transpose(3, 2, 0, 1)
+        elif name == "kernel":
+            v = v.T
+        key = ".".join(parts + [{"kernel": "weight", "scale": "weight"}.get(name, name)])
+        out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return out
+
+
+def vit_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """The port's (or a DINO checkpoint's) ViT state dict -> the JAX ViT's
+    ``{"params"}`` tree; ``head.*`` is dropped. The inverse of
+    ``vit_from_flax``."""
+    params: Dict[Tuple[str, ...], np.ndarray] = {}
+    for key, val in state_dict.items():
+        if key.startswith("head."):
+            continue
+        v = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        parts = key.split(".")
+        if parts[0] == "blocks":  # flax names the block "blocks.{i}"
+            parts = [f"blocks.{parts[1]}"] + parts[2:]
+        mod, name = parts[:-1], parts[-1]
+        if mod == ["patch_embed", "proj"]:
+            mod = ["patch_embed"]
+            if name == "weight":
+                v, name = v.transpose(2, 3, 1, 0), "kernel"
+        elif name == "weight" and v.ndim == 2:
+            v, name = v.T, "kernel"
+        elif name == "weight":
+            name = "scale"
+        params[tuple(mod + [name])] = v
+    return {"params": _unflatten(params)}

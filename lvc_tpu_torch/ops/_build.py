@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file (``roi_align_fwd``: K1, K2; ``roi_align_bwd``: K3)
-exposes a plain C interface. It is compiled by hand
+Each ``csrc/*.cu`` file (``roi_align_fwd``: K1, K2; ``roi_align_bwd``: K3;
+``flash_attention_fwd``: the DINO verifier's attention) exposes a plain C
+interface. It is compiled by hand
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) on first use, and loaded
 with ``ctypes``. That takes seconds, where ``torch.utils.cpp_extension.load``
@@ -24,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("roi_align_fwd", "roi_align_bwd")
+SOURCES = ("roi_align_fwd", "roi_align_bwd", "flash_attention_fwd")
 
 _loaded = {}
 
@@ -46,6 +47,12 @@ SIGNATURES = {
         "roi_align_paired_fwd": _ROI_ALIGN_ARGS,
     },
     "roi_align_bwd": {"roi_align_paired_bwd": _ROI_ALIGN_BWD_ARGS},
+    # flash_attention_fwd(q, k, v, sb, sn, sh, B, N, H, d, scale, out, is_bf16,
+    #   stream) -> cudaError_t
+    "flash_attention_fwd": {
+        "flash_attention_fwd": [_P, _P, _P] + [ctypes.c_longlong] * 3 + [_I] * 4
+        + [ctypes.c_float, _P, _I, _P],
+    },
 }
 
 

@@ -3,10 +3,38 @@
 Counterpart of ``lvc_tpu/structures/boxes.py:45-95`` (area, clip, nonempty,
 pairwise_iou, pairwise_ioa), with the same formulas in the same operation order so the
 NMS decisions made from these IoUs match the JAX package bit for bit.
+``BoxMode`` is the dataset dicts' box encoding, converted in numpy.
 """
 from __future__ import annotations
 
+import enum
+
+import numpy as np
 import torch
+
+
+class BoxMode(enum.IntEnum):
+    """The reference's encoding (``lvc_tpu/structures/boxes.py:20``)."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+    XYXY_REL = 2
+    XYWH_REL = 3
+    XYWHA_ABS = 4
+
+    @staticmethod
+    def convert(box, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
+        """Convert (..., 4) numpy boxes between XYXY_ABS and XYWH_ABS."""
+        if from_mode == to_mode:
+            return box
+        box = np.asarray(box)
+        if from_mode == BoxMode.XYWH_ABS and to_mode == BoxMode.XYXY_ABS:
+            x, y, w, h = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+            return np.stack([x, y, x + w, y + h], axis=-1)
+        if from_mode == BoxMode.XYXY_ABS and to_mode == BoxMode.XYWH_ABS:
+            x0, y0, x1, y1 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+            return np.stack([x0, y0, x1 - x0, y1 - y0], axis=-1)
+        raise NotImplementedError(f"Conversion {from_mode} -> {to_mode} not supported")
 
 
 def area(boxes: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The port stands alone: importing it and building a model pulls in neither
+"""The port stands alone: importing it and building a model (the detector, the
+verifier ViT and its CLI) pulls in neither
 jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
 and without a GPU the entry points refuse to run unless asked for the CPU."""
 import ast
@@ -43,6 +44,9 @@ def test_import_and_build_leave_jax_out():
         "cfg = get_cfg(); cfg.merge_from_file('configs/Base-RCNN-FPN.yaml')\n"
         "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
         "build_model(cfg, device='cpu')\n"
+        "import lvc_tpu_torch.tools.run_nearest_neighbours\n"
+        "from lvc_tpu_torch.pipeline.verification import build_dino\n"
+        "build_dino('dino_vits16', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -12,7 +12,8 @@ accumulator element must be within 1e-5 * S of the plain backward, where S
 is the plain backward run on |gout| and |weights| (the absolute sum of the
 element's contributions); after the cast to bf16, within 1 bf16 ulp of the
 plain version's cast plus that float32 tolerance (a sum that cancels to near
-0 has an ulp below the float32 error).
+0 has an ulp below the float32 error). The attention kernel is held to its
+plain version as its test says.
 """
 import numpy as np
 import pytest
@@ -213,3 +214,55 @@ def test_cuda_gout_never_takes_the_plain_backward(monkeypatch):
     monkeypatch.setattr(tra.RoiAlignBackwardKernel, "_check", staticmethod(lambda *a: None))
     with pytest.raises(RuntimeError, match="no kernel library"):
         tra.roi_align_paired_bwd([f.shape for f in feats], taps, _DeviceView(gout, FakeCuda()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mild", "peaked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [785, 768], ids=["tail", "aligned"])
+def test_flash_attention_matches_plain_on_card(cuda_device, N, dtype, case):
+    """The attention kernel against its plain version on the qkv Linear's
+    output layout: float32 within 1e-5 max abs; bf16 within 2 bf16 ulps of
+    the largest |out| of each (batch, head) (the kernel casts exp(s - running
+    max) to bf16, the plain version exp(s - max)). "peaked" is
+    ``chip_smoke.peaked``: logits that span tens, with the running max
+    jumping late in the row."""
+    from chip_smoke import peaked
+    from lvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    B, H, d = 2, 6, 64
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    qkv = (torch.randn(B, N, 3 * H * d, generator=g, device=cuda_device) * 0.5).view(B, N, 3, H, d)
+    if case == "peaked":
+        qkv = peaked(qkv)
+    qkv = qkv.to(getattr(torch, dtype))
+    before = flash_attention.launches
+    got = flash_attention(qkv, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (B, N, H * d) and got.dtype == qkv.dtype
+    want = flash_attention_plain(qkv, d ** -0.5).float()
+    err = (got.float() - want).abs()
+    if dtype == "float32":
+        assert float(err.max()) <= 1e-5
+    else:
+        mx = want.abs().view(B, N, H, d).amax(dim=(1, 3))
+        ulp = torch.exp2(torch.floor(torch.log2(mx)) - 7)
+        assert bool((err.view(B, N, H, d).amax(dim=(1, 3)) <= 2 * ulp).all())
+
+
+def test_cuda_qkv_never_takes_the_plain_attention(monkeypatch):
+    """A CUDA qkv launches the attention kernel or raises."""
+    from lvc_tpu_torch.ops import _build
+    from lvc_tpu_torch.ops.attention import flash_attention
+
+    class FakeCuda:
+        type = "cuda"
+
+    def refuse(name="flash_attention_fwd"):
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    qkv = _DeviceView(torch.zeros(1, 8, 3, 2, 64), FakeCuda())
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        flash_attention(qkv, 0.125)
