@@ -41,7 +41,25 @@ Phases, each of which raises (non-zero exit) on failure:
    before and read just after, one profiled call with the device time of the
    ViT's profiler ranges; knn_vote at S=2,400, Q=50,000, D=384, k=10;
 11. the verification CLI (run_nearest_neighbours) on the card on a seeded
-   mini COCO tree written to a temporary directory.
+   mini COCO tree written to a temporary directory;
+12. fused kernel phase: the fused residual GEMM kernel and its plain version
+   at the seven shapes of the fused calls of the serving path (every
+   bottleneck conv3 and the FPN laterals, 8x832x1344), ReLU on and off and a
+   ragged M: error in bf16 ulps, card ms, plain ms, the bound, and the
+   unfused Conv2d tail's and torch.matmul's ms beside them;
+13. fused reference check: a narrow R-50-FPN at bf16 with
+   LVC_TPU_FUSED_RESIDUAL=1 on the card and on the CPU from the same
+   weights: FPN outputs, proposals and the kernel's launches (19);
+14. fused serving path: phase 4's R-101-FPN with LVC_TPU_FUSED_RESIDUAL=1,
+   timed in turns with the unfused form on the same model (unfused, fused,
+   fused, unfused; 3 forwards each, 36 fused launches per forward), one
+   profiled fused forward, then lvc_tpu_torch.tools.check_fused_serving at
+   B=8;
+15. fused training path: phase 7's step with LVC_TPU_FUSED_RESIDUAL=1, in
+   turns with the unfused step on the same model (5 steps each; 32 fused
+   launches per step: 19 forward, 13 recomputed under REMAT), one profiled
+   fused step.
+Phases 1-11 run with the fused path off, whatever the environment says.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
@@ -67,7 +85,8 @@ KERNEL_SOURCE = {
     "roi_align_paired": "lvc_tpu_torch/ops/csrc/roi_align_fwd.cu",
     "roi_align_paired_bwd": "lvc_tpu_torch/ops/csrc/roi_align_bwd.cu",
 }
-HAND_KERNELS = ("roi_align_rows_kernel", "roi_align_paired_bwd_kernel", "flash_attention_fwd_kernel")
+HAND_KERNELS = ("roi_align_rows_kernel", "roi_align_paired_bwd_kernel", "flash_attention_fwd_kernel",
+                "matmul_affine_residual_kernel")
 TRAIN_BOXES = 512  # ROI_HEADS.BATCH_SIZE_PER_IMAGE: the sampled boxes per image
 MAIN_SHAPES = [(208, 336), (104, 168), (52, 84), (26, 42)]  # p2-p5 of 832x1344
 STRIDES = (4, 8, 16, 32)
@@ -393,6 +412,7 @@ def main_path(tag, kernels):
         raise AssertionError(f"auto path did not go through the paired kernel: {counts}")
     check_detections(dets, 2)
     print(f"auto path R-101-FPN 832x1344 bf16 B=2: launches {counts} {tag}")
+    return ms
 
 
 def profile_call(fn, untraced_ms, what, tag, stages=()):
@@ -663,6 +683,7 @@ def train_main_path(tag, kernels):
     profile_call(lambda: step(batch, gen), ms, "train step", tag, TRAIN_STAGES)
     del model, opt
     torch.cuda.empty_cache()
+    return ms, peak
 
 
 # the profiler ranges of GeneralizedRCNN._losses and make_train_step's step
@@ -1088,6 +1109,357 @@ def cli_args(root: str, candidates: str, out_dir: str):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The opt-in fused residual GEMM (LVC_TPU_FUSED_RESIDUAL=1)
+# ---------------------------------------------------------------------------
+
+# (name, B, H, W, K, N, ReLU, calls per R-101-FPN forward): the fused calls of
+# the serving path at 8x832x1344 (every bottleneck conv3 and the FPN laterals
+# of the sum top-down path); R-50 has 6 res4 blocks, not 23
+FUSED_SHAPES = (
+    ("res2 conv3", 8, 208, 336, 64, 256, True, 3),
+    ("res3 conv3", 8, 104, 168, 128, 512, True, 4),
+    ("res4 conv3", 8, 52, 84, 256, 1024, True, 23),
+    ("res5 conv3", 8, 26, 42, 512, 2048, True, 3),
+    ("lateral p4", 8, 52, 84, 1024, 256, False, 1),
+    ("lateral p3", 8, 104, 168, 512, 256, False, 1),
+    ("lateral p2", 8, 208, 336, 256, 256, False, 1),
+)
+FUSED_SOURCE = "lvc_tpu_torch/ops/csrc/fused_matmul.cu"
+FUSED_REPLACES = "lvc_tpu/ops/fused_matmul.py:76"
+
+
+def fused_calls(model):
+    """(per forward, recomputed per train step): the Conv2d calls the fused
+    gate takes in ``model``'s backbone, one per bottleneck conv3 and one per
+    FPN lateral that has a level above it (fuse_type sum); and, under REMAT
+    in training, the conv3 of every block that the backward recomputes, which
+    is every block with a trainable parameter (the frozen stages take no
+    gradient; FREEZE_AT 2 freezes the stem and res2)."""
+    fpn = model.backbone
+    blocks = [b for name in fpn.bottom_up.stage_names for b in getattr(fpn.bottom_up, name)]
+    forward = len(blocks) + (len(fpn.in_features) - 1 if fpn.fuse_type == "sum" else 0)
+    recomputed = sum(any(p.requires_grad for p in b.parameters()) for b in blocks) if fpn.bottom_up.remat else 0
+    return forward, recomputed
+
+
+def fused_error(got, want, x2d, w_kn, scale, shift, res2d):
+    """Per element, the kernel against its plain version: 1 bf16 ulp of the
+    plain result plus 1e-5 * S, S = |x| @ |w| * |scale| + |shift| + |res|
+    (the float32 summation orders differ; where the sum cancels towards 0
+    the difference is many of the small result's own ulps). Returns (ok, max
+    abs err, elements at 1 ulp, elements over 1 ulp alone, max err / S of
+    those)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    S = (x2d.float().abs() @ w_kn.float().abs()) * scale.abs() + shift.abs() + res2d.float().abs()
+    err = (g - w).abs()
+    ulp = bf16_ulp(w)
+    ok = bool((err <= ulp + 1e-5 * S).all())
+    over = err > ulp
+    n_over = int(over.sum())
+    ratio = float((err[over] / S[over]).max()) if n_over else 0.0
+    del S
+    return ok, float(err.max()), int(((err > 0) & ~over).sum()), n_over, ratio
+
+
+def fused_bound(M, K, N):
+    """Least time for one call: x, w, residual read once and out written once
+    (bf16) over the memory rate, against 2*M*K*N operations at the dense bf16
+    tensor-core rate."""
+    nbytes = 2 * (M * K + K * N + 2 * M * N)
+    ops = 2 * M * K * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def fused_kernel_phase(tag):
+    """The fused GEMM kernel and its plain version on seeded bf16 inputs at
+    each shape of FUSED_SHAPES (folded-BN-like scale in [0.5, 1.5], shift
+    N(0, 1)), ReLU on and off, and a ragged M of 1,000 rows: error
+    (``fused_error``), card ms, plain ms and the bound; beside them, as
+    information only, the unfused tail of today's Conv2d on the same tensors
+    (cuDNN 1x1 conv, FrozenBN, residual add, ReLU; or conv with bias and the
+    add) and torch.matmul's bare product. No one PyTorch call computes the
+    GEMM with this epilogue, so there is no library time. Returns the
+    kernel's row, its times summed over the 36 calls of one R-101-FPN
+    forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from lvc_tpu_torch.modeling.layers import Conv2d, fused_residual
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual as kernel
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual_plain as plain
+
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0, matmul_ms=0.0)
+    max_err, shapes = 0.0, []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, B, H, W, K, N, relu, calls in FUSED_SHAPES:
+        x = torch.randn(B, H, W, K, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(N, K, generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
+        scale = torch.rand(N, generator=g, device="cuda") + 0.5
+        shift = torch.randn(N, generator=g, device="cuda")
+        res = torch.randn(B, H, W, N, generator=g, device="cuda").to(torch.bfloat16)
+        M = B * H * W
+        x2d, res2d, w_kn = x.view(M, K), res.view(M, N), w.t()
+        cases = [(M, relu), (M, not relu)] + ([(1000, relu)] if name == "res2 conv3" else [])
+        for rows, r in cases:
+            args = (x2d[:rows], w_kn, scale, shift, res2d[:rows])
+            got = kernel(*args, relu=r)
+            torch.cuda.synchronize()
+            want = plain(*args, relu=r)
+            if tuple(got.shape) != (rows, N) or got.dtype != torch.bfloat16 or not torch.isfinite(got).all():
+                raise AssertionError(f"matmul_affine_residual {name}: shape, dtype or non-finite")
+            ok, err, at_ulp, over, ratio = fused_error(got, want, *args)
+            if not ok:
+                raise AssertionError(f"matmul_affine_residual {name} M={rows} relu={r}: max abs err {err}, "
+                                     f"over 1 bf16 ulp + 1e-5 * S")
+            max_err = max(max_err, err)
+            print(f"kernel matmul_affine_residual {name} (M, K, N) ({rows}, {K}, {N}) relu {r}: max_abs_err "
+                  f"{err} ({at_ulp} elements at 1 bf16 ulp, {over} over it alone, max err/S {ratio:.2e}; "
+                  f"tolerance 1 ulp + 1e-5 * S) {tag}")
+            del got, want
+        ms = cuda_ms(lambda: kernel(x2d, w_kn, scale, shift, res2d, relu=relu), 20)
+        plain_ms = cuda_ms(lambda: plain(x2d, w_kn, scale, shift, res2d, relu=relu), 3)
+        matmul_ms = cuda_ms(lambda: torch.matmul(x2d, w_kn), 20)
+        conv = (Conv2d(K, N, kernel_size=1, bias=False, norm="FrozenBN", activation=F.relu) if relu
+                else Conv2d(K, N, kernel_size=1, bias=True)).cuda().to(memory_format=torch.channels_last)
+        with torch.no_grad():
+            conv.weight.copy_(w.float().view(N, K, 1, 1))
+            if relu:
+                conv.norm.weight.copy_(scale)
+                conv.norm.bias.copy_(shift)
+            else:
+                conv.bias.copy_(shift)
+        x_nchw, res_nchw = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
+        with fused_residual(False), torch.no_grad():
+            unfused_ms = cuda_ms(lambda: conv(x_nchw, residual=res_nchw), 20)
+        bound_ms, bound_by, nbytes, ops = fused_bound(M, K, N)
+        print(f"kernel matmul_affine_residual {name} (M, K, N) ({M}, {K}, {N}) x{calls} per R-101 forward: "
+              f"ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, "
+              f"{ops} flops) share of bound {bound_ms / ms:.3f}; unfused Conv2d tail ms {unfused_ms:.4f}, "
+              f"torch.matmul product alone ms {matmul_ms:.4f} {tag}")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("unfused_ms", unfused_ms), ("matmul_ms", matmul_ms)):
+            total[key] += calls * v
+        shapes.append(dict(shape=[M, K, N], calls=calls, ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                           unfused_ms=unfused_ms))
+        del x, w, res, x2d, res2d, w_kn, conv, x_nchw, res_nchw
+        torch.cuda.empty_cache()
+    print(f"kernel matmul_affine_residual, the 36 calls of one R-101-FPN forward: ms {total['ms']:.4f} "
+          f"bound_ms {total['bound_ms']:.4f} plain_ms {total['plain_ms']:.3f} unfused Conv2d tails ms "
+          f"{total['unfused_ms']:.4f} torch.matmul products ms {total['matmul_ms']:.4f} {tag}")
+    return dict(
+        name="matmul_affine_residual", route="cuda", source=FUSED_SOURCE, replaces=FUSED_REPLACES,
+        launches=0, max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"], bound_by="bytes", library_ms=None,
+        work="the 36 calls of one R-101-FPN forward at 8x832x1344 (times summed)", shapes=shapes,
+    )
+
+
+def fused_reference_check(tag):
+    """A narrow R-50-FPN in bf16 with the fused path on, on the card (kernel)
+    and on the CPU (plain version), from the same weights: FPN outputs within
+    2e-2 of each level's max |p| (bf16 convolutions of cuDNN and of the CPU
+    round differently through 16 blocks), the kernel launched once per fused
+    call (19); proposals as sets, since bf16 near-ties reorder the top-k: the
+    same number valid, and in each image at least 85% of the card's valid
+    proposals with a CPU proposal at IoU >= 0.9 (95-96% between the fused
+    and unfused bf16 forms on the CPU)."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.layers import fused_residual
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+    from lvc_tpu_torch.structures.boxes import pairwise_iou
+
+    rng = np.random.RandomState(3)
+    batch = {
+        "image": (rng.rand(2, 128, 192, 3) * 255).astype(np.float32),
+        "image_size": np.array([[128, 192], [112, 160]], np.int32),
+    }
+    cfg = narrow_cfg("pallas_fast")
+    cfg.MODEL.DTYPE = "bfloat16"
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 200
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 100
+    cpu = build_model(cfg, device="cpu")
+    calibrated_init(cpu, seed=0)
+    gpu = build_model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    with fused_residual(True):
+        want = cpu.backbone_features(batch)
+        before = matmul_affine_residual.launches
+        got = gpu.backbone_features(batch)
+        torch.cuda.synchronize()
+        launched = matmul_affine_residual.launches - before
+        c_props, _, c_valid = cpu.proposals(batch)
+        g_props, _, g_valid = (t.cpu() for t in gpu.proposals(batch))
+    expected = fused_calls(gpu)[0]
+    if launched != expected:
+        raise AssertionError(f"fused reference: {launched} kernel launches, want {expected}")
+    rels = {k: float((got[k].cpu().float() - v.float()).abs().max() / v.float().abs().max()) for k, v in want.items()}
+    if max(rels.values()) > 2e-2:
+        raise AssertionError(f"fused reference: FPN outputs card vs CPU {rels}")
+    matched = []
+    for i in range(2):
+        best = pairwise_iou(g_props[i][g_valid[i]], c_props[i][c_valid[i]]).max(1).values
+        matched.append(float((best >= 0.9).float().mean()))
+    if int(c_valid.sum()) != int(g_valid.sum()) or min(matched) < 0.85:
+        raise AssertionError(f"fused reference: proposals valid {int(g_valid.sum())} vs {int(c_valid.sum())}, "
+                             f"share matched at IoU 0.9 {matched}")
+    print(f"fused reference: narrow R-50-FPN bf16 card vs CPU, FPN max err / max |p| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rels.items()))
+          + f" (tol 2e-2), {launched} kernel launches (want {expected}); {int(g_valid.sum())} proposals valid "
+          f"on both, share with a CPU proposal at IoU >= 0.9: {matched} (tol 0.85) {tag}")
+
+
+def fused_main_path(tag, kernels, unfused_ms):
+    """R-101-FPN serving as in main_path, fused and unfused on the same model
+    in turns (unfused, fused, fused, unfused; 3 timed forwards each after one
+    warm-up of each form), so both see the same host and card: every kernel
+    count set to 0 just before the first fused turn and read just after (36
+    fused launches per forward); ms/batch of both forms beside the unfused
+    main path's of this run; one profiled fused forward; then the
+    check_fused_serving comparison at B=8."""
+    import torch
+
+    from lvc_tpu_torch.modeling.layers import fused_residual
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+    from lvc_tpu_torch.tools import check_fused_serving
+    from lvc_tpu_torch.utils.init import damped_init
+
+    wrappers = {"roi_align_band": ra.roi_align_band, "roi_align_paired": ra.roi_align_paired,
+                "matmul_affine_residual": matmul_affine_residual}
+    model = damped_init(build_model(serving_cfg("pallas_fast")), seed=0)
+    per_forward = fused_calls(model)[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, W = 8, 832, 1344
+    batch = {
+        "image": torch.rand(B, H, W, 3, generator=g, device="cuda") * 255,
+        "image_size": torch.tensor([[H, W]] * B, dtype=torch.int32, device="cuda"),
+    }
+    iters = 3
+
+    def turn(fused):
+        with fused_residual(fused):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                dets = model(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / iters, dets
+
+    for fused in (False, True):  # warm-up
+        with fused_residual(fused):
+            model(batch)
+    torch.cuda.synchronize()
+    u1, _ = turn(False)
+    for w in wrappers.values():
+        w.launches = 0
+    f1, dets = turn(True)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if counts["matmul_affine_residual"] != per_forward * iters or counts["roi_align_band"] < iters:
+        raise AssertionError(f"fused main path: launches {counts}, want {per_forward} fused per forward")
+    kernels["matmul_affine_residual"]["launches"] = counts["matmul_affine_residual"]
+    check_detections(dets, B)
+    f2, _ = turn(True)
+    u2, _ = turn(False)
+    ms, u_ms = (f1 + f2) / 2, (u1 + u2) / 2
+    print(f"fused main path R-101-FPN 832x1344 bf16 pallas_fast B={B} LVC_TPU_FUSED_RESIDUAL=1, in turns "
+          f"unfused/fused/fused/unfused: {u1:.2f}, {f1:.2f}, {f2:.2f}, {u2:.2f} ms/batch; fused {ms:.2f} ms/batch "
+          f"{B * 1e3 / ms:.2f} img/s, unfused {u_ms:.2f} ms/batch {B * 1e3 / u_ms:.2f} img/s, speedup "
+          f"{u_ms / ms:.3f}x (unfused main path earlier in this run: {unfused_ms:.2f} ms/batch); launches "
+          f"{counts} ({per_forward} fused per forward) {tag}")
+    with fused_residual(True):
+        profile_call(lambda: model(batch), ms, "fused forward", tag)
+    del model
+    torch.cuda.empty_cache()
+    print(f"check_fused_serving --batch {B} --iters 3: {tag}")
+    res = check_fused_serving.compare(batch=B, height=H, width=W, iters=3)
+    if res["valid_fused"] != res["valid_unfused"]:
+        raise AssertionError(f"check_fused_serving: valid counts differ {res}")
+    torch.cuda.empty_cache()
+
+
+def fused_train_path(tag, kernels, unfused):
+    """The R-50-FPN AMP train step as in train_main_path, fused and unfused on
+    the same model in turns (unfused, fused, fused, unfused; 5 timed steps
+    each after one warm-up step of each form): every kernel count set to 0
+    just before the first fused turn and read just after, the fused launches
+    per step derived from the model (``fused_calls``: 19 forward + 13
+    recomputed under REMAT), finite losses, ms/step and peak memory of both
+    forms beside the unfused train path's of this run, one profiled fused
+    step."""
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.modeling.layers import fused_residual
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+    from lvc_tpu_torch.utils.init import damped_init
+
+    wrappers = {"roi_align_paired": ra.roi_align_paired, "roi_align_paired_bwd": ra.roi_align_paired_bwd,
+                "matmul_affine_residual": matmul_affine_residual}
+    cfg = train_cfg()
+    model = damped_init(build_model(cfg), seed=0).train()
+    opt = build_optimizer(cfg, model)  # sets requires_grad by FREEZE_AT
+    forward, recomputed = fused_calls(model)
+    step = make_train_step(model, opt, build_lr_schedule(cfg, opt), mixed_precision=cfg.SOLVER.AMP.ENABLED)
+    B, H, W = 8, 832, 1344
+    batch = train_batch(B, H, W, cfg.PAD.MAX_GT_PER_IMAGE, seed=0, device="cuda",
+                        num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = 5
+
+    def turn(fused):
+        with fused_residual(fused):
+            t0 = time.perf_counter()
+            metrics = [step(batch, gen) for _ in range(steps)]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / steps, metrics
+
+    for fused in (False, True):  # warm-up
+        with fused_residual(fused):
+            step(batch, gen)
+    torch.cuda.synchronize()
+    u1, _ = turn(False)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    f1, metrics = turn(True)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = (forward + recomputed) * steps
+    if counts["matmul_affine_residual"] != want or min(counts.values()) < steps:
+        raise AssertionError(f"fused train path: launches {counts}, want {forward} + {recomputed} fused per step")
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"fused train path: non-finite losses {losses}")
+    kernels["matmul_affine_residual"]["train_launches"] = counts["matmul_affine_residual"]
+    f2, _ = turn(True)
+    torch.cuda.reset_peak_memory_stats()
+    u2, _ = turn(False)
+    u_peak = torch.cuda.max_memory_allocated()
+    ms, u_ms = (f1 + f2) / 2, (u1 + u2) / 2
+    print(f"fused train path R-50-FPN 832x1344 AMP bf16 pallas_train B={B} LVC_TPU_FUSED_RESIDUAL=1, in turns "
+          f"unfused/fused/fused/unfused: {u1:.2f}, {f1:.2f}, {f2:.2f}, {u2:.2f} ms/step; fused {ms:.2f} ms/step "
+          f"{B * 1e3 / ms:.2f} img/s, peak memory {peak / 2 ** 30:.2f} GiB; unfused {u_ms:.2f} ms/step, peak "
+          f"{u_peak / 2 ** 30:.2f} GiB; speedup {u_ms / ms:.3f}x (unfused train path earlier in this run: "
+          f"{unfused[0]:.2f} ms/step); launches {counts} ({forward} forward + {recomputed} recomputed under "
+          f"REMAT per step) {tag}")
+    for i, m in enumerate(losses):
+        print(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items())) + f" {tag}")
+    with fused_residual(True):
+        profile_call(lambda: step(batch, gen), ms, "fused train step", tag, TRAIN_STAGES)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1095,6 +1467,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from lvc_tpu_torch.modeling.layers import fused_residual
         from lvc_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -1117,15 +1490,20 @@ def main() -> int:
                 print(f"  {line.strip()} {tag}")
 
     kernels = kernel_phase(tag)
-    reference_check(tag)
-    main_path(tag, kernels)
-    kernels["roi_align_paired_bwd"] = backward_kernel_phase(tag)
-    train_reference_check(tag)
-    train_main_path(tag, kernels)
+    with fused_residual(False):
+        reference_check(tag)
+        serving_ms = main_path(tag, kernels)
+        kernels["roi_align_paired_bwd"] = backward_kernel_phase(tag)
+        train_reference_check(tag)
+        train = train_main_path(tag, kernels)
     kernels["flash_attention_fwd"] = attention_kernel_phase(tag)
     verify_reference_check(tag)
     verify_main_path(tag, kernels)
     cli_phase(tag)
+    kernels["matmul_affine_residual"] = fused_kernel_phase(tag)
+    fused_reference_check(tag)
+    fused_main_path(tag, kernels, serving_ms)
+    fused_train_path(tag, kernels, train)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

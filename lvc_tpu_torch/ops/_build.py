@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` file (``roi_align_fwd``: K1, K2; ``roi_align_bwd``: K3;
-``flash_attention_fwd``: the DINO verifier's attention) exposes a plain C
-interface. It is compiled by hand
+``flash_attention_fwd``: the DINO verifier's attention; ``fused_matmul``: the
+backbone's fused 1x1-conv GEMM) exposes a plain C interface. It is compiled by hand
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) on first use, and loaded
 with ``ctypes``. That takes seconds, where ``torch.utils.cpp_extension.load``
@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("roi_align_fwd", "roi_align_bwd", "flash_attention_fwd")
+SOURCES = ("roi_align_fwd", "roi_align_bwd", "flash_attention_fwd", "fused_matmul")
 
 _loaded = {}
 
@@ -53,6 +53,9 @@ SIGNATURES = {
         "flash_attention_fwd": [_P, _P, _P] + [ctypes.c_longlong] * 3 + [_I] * 4
         + [ctypes.c_float, _P, _I, _P],
     },
+    # matmul_affine_residual(x, w, scale, shift, res, out, M, N, K, relu,
+    #   stream) -> cudaError_t
+    "fused_matmul": {"matmul_affine_residual": [_P] * 6 + [_I] * 4 + [_P]},
 }
 
 

@@ -266,3 +266,86 @@ def test_cuda_qkv_never_takes_the_plain_attention(monkeypatch):
     qkv = _DeviceView(torch.zeros(1, 8, 3, 2, 64), FakeCuda())
     with pytest.raises(RuntimeError, match="no kernel library"):
         flash_attention(qkv, 0.125)
+
+
+def _fused_inputs(M, K, N, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(N, K, generator=g, device=device) * K ** -0.5).to(torch.bfloat16)
+    scale = torch.rand(N, generator=g, device=device) + 0.5
+    shift = torch.randn(N, generator=g, device=device)
+    res = torch.randn(M, N, generator=g, device=device).to(torch.bfloat16)
+    return x, w.t(), scale, shift, res
+
+
+def _fused_within_tolerance(got, want, x, w_kn, scale, shift, res):
+    """1 bf16 ulp of the plain result plus 1e-5 * S per element, S =
+    |x| @ |w| * |scale| + |shift| + |res| (``chip_smoke.fused_error``)."""
+    S = (x.float().abs() @ w_kn.float().abs()) * scale.abs() + shift.abs() + res.float().abs()
+    err = (got.float() - want.float()).abs()
+    return bool((err <= _bf16_ulp(want.float()) + 1e-5 * S).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(34944, 256, 1024), (1000, 64, 256)], ids=["res4_conv3", "ragged"])
+def test_fused_matmul_matches_plain_on_card(cuda_device, shape, relu):
+    """The fused GEMM kernel against its plain version: 1 bf16 ulp + 1e-5 * S
+    per element (the float32 sums run in other orders; where a sum cancels
+    towards 0 they differ by more than the small result's own ulp)."""
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual, matmul_affine_residual_plain
+
+    args = _fused_inputs(*shape, cuda_device)
+    before = matmul_affine_residual.launches
+    got = matmul_affine_residual(*args, relu=relu)
+    torch.cuda.synchronize()
+    assert matmul_affine_residual.launches == before + 1
+    assert got.shape == (shape[0], shape[2]) and got.dtype == torch.bfloat16
+    assert _fused_within_tolerance(got, matmul_affine_residual_plain(*args, relu=relu), *args)
+
+
+@pytest.mark.cuda
+def test_fused_function_on_card_matches_cpu(cuda_device):
+    """MatmulAffineResidualFn on the card (kernel forward, cuBLAS bf16
+    products in the backward) against the same Function on the CPU (plain
+    forward, CPU products) from the same bf16 inputs: the output within the
+    kernel's tolerance, each gradient within rel L2 5e-3 (bf16 results of
+    float32 sums in other orders: about 1e-3)."""
+    from lvc_tpu_torch.ops.fused_matmul import MatmulAffineResidualFn
+
+    cpu_args = _fused_inputs(4096, 256, 512, "cpu", seed=1)
+    cot = torch.randn(4096, 512, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ts = [t.detach().to(dev).requires_grad_() for t in cpu_args]
+        y = MatmulAffineResidualFn.apply(*ts, True)
+        (y.float() * cot.to(dev)).sum().backward()
+        out[str(dev)] = y.detach().cpu(), [t.grad.cpu() for t in ts]
+    (y_c, g_c), (y_g, g_g) = out["cpu"], out[str(cuda_device)]
+    assert _fused_within_tolerance(y_g, y_c, *cpu_args)
+    for name, a, b in zip(("dx", "dw", "dscale", "dshift", "dres"), g_g, g_c):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        rel = float((a.double() - b.double()).norm() / b.double().norm())
+        assert rel <= 5e-3, (name, rel)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_x_never_takes_the_plain_fused_matmul(monkeypatch, dtype):
+    """A CUDA x launches the fused kernel or raises: a bf16 one with no
+    library to load raises, and a float32 one, which the kernel does not
+    take, raises before the library is asked for."""
+    from lvc_tpu_torch.ops import _build
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+
+    class FakeCuda:
+        type = "cuda"
+
+    def refuse(name="fused_matmul"):
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    dt = getattr(torch, dtype)
+    x = _DeviceView(torch.zeros(16, 64, dtype=dt), FakeCuda())
+    w, res = torch.zeros(32, 64, dtype=dt).t(), torch.zeros(16, 32, dtype=dt)
+    with pytest.raises(RuntimeError if dtype == "bfloat16" else TypeError):
+        matmul_affine_residual(x, w, torch.ones(32), torch.zeros(32), res)
