@@ -31,8 +31,9 @@ Phases, each of which raises (non-zero exit) on failure:
 8. attention kernel phase: the flash-attention kernel and its plain version
    on the same seeded qkv at the verifier's shape (B, N, H, d) =
    (64, 785, 6, 64), float32 and bf16: error (also on a peaked qkv whose
-   logits span tens), card ms, plain ms, the bound, and
-   scaled_dot_product_attention's ms on the same tensors as a yardstick;
+   logits span tens), card ms (beside the time before this kernel's
+   redesign), plain ms, the bound, and scaled_dot_product_attention's ms on
+   the same tensors as a yardstick;
 9. verify reference check: a narrow ViT (N = 197) at float32 on the card and
    on the CPU from the same weights, and knn_vote on the card and the CPU;
 10. verify main path: DINO ViT-S/8 at full width, seeded random weights,
@@ -45,8 +46,9 @@ Phases, each of which raises (non-zero exit) on failure:
 12. fused kernel phase: the fused residual GEMM kernel and its plain version
    at the seven shapes of the fused calls of the serving path (every
    bottleneck conv3 and the FPN laterals, 8x832x1344), ReLU on and off and a
-   ragged M: error in bf16 ulps, card ms, plain ms, the bound, and the
-   unfused Conv2d tail's and torch.matmul's ms beside them;
+   ragged M: error in bf16 ulps, card ms (beside the time before this
+   kernel's redesign), plain ms, the bound, the wrapper's host µs per call,
+   and the unfused Conv2d tail's and torch.matmul's ms beside them;
 13. fused reference check: a narrow R-50-FPN at bf16 with
    LVC_TPU_FUSED_RESIDUAL=1 on the card and on the CPU from the same
    weights: FPN outputs, proposals and the kernel's launches (19);
@@ -112,6 +114,22 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 100) -> float:
+    """The host's microseconds per call of ``fn`` (its enqueue, not the
+    card's time): the mean over ``iters`` calls after a synchronised warm-up,
+    with no synchronisation in between."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bf16_ulp(x):
@@ -757,11 +775,11 @@ def peaked(qkv):
     of std about 8 there), so in about a sixth of the rows the running max
     jumps by tens late in the row and the online softmax's rescale
     exp(m_old - m_new) falls far below 1, as in trained attention. v is left
-    as it is, so |out| stays under 2."""
+    as it is, so |out| stays under 2. (At N < 40 only the keys that exist.)"""
     N = qkv.shape[1]
     out = qkv * 1
     out[:, :, :2] *= 4
-    out[:, [N // 2 + 3, N - 40, N - 1], 1] *= 2
+    out[:, sorted({j for j in (N // 2 + 3, N - 40, N - 1) if 0 <= j < N}), 1] *= 2
     return out
 
 
@@ -831,9 +849,9 @@ def attention_kernel_phase(tag):
         bound_ms, bound_by, nbytes, ops = attention_bound(B, N, H, d, qkv.element_size(), rate)
         print(f"kernel flash_attention_fwd {name}: (B, N, H, d) {ATTN_SHAPE} max_abs_err {max_abs_err} "
               f"({tol_text}); {peak_text}; "
-              f"ms {ms:.4f} plain_ms {plain_ms:.3f} sdpa_ms {library_ms:.4f} bound_ms "
-              f"{bound_ms:.4f} ({bound_by}; {nbytes} bytes at 3.35 TB/s, {ops} flops at "
-              f"{rate / 1e12:.0f} TFLOP/s) share of bound {bound_ms / ms:.3f}, kernel/sdpa "
+              f"ms {ms:.4f} plain_ms {plain_ms:.3f} sdpa_ms "
+              f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes at 3.35 TB/s, {ops} "
+              f"flops at {rate / 1e12:.0f} TFLOP/s) share of bound {bound_ms / ms:.3f}, kernel/sdpa "
               f"{ms / library_ms:.2f} {tag}")
         rows[name] = dict(
             name="flash_attention_fwd", route="cuda", source="lvc_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -843,7 +861,8 @@ def attention_kernel_phase(tag):
         )
         del qkv, q, k, v
     torch.cuda.empty_cache()
-    return rows["float32"]
+    bf16 = {key: rows["bfloat16"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    return dict(rows["float32"], bfloat16=bf16)
 
 
 def clustered(seed, n_shot, n_query, classes, dim, device):
@@ -1193,7 +1212,7 @@ def fused_kernel_phase(tag):
     from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual_plain as plain
 
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0, matmul_ms=0.0)
-    max_err, shapes = 0.0, []
+    max_err, shapes, host = 0.0, [], []
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, B, H, W, K, N, relu, calls in FUSED_SHAPES:
         x = torch.randn(B, H, W, K, generator=g, device="cuda").to(torch.bfloat16)
@@ -1221,6 +1240,7 @@ def fused_kernel_phase(tag):
                   f"tolerance 1 ulp + 1e-5 * S) {tag}")
             del got, want
         ms = cuda_ms(lambda: kernel(x2d, w_kn, scale, shift, res2d, relu=relu), 20)
+        wrapper_us = host_us(lambda: kernel(x2d, w_kn, scale, shift, res2d, relu=relu))
         plain_ms = cuda_ms(lambda: plain(x2d, w_kn, scale, shift, res2d, relu=relu), 3)
         matmul_ms = cuda_ms(lambda: torch.matmul(x2d, w_kn), 20)
         conv = (Conv2d(K, N, kernel_size=1, bias=False, norm="FrozenBN", activation=F.relu) if relu
@@ -1239,22 +1259,27 @@ def fused_kernel_phase(tag):
         print(f"kernel matmul_affine_residual {name} (M, K, N) ({M}, {K}, {N}) x{calls} per R-101 forward: "
               f"ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, "
               f"{ops} flops) share of bound {bound_ms / ms:.3f}; unfused Conv2d tail ms {unfused_ms:.4f}, "
-              f"torch.matmul product alone ms {matmul_ms:.4f} {tag}")
+              f"torch.matmul product alone ms {matmul_ms:.4f}; wrapper host us per call {wrapper_us:.1f} {tag}")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                        ("unfused_ms", unfused_ms), ("matmul_ms", matmul_ms)):
             total[key] += calls * v
+        host.append(wrapper_us)
         shapes.append(dict(shape=[M, K, N], calls=calls, ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
-                           unfused_ms=unfused_ms))
+                           unfused_ms=unfused_ms, host_us=wrapper_us))
         del x, w, res, x2d, res2d, w_kn, conv, x_nchw, res_nchw
         torch.cuda.empty_cache()
+    host_mean = sum(host) / len(host)
     print(f"kernel matmul_affine_residual, the 36 calls of one R-101-FPN forward: ms {total['ms']:.4f} "
-          f"bound_ms {total['bound_ms']:.4f} plain_ms {total['plain_ms']:.3f} unfused Conv2d tails ms "
-          f"{total['unfused_ms']:.4f} torch.matmul products ms {total['matmul_ms']:.4f} {tag}")
+          f"bound_ms {total['bound_ms']:.4f} share of bound "
+          f"{total['bound_ms'] / total['ms']:.3f} plain_ms {total['plain_ms']:.3f} unfused Conv2d tails ms "
+          f"{total['unfused_ms']:.4f} torch.matmul products ms {total['matmul_ms']:.4f}; wrapper host us per "
+          f"call {host_mean:.1f} (mean of the seven shapes) {tag}")
     return dict(
         name="matmul_affine_residual", route="cuda", source=FUSED_SOURCE, replaces=FUSED_REPLACES,
         launches=0, max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=total["bound_ms"], bound_by="bytes", library_ms=None,
-        work="the 36 calls of one R-101-FPN forward at 8x832x1344 (times summed)", shapes=shapes,
+        host_us=host_mean, work="the 36 calls of one R-101-FPN forward at 8x832x1344 (times summed)",
+        shapes=shapes,
     )
 
 

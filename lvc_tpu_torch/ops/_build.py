@@ -7,7 +7,9 @@ with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) on first use, and loaded
 with ``ctypes``. That takes seconds, where ``torch.utils.cpp_extension.load``
 (which compiles PyTorch's headers) takes minutes. The library's file name
-carries a hash of its source, so an edited source is rebuilt.
+carries a hash of its source, of every ``csrc/*.cuh`` header and of the nvcc
+flags, so an edited source or header, or a changed flag, is rebuilt rather
+than loaded stale (a header edit rebuilds every kernel).
 """
 from __future__ import annotations
 
@@ -71,8 +73,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """``build/kernels/lib<name>-<hash>.so``: the hash covers the source, the
+    headers in ``csrc/`` and the flags it is built with."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:

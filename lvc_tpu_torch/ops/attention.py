@@ -45,7 +45,8 @@ class FlashAttention:
     On CPU tensors it returns the plain version. On CUDA tensors it launches
     the kernel (building it on first use) or raises; ``launches`` counts the
     launches and nothing else. The kernel reads q, k and v in place through
-    the strides of ``qkv`` (head dim 64, contiguous) and writes (B, N, H*d)."""
+    the strides of ``qkv`` (head dim 64, contiguous; every stride a multiple of
+    16 bytes, the tensor 16-byte aligned) and writes (B, N, H*d)."""
 
     HEAD_DIM = 64
 
@@ -65,9 +66,12 @@ class FlashAttention:
         sb, sn, s3, sh, sd = qkv.stride()
         if d != self.HEAD_DIM or sd != 1:
             raise ValueError(f"kernel needs head dim {self.HEAD_DIM}, contiguous; got d={d}, stride {sd}")
-        # 16-byte loads of 4 elements (float32) or 8-byte loads (bf16)
-        if any(s % 4 for s in (sb, sn, s3, sh)) or qkv.data_ptr() % 16:
-            raise ValueError(f"kernel needs strides that are multiples of 4 and 16-byte alignment: {qkv.stride()}")
+        # 16-byte cp.async chunks: 4 float32 or 8 bf16 elements
+        isz = qkv.element_size()
+        if any(s * isz % 16 for s in (sb, sn, s3, sh)) or qkv.data_ptr() % 16:
+            raise ValueError(
+                f"kernel needs strides of multiples of 16 bytes and 16-byte alignment: {qkv.stride()} x {isz} bytes"
+            )
         if B * H > 65535:
             raise ValueError(f"kernel takes B*H <= 65535, got {B * H}")
         from lvc_tpu_torch.ops import _build
@@ -76,7 +80,7 @@ class FlashAttention:
         out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
         if N == 0 or B == 0:
             return out
-        base, isz = qkv.data_ptr(), qkv.element_size()
+        base = qkv.data_ptr()
         err = lib.flash_attention_fwd(
             base, base + s3 * isz, base + 2 * s3 * isz, sb, sn, sh, B, N, H, d, float(scale),
             out.data_ptr(), 1 if qkv.dtype == torch.bfloat16 else 0,

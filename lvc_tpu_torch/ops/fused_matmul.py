@@ -56,7 +56,8 @@ class MatmulAffineResidual:
     the kernel (building it on first use) or raises; ``launches`` counts the
     launches and nothing else. The kernel takes bf16 x (M, K), w (K, N) whose
     transpose is contiguous, residual (M, N), all contiguous and 16-byte
-    aligned, K and N multiples of 8; it never copies x or the residual."""
+    aligned, K and N multiples of 8, and scale and shift 8-byte aligned where
+    they are float32 on x's device; it never copies x or the residual."""
 
     def __init__(self):
         self.launches = 0
@@ -93,6 +94,11 @@ class MatmulAffineResidual:
             )
         if any(t.data_ptr() % 16 for t in (x, wt, residual)):
             raise ValueError("kernel needs 16-byte aligned x, w and residual")
+        # the kernel reads scale and shift in pairs (float2); a float32
+        # contiguous tensor on the card is handed over as it is
+        for t in (scale, shift):
+            if t.device == x.device and t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 8:
+                raise ValueError("kernel needs 8-byte aligned float32 scale and shift")
         from lvc_tpu_torch.ops import _build
 
         lib = _build.load_library("fused_matmul")

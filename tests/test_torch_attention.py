@@ -88,15 +88,86 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert flash_attention.launches == before
 
 
+class _OnCard:
+    """A CPU tensor that reports a CUDA device, so the wrapper's checks of
+    what the kernel takes run here (each raises before a library is asked
+    for)."""
+
+    class device:
+        type = "cuda"
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _bf16_packed(extra=0, offset=0):
+    """(1, 4, 3, 2, 64) bf16 qkv viewed from a (1, 4, 384 + extra) buffer at
+    element ``offset``: token stride 384 + extra elements."""
+    buf = torch.zeros(1, 4, 384 + extra + offset, dtype=torch.bfloat16)
+    return buf[:, :, offset:offset + 384].unflatten(2, (3, 2, 64))
+
+
 @pytest.mark.parametrize(
     "qkv, error",
     [
         (torch.zeros(1, 4, 2, 2, 64), ValueError),  # not (B, N, 3, H, d)
         (torch.zeros(1, 4, 3, 2, 64, dtype=torch.float16), TypeError),
         (torch.zeros(1, 4, 3, 2, 64, device="meta"), RuntimeError),  # neither the CPU nor a card
+        # on the card: head dim 64, contiguous; 16-byte strides and alignment
+        (_OnCard(torch.zeros(1, 4, 3, 2, 32)), ValueError),
+        (_OnCard(torch.zeros(1, 4, 3, 64, 2).transpose(-1, -2)), ValueError),
+        (_OnCard(_bf16_packed(extra=4)), ValueError),  # token stride 776 bytes
+        (_OnCard(_bf16_packed(offset=4)), ValueError),  # 8-byte aligned
+        (_OnCard(torch.zeros(1, 4, 3 * 128 + 2)[:, :, 2:].unflatten(2, (3, 2, 64))), ValueError),
+        (_OnCard(torch.zeros(1, 4, 3, 2, 64).expand(65536, 4, 3, 2, 64)), ValueError),  # B*H > 65535
     ],
-    ids=["shape", "dtype", "device"],
+    ids=["shape", "dtype", "device", "head_dim", "d_stride", "bf16_token_stride", "bf16_offset",
+         "f32_offset", "grid"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(qkv, error):
     with pytest.raises(error):
         flash_attention(qkv, 0.125)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10-bit mantissa), rounding to nearest with ties away
+    from zero, as the kernel's ``cvt.rna.tf32.f32``."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the float32 kernel computes it: each operand split as big =
+    tf32(x) plus small = tf32(x - big), and the three products small.big +
+    big.small + big.big summed in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _attention(qkv, scale, matmul):
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    s = matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return matmul(p, v) / p.sum(dim=-1, keepdim=True)
+
+
+def test_tf32_split_meets_float32_tolerance():
+    """The float32 kernel's route, emulated in torch on the CPU: three TF32
+    passes for QK^T and for PV (p split too) are within the float32
+    tolerance, 1e-5, of float64 attention on the peaked qkv at the
+    verifier's sequence length; a single TF32 pass is not (it is off by
+    about 3e-3). The card's tensor cores truncate their float32 sums, which
+    this emulation does not model; chip_smoke.py holds the kernel itself
+    against float64 on the same input."""
+    qkv = torch.from_numpy(_qkv((2, 785, 6, 64), case="peaked"))
+    scale = 64 ** -0.5
+    q, k, v = (t.transpose(1, 2).double() for t in qkv.unbind(2))
+    exact = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1) @ v
+    split = float((_attention(qkv, scale, _matmul_3xtf32).double() - exact).abs().max())
+    single = float((_attention(qkv, scale, lambda a, b: _tf32(a) @ _tf32(b)).double() - exact).abs().max())
+    assert split <= 1e-5, split
+    assert single > 1e-5 * 100, single

@@ -201,6 +201,64 @@ def test_function_zero_scale_channel_gives_zero_dscale():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4, rtol=2e-5, err_msg=name)
 
 
+class _OnCard:
+    """A CPU tensor that reports a CUDA device, so the wrapper's checks of
+    what the kernel takes run here (each raises before a library is asked
+    for)."""
+
+    class device:
+        type = "cuda"
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _card_args(M=16, K=64, N=32, dtype=torch.bfloat16):
+    x = torch.zeros(M, K, dtype=dtype)
+    w = torch.zeros(N, K, dtype=dtype).t()  # (K, N), the transpose of a contiguous (N, K)
+    return x, w, torch.ones(N), torch.zeros(N), torch.zeros(M, N, dtype=dtype)
+
+
+def _with(i, value, args=None):
+    args = list(_card_args() if args is None else args)
+    args[i] = value
+    return args
+
+
+@pytest.mark.parametrize(
+    "args, error",
+    [
+        (_with(0, torch.zeros(2, 16, 64, dtype=torch.bfloat16)), ValueError),  # x not 2-D
+        (_with(4, torch.zeros(16, 40, dtype=torch.bfloat16)), ValueError),  # residual (M, N)
+        (_with(2, torch.ones(31)), ValueError),  # scale (N,)
+        (_with(0, torch.zeros(16, 64, dtype=torch.bfloat16, device="meta")), RuntimeError),
+        # on the card: bf16, K and N multiples of 8, contiguous, 16-byte aligned
+        (_with(0, _OnCard(torch.zeros(16, 64)), _card_args(dtype=torch.float32)), TypeError),
+        (_with(0, _OnCard(torch.zeros(16, 60, dtype=torch.bfloat16)), _card_args(K=60)), ValueError),
+        (_with(0, _OnCard(torch.zeros(16, 64, dtype=torch.bfloat16)), _card_args(N=36)), ValueError),
+        (_with(0, _OnCard(torch.zeros(64, 16, dtype=torch.bfloat16).t())), ValueError),  # x strided
+        (_with(0, _OnCard(torch.zeros(16, 64, dtype=torch.bfloat16)), _with(1, torch.zeros(64, 32, dtype=torch.bfloat16))),
+         ValueError),  # w (K, N) contiguous: its transpose is not
+        (_with(0, _OnCard(torch.zeros(16 * 64 + 4, dtype=torch.bfloat16)[4:].view(16, 64))), ValueError),  # 8-byte aligned
+        (_with(0, _OnCard(torch.zeros(16, 64, dtype=torch.bfloat16)),
+               _with(4, torch.zeros(16 * 32 + 4, dtype=torch.bfloat16)[4:].view(16, 32))), ValueError),
+        # scale and shift, read in pairs: 8-byte aligned where handed over as they are
+        (_with(0, _OnCard(torch.zeros(16, 64, dtype=torch.bfloat16)), _with(2, _OnCard(torch.ones(33)[1:]))),
+         ValueError),
+        (_with(0, _OnCard(torch.zeros(16, 64, dtype=torch.bfloat16)), _with(3, _OnCard(torch.zeros(33)[1:]))),
+         ValueError),
+    ],
+    ids=["x_rank", "residual_shape", "scale_shape", "device", "dtype", "k_mod_8", "n_mod_8", "x_strided",
+         "w_layout", "x_offset", "residual_offset", "scale_offset", "shift_offset"],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(args, error):
+    with pytest.raises(error):
+        matmul_affine_residual(*args)
+
+
 def _conv(kind):
     """A port Conv2d of each kind the gate looks at, channels_last, with a
     non-trivial FrozenBN fold."""

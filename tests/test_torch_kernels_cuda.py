@@ -216,26 +216,45 @@ def test_cuda_gout_never_takes_the_plain_backward(monkeypatch):
         tra.roi_align_paired_bwd([f.shape for f in feats], taps, _DeviceView(gout, FakeCuda()))
 
 
+def _qkv_on_card(B, N, H, d, case, dtype, layout, device, seed):
+    """(B, N, 3, H, d) qkv with N(0, 0.25) entries, peaked or not
+    (``chip_smoke.peaked``), in ``dtype``: "packed" is the qkv Linear's
+    output viewed in place; "strided" reads q, k, v out of a wider
+    (B, 3, N, H * d + 64) buffer at element 64, so every stride differs from
+    the packed one."""
+    from chip_smoke import peaked
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = (torch.randn(B, N, 3 * H * d, generator=g, device=device) * 0.5).view(B, N, 3, H, d)
+    if case == "peaked":
+        qkv = peaked(qkv)
+    if layout == "packed":
+        return qkv.to(dtype)
+    buf = torch.zeros(B, 3, N, H * d + 64, dtype=dtype, device=device)
+    view = buf[..., 64:64 + H * d].unflatten(-1, (H, d)).transpose(1, 2)
+    view.copy_(qkv)
+    return view
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "strided"])
 @pytest.mark.parametrize("case", ["mild", "peaked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N", [785, 768], ids=["tail", "aligned"])
-def test_flash_attention_matches_plain_on_card(cuda_device, N, dtype, case):
-    """The attention kernel against its plain version on the qkv Linear's
-    output layout: float32 within 1e-5 max abs; bf16 within 2 bf16 ulps of
-    the largest |out| of each (batch, head) (the kernel casts exp(s - running
-    max) to bf16, the plain version exp(s - max)). "peaked" is
-    ``chip_smoke.peaked``: logits that span tens, with the running max
-    jumping late in the row."""
-    from chip_smoke import peaked
+@pytest.mark.parametrize("N", [1, 17, 63, 64, 65, 128, 768, 785, 1300])
+def test_flash_attention_matches_plain_on_card(cuda_device, N, dtype, case, layout):
+    """The attention kernel against its plain version at the tile edges (64
+    keys and 64 queries per tile: N of 1, 17, 63, 64, 65, 128, 768 = 12
+    tiles, 785 = 12 tiles + 17, and 1300, past the JAX package's switch to
+    the einsum form at 1280, which the port's kernel keeps), on the qkv
+    Linear's layout and on a strided one: float32 within 1e-5 max abs; bf16
+    within 2 bf16 ulps of the largest |out| of each (batch, head) (the kernel
+    casts exp(s - running max) to bf16, the plain version exp(s - max)).
+    "peaked" is ``chip_smoke.peaked``: logits that span tens, with the
+    running max jumping late in the row."""
     from lvc_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
     B, H, d = 2, 6, 64
-    g = torch.Generator(device=cuda_device).manual_seed(N)
-    qkv = (torch.randn(B, N, 3 * H * d, generator=g, device=cuda_device) * 0.5).view(B, N, 3, H, d)
-    if case == "peaked":
-        qkv = peaked(qkv)
-    qkv = qkv.to(getattr(torch, dtype))
+    qkv = _qkv_on_card(B, N, H, d, case, getattr(torch, dtype), layout, cuda_device, seed=N)
     before = flash_attention.launches
     got = flash_attention(qkv, d ** -0.5)
     torch.cuda.synchronize()
@@ -286,9 +305,27 @@ def _fused_within_tolerance(got, want, x, w_kn, scale, shift, res):
     return bool((err <= _bf16_ulp(want.float()) + 1e-5 * S).all())
 
 
+# (M, K, N): ragged M (1, 63, 1,000, 8,736 + 5), K 64 and 1,024, N 256 and
+# 2,048, and 128 x 256 tile counts that are (132, 264) and are not (1, 69,
+# 1,092, 552) a multiple of the H100's 132 SMs, which the persistent grid walks
+FUSED_CASES = {
+    "m1": (1, 64, 256),
+    "m63": (63, 64, 256),
+    "ragged": (1000, 64, 256),
+    "m8741": (8736 + 5, 64, 256),
+    "res4_conv3": (34944, 256, 1024),
+    "res5_conv3": (8736, 512, 2048),
+    "k1024_n2048": (1000, 1024, 2048),
+    "lateral_p4": (34944, 1024, 256),
+    "tiles132": (132 * 128, 64, 256),
+    "tiles264": (66 * 128, 128, 1024),
+    "k_n_tails": (4096, 72, 264),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("shape", [(34944, 256, 1024), (1000, 64, 256)], ids=["res4_conv3", "ragged"])
+@pytest.mark.parametrize("shape", list(FUSED_CASES.values()), ids=list(FUSED_CASES))
 def test_fused_matmul_matches_plain_on_card(cuda_device, shape, relu):
     """The fused GEMM kernel against its plain version: 1 bf16 ulp + 1e-5 * S
     per element (the float32 sums run in other orders; where a sum cancels
@@ -302,6 +339,26 @@ def test_fused_matmul_matches_plain_on_card(cuda_device, shape, relu):
     assert matmul_affine_residual.launches == before + 1
     assert got.shape == (shape[0], shape[2]) and got.dtype == torch.bfloat16
     assert _fused_within_tolerance(got, matmul_affine_residual_plain(*args, relu=relu), *args)
+
+
+@pytest.mark.cuda
+def test_fused_matmul_back_to_back_shapes_on_card(cuda_device):
+    """Launches in a row on different shapes over the same buffers (rows of
+    one x and residual, a narrower weight): each output is right, so no
+    launch reuses another's tensor maps."""
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual, matmul_affine_residual_plain
+
+    x, w_kn, scale, shift, res = _fused_inputs(4096, 256, 512, cuda_device, seed=3)
+    calls = [(4096, 512), (1000, 512), (4096, 256), (4096, 512), (1, 512), (1000, 256)]
+    for rows, n in calls:
+        # a narrower weight and residual are copies: the kernel takes them contiguous
+        w = w_kn if n == 512 else w_kn[:, :n].t().contiguous().t()
+        r = res[:rows] if n == 512 else res[:rows, :n].contiguous()
+        args = (x[:rows], w, scale[:n], shift[:n], r)
+        got = matmul_affine_residual(*args, relu=True)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, n)
+        assert _fused_within_tolerance(got, matmul_affine_residual_plain(*args, relu=True), *args), (rows, n)
 
 
 @pytest.mark.cuda
