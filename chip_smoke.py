@@ -7,7 +7,9 @@ Phases, each of which raises (non-zero exit) on failure:
 1. build every kernel source with nvcc for sm_90a, all in parallel;
 2. kernel phase: each RoIAlign kernel and its plain PyTorch version on the
    same seeded inputs at the serving path's shapes (p2-p5 of an 8x832x1344
-   batch, C=256, bf16, 1000 boxes per image), error, times and bound;
+   batch, C=256, bf16, 1000 boxes per image), and the paired kernel again at
+   the training path's 512 boxes per image: error, times, bound, and the
+   feature bytes a per-box design fetches beside the bound's;
 3. reference check: a narrow R-50-FPN at float32 on a small input, on the
    card (kernels) and on the CPU (plain versions), for the band and paired
    pools; proposals and detections must agree;
@@ -17,8 +19,10 @@ Phases, each of which raises (non-zero exit) on failure:
    one B=2 POOLER_IMPL=auto forward, which takes the paired kernel;
 5. backward kernel phase: the RoIAlign backward kernel (K3) and its plain
    version at the training path's shapes (p2-p5 of 8x832x1344, C=256, bf16,
-   512 boxes per image), error against the sum of absolute contributions,
-   times, bound, and the accumulators' zero-fill and cast as torch ops;
+   512 boxes per image): error of the bf16 gradients against the sum of
+   absolute contributions, two calls bit-equal, float32 on 64 boxes bit-equal
+   to the plain version on the CPU, the whole backward's time against two
+   bounds, and its peak memory;
 6. training reference check: one train step of a narrow R-50-FPN at float32
    (POOLER_IMPL pallas_train, exhaustive sampling) on the card (K2 forward,
    K3 backward) and on the CPU (plain versions) from the same weights;
@@ -87,8 +91,8 @@ KERNEL_SOURCE = {
     "roi_align_paired": "lvc_tpu_torch/ops/csrc/roi_align_fwd.cu",
     "roi_align_paired_bwd": "lvc_tpu_torch/ops/csrc/roi_align_bwd.cu",
 }
-HAND_KERNELS = ("roi_align_rows_kernel", "roi_align_paired_bwd_kernel", "flash_attention_fwd_kernel",
-                "matmul_affine_residual_kernel")
+HAND_KERNELS = ("roi_align_rows_kernel", "box_ranges_kernel", "roi_align_paired_bwd_kernel",
+                "flash_attention_fwd_kernel", "matmul_affine_residual_kernel")
 TRAIN_BOXES = 512  # ROI_HEADS.BATCH_SIZE_PER_IMAGE: the sampled boxes per image
 MAIN_SHAPES = [(208, 336), (104, 168), (52, 84), (26, 42)]  # p2-p5 of 832x1344
 STRIDES = (4, 8, 16, 32)
@@ -189,6 +193,25 @@ def touched(level_shapes, taps):
     return rows_ok, cols_ok_all, pixels
 
 
+def box_pixels(level_shapes, taps):
+    """The feature pixels a design that reads each box's window once must
+    fetch: the sum over boxes of distinct valid rows x distinct valid columns
+    (``bound`` counts the union over all boxes instead)."""
+    import torch
+
+    widths = torch.tensor([w for _, _, w, _ in level_shapes], device=taps.xs.device)[taps.lvl.long()]
+    n = taps.lvl.numel()
+    r = torch.where((taps.wy != 0) & (taps.rows >= 0), taps.rows, -1).reshape(n, -1)
+    c = taps.xs[:, None, None] + taps.tcol
+    c = torch.where((taps.wx != 0) & (c >= 0) & (c < widths[:, None, None]), c, -1).reshape(n, -1)
+
+    def distinct(v):
+        v = v.sort(dim=1).values
+        return ((v[:, 1:] != v[:, :-1]) & (v[:, 1:] >= 0)).sum(1) + (v[:, 0] >= 0)
+
+    return int((distinct(r) * distinct(c)).sum())
+
+
 def _roofline(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -212,18 +235,23 @@ def bound(feats, taps):
     return _roofline(nbytes, ops)
 
 
-def backward_bound(level_shapes, taps, gout):
+def backward_bound(level_shapes, taps, gout, dense=True):
     """Least time for K3's function (d pooled -> d features): gout and the
-    taps read once and each feature-gradient element the taps touch written
-    once in float32, over the memory rate, against this data's operations
-    over the float32 rate (per channel: the 1/count scale of each output
-    cell, and a multiply and an add for each nonzero row-column tap pair).
-    Reading the zeroed accumulators back is the atomic design's cost, not
-    the function's, and is not counted."""
+    taps read once and the gradient written once, over the memory rate,
+    against this data's operations over the float32 rate (per channel: the
+    1/count scale of each output cell, and a multiply and an add for each
+    nonzero row-column tap pair). ``dense``: the whole gradient in gout's
+    dtype, untouched pixels included, which is what the wrapper returns;
+    otherwise only the elements the taps touch, in float32 (the count before
+    the gather form, kept to compare with)."""
     C = gout.shape[-1]
     rows_ok, cols_ok, pixels = touched(level_shapes, taps)
     meta_bytes = sum(t.numel() * t.element_size() for t in taps)
-    nbytes = gout.numel() * gout.element_size() + meta_bytes + pixels * C * 4
+    if dense:
+        out_bytes = sum(math.prod(s) for s in level_shapes) * gout.element_size()
+    else:
+        out_bytes = pixels * C * 4
+    nbytes = gout.numel() * gout.element_size() + meta_bytes + out_bytes
     nr = rows_ok.sum(-1)
     nt = cols_ok.sum(-1)
     ops = C * int((nt[:, None, :] * 2 * nr[:, :, None] + 1).sum())
@@ -238,14 +266,19 @@ def kernel_phase(tag):
     feats, boxes = kernel_inputs(torch.bfloat16)
     shapes = [tuple(f.shape[1:3]) for f in feats]
     B = boxes.shape[0]
+    train_boxes = boxes[:, :TRAIN_BOXES].contiguous()
     cases = {
         "roi_align_band": (ra.roi_align_band, ra.band_taps(
             ra.tiled_prep_band(shapes, B, boxes, STRIDES, dtype=torch.bfloat16), shapes, B, 32, True)),
         "roi_align_paired": (ra.roi_align_paired, ra.paired_taps(
             ra.tiled_prep_2d(shapes, B, boxes, STRIDES, dtype=torch.bfloat16), shapes, 48)),
+        # the training pool's forward: the same kernel at 512 boxes per image
+        "roi_align_paired@train": (ra.roi_align_paired, ra.paired_taps(
+            ra.tiled_prep_2d(shapes, B, train_boxes, STRIDES, dtype=torch.bfloat16), shapes, 48)),
     }
     results = {}
-    for name, (kernel, taps) in cases.items():
+    for case, (kernel, taps) in cases.items():
+        name = case.split("@")[0]
         got = kernel(feats, taps)
         torch.cuda.synchronize()
         want = ra.roi_align_taps_plain(feats, taps, kernel.paired)
@@ -256,17 +289,29 @@ def kernel_phase(tag):
         tol = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
         if not bool((err <= tol).all()):
             raise AssertionError(f"{name}: max abs err {float(err.max())} over 1 bf16 ulp")
+        if not torch.equal(kernel(feats, taps), got):
+            raise AssertionError(f"{case}: two calls differ")
         ms = cuda_ms(lambda: kernel(feats, taps), 50)
         plain_ms = cuda_ms(lambda: ra.roi_align_taps_plain(feats, taps, kernel.paired), 3)
         bound_ms, bound_by, nbytes, ops = bound(feats, taps)
-        results[name] = dict(
-            name=name, route="cuda", source=KERNEL_SOURCE[name], replaces=KERNEL_REPLACES[name],
-            launches=0, max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        )
-        print(f"kernel {name}: boxes {taps.lvl.numel()} max_abs_err {float(err.max())} "
-              f"(tolerance 1 bf16 ulp) ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} "
-              f"({bound_by}; {nbytes} bytes, {ops} ops) {tag}")
+        # feature bytes: the union of the boxes' pixels (in the bound) against
+        # the sum of each box's window, what a per-box design fetches from L2
+        C, isz = feats[0].shape[-1], feats[0].element_size()
+        level_shapes = [tuple(f.shape) for f in feats]
+        union = touched(level_shapes, taps)[2] * C * isz
+        fetch = box_pixels(level_shapes, taps) * C * isz
+        fetch_ms = (nbytes - union + fetch) / HBM_BYTES_PER_S * 1e3
+        if "@" not in case:
+            results[name] = dict(
+                name=name, route="cuda", source=KERNEL_SOURCE[name], replaces=KERNEL_REPLACES[name],
+                launches=0, max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            )
+        print(f"kernel {case}: boxes {taps.lvl.numel()} max_abs_err {float(err.max())} "
+              f"(tolerance 1 bf16 ulp; two calls bit-equal) ms {ms:.4f} plain_ms {plain_ms:.3f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, {ops} ops) share "
+              f"{bound_ms / ms:.3f}; feature bytes: union {union}, sum of per-box windows {fetch} "
+              f"({fetch_ms:.4f} ms with them at the memory rate, share {fetch_ms / ms:.3f}) {tag}")
     return results
 
 
@@ -497,12 +542,17 @@ def profile_call(fn, untraced_ms, what, tag, stages=()):
 
 
 def backward_kernel_phase(tag):
-    """K3 and its plain version at the training path's shapes. Atomics add
-    in no fixed order, so the tolerance is per accumulator element:
-    |got - want| <= 1e-5 * S, S the plain backward on |gout| and |weights|;
-    after the cast to bf16, 1 bf16 ulp of the plain version's cast plus that
-    float32 tolerance (where the sum cancels to near 0, its ulp is below the
-    float32 error; the count of such elements is printed)."""
+    """K3 and its plain version at the training path's shapes. K3 returns
+    the gradients in gout's dtype (bf16 here); each element must be within 1
+    bf16 ulp of the plain version's float32 sum cast to bf16, plus 1e-5 * S,
+    S the plain backward on |gout| and |weights| (the plain version on the
+    card adds with index_add_'s atomics, in no fixed order; where a sum
+    cancels to near 0 its ulp is below that float32 error; the count of such
+    elements is printed). Two calls must give the same bits, and at float32
+    on the first 64 boxes K3 must equal the plain version run on the CPU bit
+    for bit (it sums in that order). Times the whole backward (gout to
+    feature-dtype gradients) and prints its share of two bounds and its peak
+    memory."""
     import torch
 
     from lvc_tpu_torch.ops import roi_align as ra
@@ -521,39 +571,56 @@ def backward_kernel_phase(tag):
     k3 = ra.roi_align_paired_bwd
     got = k3(level_shapes, taps, gout)
     torch.cuda.synchronize()
+    if any(a.dtype != gout.dtype or tuple(a.shape) != s for a, s in zip(got, level_shapes)):
+        raise AssertionError("roi_align_paired_bwd: wrong dtype or shape")
+    again = k3(level_shapes, taps, gout)
+    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(got, again)):
+        raise AssertionError("roi_align_paired_bwd: two calls differ")
+    del again
     want = ra.roi_align_taps_plain_backward(level_shapes, taps, gout)
     S = ra.roi_align_taps_plain_backward(
         level_shapes, taps._replace(wy=taps.wy.abs(), wx=taps.wx.abs()), gout.abs()
     )
     max_err, max_ratio, over_ulp = 0.0, 0.0, 0
     for l, (a, w, s) in enumerate(zip(got, want, S)):
-        err = (a - w).abs()
-        if not bool((err <= 1e-5 * s).all()):
-            raise AssertionError(f"roi_align_paired_bwd level {l}: error over 1e-5 * S")
-        cast, ref = a.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
-        cast_err = (cast - ref).abs()
-        if not bool((cast_err <= bf16_ulp(ref) + 1e-5 * s).all()):
-            raise AssertionError(f"roi_align_paired_bwd level {l}: bf16 cast over 1 ulp + 1e-5 * S")
-        over_ulp += int((cast_err > bf16_ulp(ref)).sum())
+        ref = w.to(torch.bfloat16).float()
+        err = (a.float() - ref).abs()
+        if not torch.isfinite(a).all() or not bool((err <= bf16_ulp(ref) + 1e-5 * s).all()):
+            raise AssertionError(f"roi_align_paired_bwd level {l}: over 1 bf16 ulp + 1e-5 * S")
+        over_ulp += int((err > bf16_ulp(ref)).sum())
         max_err = max(max_err, float(err.max()))
         max_ratio = max(max_ratio, float((err / s.clamp(min=1e-30)).max()))
     del want, S
 
-    accs = [torch.zeros(s, dtype=torch.float32, device="cuda") for s in level_shapes]
-    ms = cuda_ms(lambda: k3.launch(accs, taps, gout), 50)
-    zero_ms = cuda_ms(lambda: [torch.zeros(s, dtype=torch.float32, device="cuda") for s in level_shapes], 20)
-    cast_ms = cuda_ms(lambda: [a.to(torch.bfloat16) for a in accs], 20)
+    # float32, the first 64 boxes: bit-equal to the plain version on the CPU
+    sub = ra.RoiTaps(*[t[:64].contiguous() for t in taps])
+    g32 = torch.randn(64, P, P, C, generator=g, device="cuda")
+    card = k3(level_shapes, sub, g32)
+    cpu = ra.roi_align_taps_plain_backward(level_shapes, ra.RoiTaps(*[t.cpu() for t in sub]), g32.cpu())
+    if not all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)) for a, b in zip(card, cpu)):
+        raise AssertionError("roi_align_paired_bwd: float32 result differs from the CPU plain version")
+    del card, cpu
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k3(level_shapes, taps, gout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: k3(level_shapes, taps, gout), 50)
     plain_ms = cuda_ms(lambda: ra.roi_align_taps_plain_backward(level_shapes, taps, gout), 3)
     bound_ms, bound_by, nbytes, ops = backward_bound(level_shapes, taps, gout)
-    # the atomics also read each touched accumulator element back: the
-    # design's overhead over the function's bound
-    rmw_bytes = touched(level_shapes, taps)[2] * C * 4
-    print(f"kernel roi_align_paired_bwd: boxes {n} max_abs_err {max_err} max err/S {max_ratio:.3e} "
-          f"(tolerance 1e-5 * S; after the cast 1 bf16 ulp + 1e-5 * S, {over_ulp} elements over "
-          f"1 ulp alone) ms {ms:.4f} plain_ms {plain_ms:.3f} "
-          f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, {ops} ops; the atomics' read-back "
-          f"adds {rmw_bytes} bytes, {rmw_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) zero_fill_ms {zero_ms:.4f} "
-          f"cast_ms {cast_ms:.4f} {tag}")
+    touched_ms, _, touched_bytes, _ = backward_bound(level_shapes, taps, gout, dense=False)
+    fetch = box_pixels(level_shapes, taps) * C * gout.element_size()
+    print(f"kernel roi_align_paired_bwd: boxes {n} max_abs_err {max_err} (bf16 output) max err/S "
+          f"{max_ratio:.3e} (tolerance 1 bf16 ulp of the plain version's cast + 1e-5 * S, {over_ulp} "
+          f"elements over 1 ulp alone; two calls bit-equal; float32 on 64 boxes bit-equal to the CPU "
+          f"plain version) whole backward ms {ms:.4f} plain_ms {plain_ms:.3f} "
+          f"bound_ms {bound_ms:.4f} (dense {gout.dtype} gradient written once; {bound_by}; {nbytes} "
+          f"bytes, {ops} ops) share {bound_ms / ms:.3f}; touched-f32 bound_ms {touched_ms:.4f} "
+          f"({touched_bytes} bytes) share {touched_ms / ms:.3f}; peak memory of one call "
+          f"{peak / 2 ** 20:.1f} MiB over the {base / 2 ** 20:.1f} MiB live before it; "
+          f"the train forward's per-box window fetch {fetch} bytes {tag}")
     return dict(
         name="roi_align_paired_bwd", route="cuda", source=KERNEL_SOURCE["roi_align_paired_bwd"],
         replaces=KERNEL_REPLACES["roi_align_paired_bwd"], launches=0, max_abs_err=max_err, ms=ms,

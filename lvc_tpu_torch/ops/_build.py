@@ -38,10 +38,10 @@ _I = ctypes.c_int
 _ROI_ALIGN_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 7 + [
     _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
 ]
-# roi_align_paired_bwd(acc_ptrs, acc_rows, widths, L, C, P, NR, NT, n, lvl, xs,
-#   inv, rows, wy, tcol, wx, gout, is_bf16, stream) -> cudaError_t
-_ROI_ALIGN_BWD_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 6 + [
-    _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+# roi_align_paired_bwd(grad_ptrs, heights, widths, L, B, C, P, NR, NT, n, lvl,
+#   xs, inv, rows, wy, tcol, wx, gout, is_bf16, rects, ranges, stream) -> cudaError_t
+_ROI_ALIGN_BWD_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 7 + [
+    _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
 ]
 SIGNATURES = {
     "roi_align_fwd": {

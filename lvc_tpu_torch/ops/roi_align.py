@@ -744,11 +744,11 @@ def roi_align_taps_plain_backward(
 class RoiAlignBackwardKernel:
     """Wrapper of K3, ``roi_align_paired_bwd`` in ``csrc/roi_align_bwd.cu``.
 
-    Returns the float32 per-level accumulators (B, H, W, C). On CPU tensors it
-    returns the plain version; on CUDA tensors it zeroes the accumulators and
-    launches the kernel (building it on first use) or raises. ``launch``
-    adds into accumulators the caller zeroed. ``launches`` counts the
-    launches and nothing else."""
+    Returns the per-level feature gradients (B, H, W, C) in gout's dtype: the
+    float32 sums of the plain version, cast once. On CPU tensors it returns
+    the plain version so cast; on CUDA tensors it launches the kernel
+    (building it on first use), which writes every element once, or raises.
+    ``launches`` counts the calls that launched it and nothing else."""
 
     symbol = "roi_align_paired_bwd"
 
@@ -761,45 +761,36 @@ class RoiAlignBackwardKernel:
         level_shapes = [tuple(int(d) for d in s) for s in level_shapes]
         self._check(level_shapes, taps, gout)
         if gout.device.type == "cpu":
-            return roi_align_taps_plain_backward(level_shapes, taps, gout)
+            return [g.to(gout.dtype) for g in roi_align_taps_plain_backward(level_shapes, taps, gout)]
         if gout.device.type != "cuda":
             raise RuntimeError(f"RoIAlign backward kernel: unsupported device {gout.device}")
-        from lvc_tpu_torch.ops import _build
-
-        _build.load_library("roi_align_bwd")  # builds on first use, or raises
-        accs = [torch.zeros(s, dtype=torch.float32, device=gout.device) for s in level_shapes]
-        self.launch(accs, taps, gout)
-        return accs
-
-    def launch(self, accs: Sequence[torch.Tensor], taps: RoiTaps, gout: torch.Tensor) -> None:
-        """Add d levels into the float32 CUDA accumulators ``accs``."""
         import ctypes
 
         from lvc_tpu_torch.ops import _build
 
-        level_shapes = [tuple(a.shape) for a in accs]
-        self._check(level_shapes, taps, gout)
-        if gout.device.type != "cuda" or any(
-            a.dtype != torch.float32 or a.device != gout.device or not a.is_contiguous() for a in accs
-        ):
-            raise ValueError("K3 adds into contiguous float32 accumulators on gout's CUDA device")
-        lib = _build.load_library("roi_align_bwd")
+        lib = _build.load_library("roi_align_bwd")  # builds on first use, or raises
+        grads = [torch.empty(s, dtype=gout.dtype, device=gout.device) for s in level_shapes]
         n, P, NR = taps.rows.shape
         if n == 0:
-            return
-        ptrs = (ctypes.c_void_p * _MAX_LEVELS)(*[a.data_ptr() for a in accs])
-        nrows = (ctypes.c_int * _MAX_LEVELS)(*[b * h for b, h, _, _ in level_shapes])
+            return [g.zero_() for g in grads]
+        B = level_shapes[0][0]
+        rects = torch.empty((n, 4), dtype=torch.int32, device=gout.device)
+        ranges = torch.empty((2 * len(level_shapes) * B,), dtype=torch.int32, device=gout.device)
+        ptrs = (ctypes.c_void_p * _MAX_LEVELS)(*[g.data_ptr() for g in grads])
+        hs = (ctypes.c_int * _MAX_LEVELS)(*[h for _, h, _, _ in level_shapes])
         ws = (ctypes.c_int * _MAX_LEVELS)(*[w for _, _, w, _ in level_shapes])
         err = getattr(lib, self.symbol)(
-            ptrs, nrows, ws, len(accs), gout.shape[-1], P, NR, taps.tcol.shape[-1], n,
+            ptrs, hs, ws, len(grads), B, gout.shape[-1], P, NR, taps.tcol.shape[-1], n,
             taps.lvl.data_ptr(), taps.xs.data_ptr(), taps.inv.data_ptr(),
             taps.rows.data_ptr(), taps.wy.data_ptr(), taps.tcol.data_ptr(),
             taps.wx.data_ptr(), gout.data_ptr(), 1 if gout.dtype == torch.bfloat16 else 0,
+            rects.data_ptr(), ranges.data_ptr(),
             torch.cuda.current_stream(gout.device).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
+        return grads
 
     @staticmethod
     def _check(level_shapes, taps: RoiTaps, gout: torch.Tensor) -> None:
@@ -810,6 +801,8 @@ class RoiAlignBackwardKernel:
         C = gout.shape[-1]
         if any(len(s) != 4 or s[3] != C or s[0] != level_shapes[0][0] for s in level_shapes):
             raise ValueError(f"level shapes {level_shapes} do not match gout's C={C}")
+        if any(d < 1 for s in level_shapes for d in s):
+            raise ValueError(f"level shapes {level_shapes} must not be empty")
         n, P, NR = taps.rows.shape
         if tuple(gout.shape) != (n, P, P, C) or not gout.is_contiguous():
             raise ValueError(f"gout must be contiguous ({n}, {P}, {P}, {C}), got {tuple(gout.shape)}")
@@ -825,20 +818,18 @@ class _PairedPool(torch.autograd.Function):
     """The training pool (``batched_multilevel_roi_align_pallas_train_ml`` and
     ``..._pallas_trainable``, the custom VJPs at ``roi_align.py:3223`` and
     ``:2388``): forward K2, backward K3, feature grads in the feature dtype
-    (f32 accumulation, then a cast, as ``roi_align.py:3276``) and none for
-    the boxes (their taps carry no gradient: zero box grads, as ``:3277``)."""
+    (K3 sums in f32 and casts, as ``roi_align.py:3276``) and none for the
+    boxes (their taps carry no gradient: zero box grads, as ``:3277``)."""
 
     @staticmethod
     def forward(ctx, taps: RoiTaps, *levels: torch.Tensor) -> torch.Tensor:
         ctx.taps = taps
         ctx.level_shapes = [tuple(f.shape) for f in levels]
-        ctx.dtype = levels[0].dtype
         return roi_align_paired(list(levels), taps)
 
     @staticmethod
     def backward(ctx, gout: torch.Tensor):
-        accs = roi_align_paired_bwd(ctx.level_shapes, ctx.taps, gout.contiguous())
-        return (None, *[a.to(ctx.dtype) for a in accs])
+        return (None, *roi_align_paired_bwd(ctx.level_shapes, ctx.taps, gout.contiguous()))
 
 
 def pool_paired_train(

@@ -7,12 +7,14 @@ The file imports no JAX, so it runs on a machine that has only PyTorch:
 
 The forward kernels (K1, K2) sum in their plain version's order and forbid
 FMA contraction, so they must agree bit for bit, in float32 and in bf16. The
-backward kernel (K3) adds with float32 atomics in no fixed order, so each
-accumulator element must be within 1e-5 * S of the plain backward, where S
-is the plain backward run on |gout| and |weights| (the absolute sum of the
-element's contributions); after the cast to bf16, within 1 bf16 ulp of the
-plain version's cast plus that float32 tolerance (a sum that cancels to near
-0 has an ulp below the float32 error). The attention kernel is held to its
+backward kernel (K3) returns the gradients in gout's dtype. Against the plain
+backward on the card (whose index_add_ adds in no fixed order): float32
+within 1e-5 * S, where S is the plain backward run on |gout| and |weights|
+(the absolute sum of the element's contributions); bf16 within 1 bf16 ulp of
+the plain version's cast plus that float32 tolerance (a sum that cancels to
+near 0 has an ulp below the float32 error). K3 sums in the plain version's
+CPU order, so in float32 it equals the plain version run on the CPU bit for
+bit, and two calls give the same bits. The attention kernel is held to its
 plain version as its test says.
 """
 import numpy as np
@@ -110,11 +112,36 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
 
 
+def _edges():
+    """Three images on two levels whose sides are not multiples of the
+    backward kernel's 8 x 32 tiles; boxes on tile borders and over the last
+    rows and columns, on both levels; 8 boxes per image (n = 24)."""
+    rng = np.random.RandomState(17)
+    B, C = 3, 32
+    feats = [rng.rand(B, h, w, C).astype(np.float32) for h, w in [(44, 76), (22, 38)]]
+    boxes = np.array([
+        [0.0, 0.0, 130.0, 34.0], [120.0, 26.0, 140.0, 38.0], [240.0, 150.0, 304.0, 176.0],
+        [290.0, 160.0, 304.0, 176.0], [0.0, 168.0, 60.0, 176.0], [126.0, 0.0, 130.0, 176.0],
+        [70.0, 20.0, 300.0, 170.0], [60.0, 60.0, 60.0, 60.0],
+    ], np.float32)
+    boxes = np.stack([boxes + rng.uniform(-1.0, 1.0, boxes.shape).astype(np.float32) * (b > 0)
+                      for b in range(B)]).clip(0.0, [304.0, 176.0, 304.0, 176.0]).astype(np.float32)
+    return feats, boxes, (4, 8)
+
+
+def _single_level():
+    feats, boxes, strides = CASES["wide"]()
+    return feats[:1], boxes, strides[:1]
+
+
+BACKWARD_CASES = {**CASES, "edges": _edges, "single_level": _single_level}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
 def test_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
-    feats, boxes, strides = CASES[case]()
+    feats, boxes, strides = BACKWARD_CASES[case]()
     dt = getattr(torch, dtype)
     taps = _paired(feats, boxes, strides, dt, cuda_device)
     n, P, _ = taps.rows.shape
@@ -127,10 +154,85 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
     assert tra.roi_align_paired_bwd.launches == before + 1
     want = tra.roi_align_taps_plain_backward(level_shapes, taps, gout)
     for g, w, s in zip(got, want, _abs_sum(level_shapes, taps, gout)):
-        assert g.dtype == torch.float32 and g.shape == w.shape
-        assert bool(((g - w).abs() <= 1e-5 * s).all())
-        cast, ref = g.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
-        assert bool(((cast - ref).abs() <= _bf16_ulp(ref) + 1e-5 * s).all())
+        assert g.dtype == dt and g.shape == w.shape
+        if dt == torch.float32:
+            assert bool(((g - w).abs() <= 1e-5 * s).all())
+        else:
+            ref = w.to(torch.bfloat16).float()
+            assert bool(((g.float() - ref).abs() <= _bf16_ulp(ref) + 1e-5 * s).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
+def test_backward_kernel_is_deterministic_and_keeps_the_cpu_order(cuda_device, case, dtype):
+    """Two calls give the same bits, and the result is the plain version's
+    float32 sums on the CPU (same terms, same order), cast once to gout's
+    dtype, bit for bit; levels no box reaches come back as zeros."""
+    feats, boxes, strides = BACKWARD_CASES[case]()
+    dt = getattr(torch, dtype)
+    taps = _paired(feats, boxes, strides, dt, cuda_device)
+    n, P, _ = taps.rows.shape
+    level_shapes = [f.shape for f in feats]
+    gout = torch.from_numpy(np.random.RandomState(2).randn(n, P, P, feats[0].shape[-1]).astype(np.float32)).to(dt)
+    first = tra.roi_align_paired_bwd(level_shapes, taps, gout.to(cuda_device))
+    second = tra.roi_align_paired_bwd(level_shapes, taps, gout.to(cuda_device))
+    cpu = tra.roi_align_taps_plain_backward(level_shapes, tra.RoiTaps(*[t.cpu() for t in taps]), gout)
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    for a, b, w in zip(first, second, cpu):
+        assert torch.equal(a.view(bits), b.view(bits))
+        assert torch.equal(a.cpu().view(bits), w.to(dt).view(bits))
+        if not bool(w.any()):
+            assert not bool(a.any())
+    assert any(not bool(w.any()) for w in cpu) == (case == "pyramid")
+
+
+@pytest.mark.cuda
+def test_kernels_take_a_window_over_the_default_shared_memory(cuda_device):
+    """P = 14 (56 row and 56 column taps a box): the forward's window needs
+    more than its default 48 KB, and K3 ballots its taps in two words."""
+    feats, boxes, strides = CASES["pyramid"]()
+    shapes = [f.shape[1:3] for f in feats]
+    levels = [torch.from_numpy(f).to(cuda_device) for f in feats]
+    taps = tra.paired_taps(tra.tiled_prep_2d(
+        shapes, feats[0].shape[0], torch.from_numpy(boxes).to(cuda_device), strides, output_size=14), shapes, 48)
+    assert taps.rows.shape[1] * taps.rows.shape[2] == 56
+    got = tra.roi_align_paired(levels, taps)
+    assert torch.equal(got, tra.roi_align_taps_plain(levels, taps, paired=True))
+    n = taps.rows.shape[0]
+    gout = torch.from_numpy(np.random.RandomState(3).randn(n, 14, 14, feats[0].shape[-1]).astype(np.float32))
+    grads = tra.roi_align_paired_bwd([f.shape for f in feats], taps, gout.to(cuda_device))
+    want = tra.roi_align_taps_plain_backward([f.shape for f in feats], tra.RoiTaps(*[t.cpu() for t in taps]), gout)
+    for a, w in zip(grads, want):
+        assert torch.equal(a.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_forward_rejects_a_window_over_its_shared_memory(cuda_device):
+    """P = 16 with 8 row and 8 column taps: the largest window would need
+    more shared memory than a block has, so the kernel's launcher refuses it
+    (cudaErrorInvalidValue) and the wrapper raises; nothing is launched."""
+    n, P, NR, NT, C = 2, 16, 8, 8, 32
+    levels = [torch.zeros(1, 40, 40, C, device=cuda_device)]
+    z = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=cuda_device)
+    taps = tra.RoiTaps(z(n), z(n), z(n, dt=torch.float32) + 1, z(n, P, NR), z(n, P, NR, dt=torch.float32),
+                       z(n, P, NT), z(n, P, NT, dt=torch.float32))
+    before = tra.roi_align_paired.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        tra.roi_align_paired(levels, taps)
+    torch.cuda.synchronize()
+    assert tra.roi_align_paired.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 0, 8, 16), (2, 8, 0, 16)], ids=["no_rows", "no_columns"])
+def test_backward_rejects_an_empty_level(shape):
+    """K3 tiles every level: a level with no rows or no columns is refused
+    before any launch, on any device."""
+    feats, boxes, strides = CASES["pyramid"]()
+    taps = _paired(feats, boxes, strides, torch.float32, "cpu")
+    gout = torch.zeros(taps.rows.shape[0], 7, 7, 16)
+    with pytest.raises(ValueError, match="empty"):
+        tra.roi_align_paired_bwd([(2, 32, 48, 16), shape], taps, gout)
 
 
 @pytest.mark.cuda
