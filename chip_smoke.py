@@ -64,8 +64,28 @@ Phases, each of which raises (non-zero exit) on failure:
 15. fused training path: phase 7's step with LVC_TPU_FUSED_RESIDUAL=1, in
    turns with the unfused step on the same model (5 steps each; 32 fused
    launches per step: 19 forward, 13 recomputed under REMAT), one profiled
-   fused step.
-Phases 1-11 run with the fused path off, whatever the environment says.
+   fused step;
+16. trainer reference check: DefaultTrainer on a narrow R-50-FPN (float32,
+   exhaustive sampling, POOLER_IMPL pallas_train) for 3 iterations on a
+   seeded mini COCO tree, then its evaluation, on the card and on the CPU
+   from the same weights: losses, metrics.json rows, result rows and AP;
+17. the training CLI's main path: lvc_tpu_torch.tools.train_net.main in this
+   process on configs/COCO-detection/faster_rcnn_R_50_FPN_base.yaml
+   (R-50-FPN, 60 base classes, IMS_PER_BATCH 16 at 832x1344, AMP,
+   POOLER_IMPL auto) from a damped-init .pth, 30 iterations with a
+   checkpoint every 15, on a seeded COCO tree (48 train and 16 test JPEGs of
+   480x640 and 640x480); finite losses, the checkpoints, the final
+   evaluation, K2/K3 launches; then --resume to 35 iterations and
+   --eval-only from the 30-iteration checkpoint, whose result rows (at least
+   100) and AP must be the final evaluation's; ms/iter over every step after
+   warm-up and the `time` scalar's median, data_time, one profiled
+   iteration, eval ms/img, peak memory, and whether the native image I/O and
+   COCOeval were built;
+18. the synthetic-AP gate (lvc_tpu_torch.tools.verify_synthetic_ap): a
+   GroupNorm R-50-FPN trained from scratch for 600 iterations on drawn
+   shapes, float32 and AMP; each must pass verify_results (AP50 >= 60).
+Phases 1-11 and 16-18 run with the fused path off, whatever the environment
+says.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
@@ -1167,6 +1187,73 @@ def write_mini_coco(root: str, seed: int = 0) -> str:
     return path
 
 
+COCO_TREE_SPLITS = (  # (dataset name, image directory, annotation file) under the root
+    ("coco_trainval_base", "coco/trainval2014", "cocosplit/datasplit/trainvalno5k.json"),
+    ("coco_trainval_all", "coco/trainval2014", "cocosplit/datasplit/trainvalno5k.json"),
+    ("coco_test_base", "coco/val2014", "cocosplit/datasplit/5k.json"),
+    ("coco_test_all", "coco/val2014", "cocosplit/datasplit/5k.json"),
+)
+
+
+def write_coco_tree(root: str, n_train: int, n_test: int, sizes=((480, 640), (640, 480)),
+                    seed: int = 0, max_boxes: int = 8, crowd: float = 0.0, category_ids=None) -> None:
+    """A seeded COCO tree in the layout the registrations read: JPEG images
+    under ``coco/trainval2014`` and ``coco/val2014`` (their (h, w) cycling
+    through ``sizes``), with ``cocosplit/datasplit/{trainvalno5k,5k}.json``.
+    Each image has 1 to ``max_boxes`` boxes over ``category_ids`` (default:
+    the 60 base classes), each drawn as a filled rectangle of a colour its
+    class picks on blocky noise; a box is a crowd box with probability
+    ``crowd``."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES, COCO_NOVEL_IDS
+
+    rng = np.random.RandomState(seed)
+    if category_ids is None:
+        category_ids = [c["id"] for c in COCO_CATEGORIES if c["id"] not in COCO_NOVEL_IDS]
+    cats = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]
+    split_dir = os.path.join(root, "cocosplit", "datasplit")
+    os.makedirs(split_dir, exist_ok=True)
+    for img_sub, ann_file, n, first_id in (("coco/trainval2014", "trainvalno5k.json", n_train, 1),
+                                           ("coco/val2014", "5k.json", n_test, 100001)):
+        img_dir = os.path.join(root, img_sub)
+        os.makedirs(img_dir, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            H, W = sizes[i % len(sizes)]
+            low = rng.randint(0, 200, (H // 16 + 1, W // 16 + 1, 3)).astype(np.uint8)
+            img = np.kron(low, np.ones((16, 16, 1), np.uint8))[:H, :W].copy()
+            img_id = first_id + i
+            for _ in range(rng.randint(1, max_boxes + 1)):
+                w, h = rng.randint(W // 16, W // 2), rng.randint(H // 16, H // 2)
+                x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+                cat = int(category_ids[rng.randint(len(category_ids))])
+                img[y:y + h, x:x + w] = ((cat * 37) % 256, (cat * 91) % 256, (cat * 151) % 256)
+                anns.append({"id": len(anns) + 1 + 10 * first_id, "image_id": img_id, "category_id": cat,
+                             "bbox": [float(x), float(y), float(w), float(h)], "area": float(w * h),
+                             "iscrowd": int(rng.rand() < crowd)})
+            name = f"img_{img_id:06d}.jpg"
+            Image.fromarray(img).save(os.path.join(img_dir, name), quality=90)
+            images.append({"id": img_id, "file_name": name, "height": H, "width": W})
+        with open(os.path.join(split_dir, ann_file), "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+
+def register_coco_tree(root: str, catalog, register_meta_coco, metadata) -> None:
+    """(Re)register the splits of ``COCO_TREE_SPLITS`` on the tree at
+    ``root``, as ``register_all_coco(root)`` registers them."""
+    import os
+
+    for name, img_dir, annofile in COCO_TREE_SPLITS:
+        if name in catalog:
+            catalog.remove(name)
+        register_meta_coco(name, metadata, os.path.join(root, img_dir), os.path.join(root, annofile))
+
+
 def register_mini_coco(root: str, catalog, register_meta_coco, metadata) -> None:
     """(Re)register the splits of ``MINI_SPLITS`` on the mini tree at
     ``root``, as ``register_all_coco(root)`` registers them."""
@@ -1552,6 +1639,351 @@ def fused_train_path(tag, kernels, unfused):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The training CLI (twin of tools/train_net.py): loaders, DefaultTrainer,
+# checkpoints, COCO evaluation
+# ---------------------------------------------------------------------------
+
+TRAIN_NET_YAML = "configs/COCO-detection/faster_rcnn_R_50_FPN_base.yaml"
+
+
+def use_coco_tree(root: str) -> None:
+    """Point ``DETECTRON2_DATASETS`` at a tree that ``write_coco_tree`` wrote
+    and register its splits in the port's catalog."""
+    import os
+
+    from lvc_tpu_torch.data import builtin  # noqa: F401
+    from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.meta_coco import register_meta_coco
+
+    os.environ["DETECTRON2_DATASETS"] = root
+    register_coco_tree(root, DatasetCatalog, register_meta_coco, _get_builtin_metadata("coco_fewshot"))
+
+
+def trainer_reference_cfg(device: str, out_dir: str):
+    """The narrow R-50-FPN of the training reference check (tests/
+    test_torch_train.py's ``_narrow``: 64-wide res2 and FPN, exhaustive
+    sampling, float32) with 60 base classes and POOLER_IMPL pallas_train (K2
+    and K3 on the card, their plain versions on the CPU), trained 3
+    iterations on 96x128 images at batch 2 with the gate's gradient clipping
+    (norm 1.0: unclipped, the random head's first steps drive every class
+    score below 1e-30), and evaluated with a score threshold of 0.001, so
+    that its random detector emits rows."""
+    cfg = narrow_cfg("pallas_train")
+    cfg.MODEL.DEVICE = device
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 60
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
+    cfg.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 8192
+    cfg.MODEL.RPN.POSITIVE_FRACTION = 0.999
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 128
+    cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.999
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 300
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 200
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+    cfg.PAD.MAX_GT_PER_IMAGE = 8
+    cfg.PAD.CANVAS_BUCKETS = [[128, 192]]
+    cfg.INPUT.MIN_SIZE_TRAIN = (96,)
+    cfg.INPUT.MAX_SIZE_TRAIN = 192
+    cfg.INPUT.MIN_SIZE_TEST = 96
+    cfg.INPUT.MAX_SIZE_TEST = 192
+    cfg.DATASETS.TRAIN = ("coco_trainval_base",)
+    cfg.DATASETS.TEST = ("coco_test_base",)
+    cfg.DATALOADER.NUM_WORKERS = 1
+    cfg.SOLVER.IMS_PER_BATCH = 2
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.WARMUP_ITERS = 2
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    cfg.SOLVER.MAX_ITER = 3
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.SEED = 3
+    cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+def result_rows(path: str):
+    """An evaluator's COCO result rows in (image, category, score) order."""
+    with open(path) as f:
+        return sorted(json.load(f), key=lambda r: (r["image_id"], r["category_id"], -r["score"]))
+
+
+def trainer_reference_check(tag):
+    """``DefaultTrainer`` on the card and on the CPU from the same weights on
+    one seeded mini COCO tree (6 train and 4 test images of 96x128, one
+    loader worker, so both see the same batches): 3 iterations, then the
+    final evaluation. Each iteration's losses (the storages' histories) and
+    the ``metrics.json`` rows within rel 1e-4; the result rows matched
+    in (image, category, score) order, boxes within 1e-2 px and scores within
+    rel 1e-3; the AP dicts within 1e-2 (points of AP)."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.engine.defaults import DefaultTrainer
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_coco_tree(root, 6, 4, sizes=((96, 128),), seed=1, max_boxes=5)
+        use_coco_tree(root)
+        ref = build_model(trainer_reference_cfg("cpu", ""), device="cpu")
+        calibrated_init(ref, seed=0)
+        with torch.no_grad():
+            ref.roi_heads.box_predictor.cls_score.weight.mul_(5.0)  # scores spread over (0, 1)
+        weights = ref.state_dict()
+
+        class RefTrainer(DefaultTrainer):
+            def _materialize(self, model, seed):
+                model.load_state_dict(weights)
+
+        runs = {}
+        for device in ("cpu", "cuda"):
+            before = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+            out = os.path.join(tmp, device)
+            trainer = RefTrainer(trainer_reference_cfg(device, out))
+            results = trainer.train()
+            launched = (ra.roi_align_paired.launches - before[0], ra.roi_align_paired_bwd.launches - before[1])
+            rows = result_rows(os.path.join(out, "inference", "coco_instances_test_results.json"))
+            with open(os.path.join(out, "metrics.json")) as f:
+                metrics = [json.loads(line) for line in f]
+            losses = {k: h.values() for k, h in trainer.storage.histories().items() if k.startswith(("loss", "total"))}
+            runs[device] = losses, metrics, rows, results, launched
+    (c_loss, c_rows_m, c_rows, c_res, c_n), (g_loss, g_rows_m, g_rows, g_res, g_n) = runs["cpu"], runs["cuda"]
+    if c_n != (0, 0) or g_n != (3 + 4, 3):
+        raise AssertionError(f"K2/K3 launches: CPU run {c_n}, card run {g_n} (want 0/0 and 7/3)")
+    loss_err = max(abs(g - c) / max(abs(c), 1e-30) for k in c_loss for g, c in zip(g_loss[k], c_loss[k]))
+    if set(c_loss) != set(g_loss) or any(len(v) != 3 for v in c_loss.values()) or loss_err > 1e-4:
+        raise AssertionError(f"trainer losses differ: cpu {c_loss} card {g_loss}")
+    row_err = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-30) for c, g in zip(c_rows_m, g_rows_m)
+                  for k in c if k.startswith(("loss", "total")))
+    if [r["iteration"] for r in c_rows_m] != [r["iteration"] for r in g_rows_m] or not c_rows_m or row_err > 1e-4:
+        raise AssertionError(f"metrics.json rows differ (max rel err {row_err})")
+    if len(c_rows) != len(g_rows) or len(c_rows) < 100:
+        raise AssertionError(f"result rows: {len(c_rows)} on the CPU, {len(g_rows)} on the card")
+    box_err = score_err = 0.0
+    for c, g in zip(c_rows, g_rows):
+        if (c["image_id"], c["category_id"]) != (g["image_id"], g["category_id"]):
+            raise AssertionError(f"result rows differ: {c} vs {g}")
+        box_err = max(box_err, max(abs(a - b) for a, b in zip(c["bbox"], g["bbox"])))
+        score_err = max(score_err, abs(c["score"] - g["score"]) / c["score"])
+    ap_err = max(abs(c_res["bbox"][k] - g_res["bbox"][k]) for k in c_res["bbox"] if "-" not in k)
+    if box_err > 1e-2 or score_err > 1e-3 or ap_err > 1e-2 or set(c_res["bbox"]) != set(g_res["bbox"]):
+        raise AssertionError(f"evaluation differs: box {box_err} score {score_err} AP {ap_err}")
+    print(f"trainer reference: DefaultTrainer card vs CPU at float32, 3 iterations, losses "
+          f"{ {k: round(v[-1], 5) for k, v in c_loss.items()} } max rel err {loss_err:.2e} (tol 1e-4), "
+          f"metrics.json rows {row_err:.2e}; eval {len(c_rows)} rows box err {box_err:.2e} px (tol 1e-2) "
+          f"score rel err {score_err:.2e} (tol 1e-3), bAP {c_res['bbox']['bAP']:.4f} vs "
+          f"{g_res['bbox']['bAP']:.4f} (max AP err {ap_err:.2e}, tol 1e-2); K2/K3 launches {g_n[0]}/{g_n[1]} {tag}")
+
+
+TRAIN_NET_ITERS, TRAIN_NET_PERIOD, TRAIN_NET_RESUMED = 30, 15, 35
+TRAIN_NET_TREE = (48, 16)  # train and test images
+
+
+def train_net_path(tag):
+    """The training CLI's main path at full width: ``train_net.main`` in this
+    process on faster_rcnn_R_50_FPN_base.yaml (R-50-FPN, 60 base classes,
+    IMS_PER_BATCH 16, the 832x1344 canvas, POOLER_IMPL auto: K2 and K3 in
+    training, K2 in evaluation) from a damped-init ``.pth``, with AMP,
+    BASE_LR 1e-4, 30 iterations and a checkpoint every 15, on a seeded COCO
+    tree of 48 train and 16 test JPEGs of 480x640 and 640x480 with 1-8 boxes
+    each; the score threshold is 0.001, so that the random detector's rows
+    reach the evaluator. Then ``--resume`` to 35 iterations and
+    ``--eval-only`` from ``model_0000029.pth``. Kernel counts are set to 0
+    just before each run and read just after."""
+    import json
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.data import native_io
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.evaluation import fast_eval_api
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils.init import damped_init
+
+    class Capture(train_net.Trainer):
+        """The CLI's trainer, kept for reading after ``main`` returns, with the
+        wall time of its evaluation."""
+
+        last = None
+        test_s = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            Capture.last = self
+            self.step_s = []  # every step's wall seconds, loader wait included
+
+        def run_step(self):
+            t0 = time.perf_counter()
+            super().run_step()
+            self.step_s.append(time.perf_counter() - t0)
+
+        @classmethod
+        def test(cls, cfg, model):
+            t0 = time.perf_counter()
+            res = super().test(cfg, model)
+            torch.cuda.synchronize()
+            Capture.test_s = time.perf_counter() - t0
+            return res
+
+    def run(argv):
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        saved, train_net.Trainer = train_net.Trainer, Capture
+        try:
+            t0 = time.perf_counter()
+            res = train_net.main(default_argument_parser().parse_args(argv))
+            secs = time.perf_counter() - t0
+        finally:
+            train_net.Trainer = saved
+        return res, secs, (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
+
+    n_train, n_test = TRAIN_NET_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        t0 = time.perf_counter()
+        write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        use_coco_tree(root)
+        tree_s = time.perf_counter() - t0
+        cfg = get_cfg()
+        cfg.merge_from_file(TRAIN_NET_YAML)
+        model = damped_init(build_model(cfg), seed=0)
+        weights = DetectionCheckpointer(model, os.path.join(tmp, "weights")).save("damped_init", iteration=0)
+        del model
+        out = os.path.join(tmp, "out")
+        opts = ["MODEL.WEIGHTS", weights, "SOLVER.AMP.ENABLED", "True", "SOLVER.BASE_LR", "1e-4",
+                "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_NET_PERIOD), "SEED", "0",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001", "OUTPUT_DIR", out]
+        yaml = ["--config-file", TRAIN_NET_YAML]
+
+        # 1. training, checkpoints, the final evaluation
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, (k2, k3) = run(yaml + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_ITERS)])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer = Capture.last
+        if trainer.cfg.SOLVER.IMS_PER_BATCH != 16 or trainer.cfg.MODEL.ROI_HEADS.POOLER_IMPL != "auto":
+            raise AssertionError("the phase must run the config's IMS_PER_BATCH 16 and POOLER_IMPL auto")
+        with open(os.path.join(out, "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = {k: v for r in rows for k, v in r.items() if k.startswith(("loss", "total"))}
+        if not rows or len(losses) < 5 or not all(math.isfinite(v) for r in rows for k, v in r.items()
+                                                  if k.startswith(("loss", "total"))):
+            raise AssertionError(f"metrics.json: non-finite or missing losses in {rows}")
+        saved = [f"model_{TRAIN_NET_PERIOD - 1:07d}.pth", f"model_{TRAIN_NET_ITERS - 1:07d}.pth"]
+        for name in saved + ["last_checkpoint"]:
+            if not os.path.exists(os.path.join(out, name)):
+                raise AssertionError(f"{name} was not written")
+        with open(os.path.join(out, "inference", "res_final.json")) as f:
+            final = json.load(f)
+        # read now: the resumed run's evaluation overwrites the result rows
+        final_rows = result_rows(os.path.join(out, "inference", "coco_instances_test_results.json"))
+        ap = final["bbox"]["AP"]
+        if not math.isfinite(ap) or ap < 0:
+            raise AssertionError(f"res_final.json holds no finite bbox AP: {final}")
+        if (k2, k3) != (TRAIN_NET_ITERS + n_test, TRAIN_NET_ITERS):
+            raise AssertionError(f"K2/K3 launched {k2}/{k3} times; want {TRAIN_NET_ITERS + n_test}/{TRAIN_NET_ITERS}")
+        times = trainer.storage.histories()["time"].values()
+        data = trainer.storage.histories()["data_time"].values()
+        ms = statistics.median(times) * 1e3
+        steps = trainer.step_s[3:]  # the IterationTimer's warm-up left out
+        window_s = sum(steps)
+        print(f"train_net: R-50-FPN base (60 classes) AMP, IMS_PER_BATCH 16 at 832x1344, {TRAIN_NET_ITERS} "
+              f"iterations in {secs:.1f} s (tree written in {tree_s:.1f} s): all {len(steps)} steps after "
+              f"warm-up in {window_s:.3f} s, {window_s / len(steps) * 1e3:.2f} ms/iter and "
+              f"{16 * len(steps) / window_s:.2f} img/s end to end (loader waits and stalls included); per-step "
+              f"`time` scalar median {ms:.2f} ms over its window of the last {len(times)} (min "
+              f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); data_time median "
+              f"{statistics.median(data) * 1e3:.2f} ms (max {max(data) * 1e3:.2f}); peak memory {peak:.2f} GiB "
+              f"{tag}")
+        print(f"train_net: final losses {rows[-1]['total_loss']:.4f} total; checkpoints {', '.join(saved)}, "
+              f"last_checkpoint; res_final.json bbox {final['bbox']}; K2/K3 launches "
+              f"{k2}/{k3} ({TRAIN_NET_ITERS} steps + {n_test} test images / {TRAIN_NET_ITERS} steps); final "
+              f"eval {Capture.test_s:.2f} s for {n_test} images {tag}")
+        print(f"train_net: native image I/O {'built' if native_io.available() else 'not built (PIL)'}, "
+              f"native COCOeval {'built' if fast_eval_api._load_lib() else 'not built (python)'} {tag}")
+        profile_call(trainer.run_step, ms, "train_net iteration (loader wait, B=16 AMP step)", tag,
+                     stages=TRAIN_STAGES)
+
+        # 2. resume
+        res2, secs2, (k2, k3) = run(yaml + ["--resume"] + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_RESUMED)])
+        start = Capture.last.start_iter
+        extra = TRAIN_NET_RESUMED - TRAIN_NET_ITERS
+        if start != TRAIN_NET_ITERS or (k2, k3) != (extra + n_test, extra):
+            raise AssertionError(f"--resume started at {start} with K2/K3 {k2}/{k3}")
+        print(f"train_net --resume: started at iteration {start}, ran to {TRAIN_NET_RESUMED} in {secs2:.1f} s, "
+              f"K2/K3 launches {k2}/{k3}, bbox AP {res2['bbox']['AP']:.4f} {tag}")
+
+        # 3. eval-only from the checkpoint the first run evaluated: one model, one device and one set of
+        # inputs, so its result rows must be the final evaluation's (a random detector's AP is 0 either way)
+        eval_out = os.path.join(tmp, "eval")
+        eval_opts = opts[:opts.index("OUTPUT_DIR")] + ["OUTPUT_DIR", eval_out]
+        eval_opts[1] = os.path.join(out, saved[1])
+        res3, secs3, (k2, k3) = run(yaml + ["--eval-only"] + eval_opts)
+        want = final_rows
+        got = result_rows(os.path.join(eval_out, "inference", "coco_instances_test_results.json"))
+        if len(want) != len(got) or len(want) < 100:
+            raise AssertionError(f"--eval-only: {len(got)} result rows; the final evaluation wrote {len(want)}")
+        box_err = score_err = 0.0
+        for w, g in zip(want, got):
+            if (w["image_id"], w["category_id"]) != (g["image_id"], g["category_id"]):
+                raise AssertionError(f"--eval-only result rows differ: {g} vs {w}")
+            box_err = max(box_err, max(abs(a - b) for a, b in zip(w["bbox"], g["bbox"])))
+            score_err = max(score_err, abs(w["score"] - g["score"]))
+        err = max(abs(res3["bbox"][k] - v) for k, v in final["bbox"].items())
+        if (k2, k3) != (n_test, 0) or box_err > 1e-3 or score_err > 1e-6 or err > 1e-9:
+            raise AssertionError(f"--eval-only: K2/K3 {k2}/{k3}, box err {box_err} px, score err {score_err}, "
+                                 f"results {res3['bbox']} vs {final['bbox']}")
+        print(f"train_net --eval-only {saved[1]}: {len(got)} result rows equal the final evaluation's "
+              f"(box err {box_err:.1e} px, tol 1e-3; score err {score_err:.1e}, tol 1e-6), bbox {res3['bbox']} "
+              f"equals res_final.json (max diff {err:.1e}); {Capture.test_s / n_test * 1e3:.2f} ms/img end to "
+              f"end at batch 1 (load, decode, resize, forward, COCO rows; {n_test} images), K2 launches {k2} "
+              f"{tag}")
+
+
+GATE_ITERS = 600
+
+
+def synthetic_ap_gate(tag):
+    """``lvc_tpu_torch.tools.verify_synthetic_ap`` at the JAX gate's 600
+    iterations, float32 and AMP: R-50-FPN with GroupNorm trained from the
+    damped x0.65 init on drawn shapes (256x256, batch 8), then evaluated on
+    its held-out 60 images by the trainer's final evaluation hook. Fails
+    unless ``verify_results`` passes (AP50 in (60, 100)) in both modes."""
+    import tempfile
+
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import verify_synthetic_ap as gate
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        gate.register(gate.build_dataset(tmp))
+        for mode in ("f32", "amp"):
+            ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+            bbox, ok, t_train, t_eval, ms_iter = gate.run_mode(mode, GATE_ITERS, tmp)
+            print(f"synthetic AP gate [{mode}]: AP {bbox['AP']:.2f} AP50 {bbox['AP50']:.2f} AP75 "
+                  f"{bbox['AP75']:.2f}, {GATE_ITERS} iterations, train {t_train:.1f} s ({ms_iter:.1f} "
+                  f"ms/iter, the median `time` scalar), eval {t_eval:.1f} s of 60 images, verify_results "
+                  f"{'PASS' if ok else 'FAIL'}; K2/K3 launches {ra.roi_align_paired.launches}/"
+                  f"{ra.roi_align_paired_bwd.launches} {tag}")
+            if not ok:
+                failures.append(mode)
+    if failures:
+        raise AssertionError(f"synthetic AP gate failed in {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -1596,6 +2028,10 @@ def main() -> int:
     fused_reference_check(tag)
     fused_main_path(tag, kernels, serving_ms)
     fused_train_path(tag, kernels, train)
+    with fused_residual(False):
+        trainer_reference_check(tag)
+        train_net_path(tag)
+        synthetic_ap_gate(tag)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts[:-1]) + ".weight"] = v.T
         elif parts[-2] == "FrozenBatchNorm_0":
             out[".".join(parts[:-2]) + ".norm." + parts[-1]] = v
+        elif parts[-2] == "GroupNorm_0":
+            out[".".join(parts[:-2]) + ".norm." + {"scale": "weight"}.get(parts[-1], parts[-1])] = v
         else:
             out[".".join(parts)] = v
     for path, v in _flatten(variables.get("batch_stats", {})).items():
@@ -65,7 +67,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """The port's state_dict -> ``{"params", "batch_stats"}`` numpy tree, the
-    layout ``torch_to_flax`` produces."""
+    layout ``torch_to_flax`` produces. A norm with running statistics is
+    FrozenBN; one without them is GroupNorm (``GroupNorm_0/{scale,bias}``)."""
     params: Dict[Tuple[str, ...], np.ndarray] = {}
     stats: Dict[Tuple[str, ...], np.ndarray] = {}
     for key, val in state_dict.items():
@@ -80,7 +83,11 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             else:
                 parts.append(p)
         name, mod = parts[-1], parts[:-1]
-        if mod and mod[-1] == "norm":
+        if mod and mod[-1] == "norm" and key.rsplit(".", 1)[0] + ".running_var" not in state_dict:
+            if name not in ("weight", "bias"):
+                raise KeyError(f"unrecognized norm key {key}")
+            params[tuple(mod[:-1] + ["GroupNorm_0", {"weight": "scale"}.get(name, name)])] = v
+        elif mod and mod[-1] == "norm":
             base = mod[:-1] + ["FrozenBatchNorm_0"]
             if name in ("weight", "bias"):
                 params[tuple(base + [name])] = v

@@ -1,0 +1,259 @@
+"""Train/test data loader construction (the port's copy of
+``lvc_tpu/data/build.py``).
+
+Counterpart of lvc/data/build.py (get_dataset_dicts_all:106-162,
+build_detection_train_loader:165, build_detection_test_loader:296) and
+d2's build_batch_data_loader. Examples are padded fixed-shape numpy arrays
+bucketed by canvas; a thread pool decodes/augments ahead of the train step
+(no worker processes: the heavy lifting is the native decoder, PIL and
+numpy, which release the GIL). The loaders yield numpy arrays; the trainer
+moves each batch to its device. ``INPUT.MOSAIC > 0`` raises: the mosaic
+mapper is not ported yet (ROADMAP.md queue 1, item 9).
+"""
+from __future__ import annotations
+
+import itertools
+import pickle
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from lvc_tpu_torch.data import utils as data_utils
+from lvc_tpu_torch.data.catalog import DatasetCatalog
+from lvc_tpu_torch.data.dataset_mapper import DatasetMapper, collate
+from lvc_tpu_torch.data.samplers import (
+    CategoryAreaAwareSampler,
+    CategoryAwareSampler,
+    InferenceSampler,
+    RepeatFactorTrainingSampler,
+    TrainingSampler,
+)
+from lvc_tpu_torch.structures.boxes import BoxMode
+
+
+def get_detection_dataset_dicts(names, filter_empty: bool = True) -> List[dict]:
+    if isinstance(names, str):
+        names = [names]
+    assert len(names)
+    dicts = [DatasetCatalog.get(n) for n in names]
+    dataset_dicts = list(itertools.chain.from_iterable(dicts))
+    if filter_empty:
+        dataset_dicts = [d for d in dataset_dicts if len(d.get("annotations", []))]
+    return dataset_dicts
+
+
+def load_proposals_into_dataset(dataset_dicts: List[dict], proposal_files) -> List[dict]:
+    """Attach precomputed proposals from RPNEvaluator pickles
+    (lvc build.py:49-103)."""
+    if isinstance(proposal_files, str):
+        proposal_files = [proposal_files]
+    proposals: Dict = {"ids": [], "boxes": [], "objectness_logits": []}
+    for f in proposal_files:
+        with open(f, "rb") as fp:
+            p = pickle.load(fp)
+        for k in proposals:
+            proposals[k].extend(p[k])
+    id_to_idx = {int(i): n for n, i in enumerate(proposals["ids"])}
+    out = []
+    for d in dataset_dicts:
+        idx = id_to_idx.get(int(d["image_id"]))
+        if idx is None:
+            continue
+        boxes = np.asarray(proposals["boxes"][idx]).reshape(-1, 4)
+        logits = np.asarray(proposals["objectness_logits"][idx]).reshape(-1)
+        inds = np.argsort(-logits, kind="stable")
+        d = dict(d)
+        d["proposal_boxes"] = boxes[inds]
+        d["proposal_objectness_logits"] = logits[inds]
+        d["proposal_bbox_mode"] = BoxMode.XYXY_ABS
+        out.append(d)
+    return out
+
+
+def get_dataset_dicts_all(cfg) -> List[dict]:
+    """The LVC training-set merge (lvc build.py:106-162): base set filtered
+    of unseen classes + few-shot set filtered of seen classes + optional
+    pseudo-annotation sets, with ignore-overlap removal."""
+    dataset_dicts = get_detection_dataset_dicts(
+        cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
+    )
+    if "all" in cfg.DATASETS.TRAIN[0]:
+        dataset_dicts = data_utils.filter_image_annotations(
+            dataset_dicts, cfg.DATASETS.TRAIN[0], cfg.DATASETS.UNSEEN_CLASSES
+        )
+        fs_dataset_dicts = get_detection_dataset_dicts(
+            cfg.DATASETS.FS_TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
+        )
+        fs_dataset_dicts = data_utils.filter_image_annotations(
+            fs_dataset_dicts, cfg.DATASETS.FS_TRAIN[0], cfg.DATASETS.SEEN_CLASSES
+        )
+        dataset_dicts_new = data_utils.combine_datasets([fs_dataset_dicts, dataset_dicts])
+    else:
+        dataset_dicts_new = data_utils.combine_datasets([dataset_dicts])
+    if cfg.QUERY_EXPAND.ENABLED:
+        dataset_dicts_det = get_detection_dataset_dicts(
+            cfg.DATASETS.DT_PATH, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
+        )
+        dataset_dicts_new = data_utils.combine_datasets([dataset_dicts_new, dataset_dicts_det])
+        dataset_dicts_new = data_utils.remove_ignore_overlap(dataset_dicts_new)
+    if cfg.DATASETS.SUBSET:
+        dataset_dicts_new = data_utils.unseen_sample(dataset_dicts_new)
+    if cfg.MODEL.LOAD_PROPOSALS:
+        dataset_dicts_new = load_proposals_into_dataset(
+            dataset_dicts_new, list(cfg.DATASETS.PROPOSAL_FILES_TRAIN)
+        )
+    return dataset_dicts_new
+
+
+def _build_sampler(cfg, dataset_dicts):
+    name = cfg.DATALOADER.SAMPLER_TRAIN
+    seed = max(cfg.SEED, 0)
+    if name == "TrainingSampler":
+        return TrainingSampler(len(dataset_dicts), seed=seed)
+    if name == "RepeatFactorTrainingSampler":
+        return RepeatFactorTrainingSampler(dataset_dicts, cfg.DATALOADER.REPEAT_THRESHOLD, seed=seed)
+    if name == "CategoryAwareSampler":
+        return CategoryAwareSampler(dataset_dicts, seed=seed)
+    if name == "CategoryAreaAwareSampler":
+        return CategoryAreaAwareSampler(dataset_dicts, seed=seed)
+    raise ValueError(f"Unknown sampler: {name}")
+
+
+def _bounded_map(fn, iterable, pool: ThreadPoolExecutor, prefetch: int):
+    """In-order map with a bounded number of in-flight tasks (plain
+    Executor.map would eagerly consume an infinite iterator)."""
+    from collections import deque
+
+    it = iter(iterable)
+    inflight = deque()
+    try:
+        for _ in range(prefetch):
+            inflight.append(pool.submit(fn, next(it)))
+    except StopIteration:
+        it = None
+    while inflight:
+        out = inflight.popleft().result()
+        if it is not None:
+            try:
+                inflight.append(pool.submit(fn, next(it)))
+            except StopIteration:
+                it = None
+        yield out
+
+
+class TrainLoader:
+    """Infinite iterator of collated train batches, bucketed by canvas.
+
+    A thread pool maps dataset dicts ahead; batches are formed from
+    examples sharing a canvas bucket (the fixed-shape analogue of
+    AspectRatioGroupedDataset, d2 common.py:115)."""
+
+    def __init__(self, dataset_dicts, mapper: DatasetMapper, batch_size: int, num_workers: int = 4, sampler=None):
+        self.dataset_dicts = dataset_dicts
+        self.mapper = mapper
+        self.batch_size = batch_size
+        self.sampler = sampler or TrainingSampler(len(dataset_dicts))
+        self.num_workers = max(1, num_workers)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        pool = ThreadPoolExecutor(self.num_workers)
+        idx_iter = iter(self.sampler)
+
+        def gen_examples():
+            while True:
+                yield self.dataset_dicts[next(idx_iter)]
+
+        examples = _bounded_map(
+            self.mapper, gen_examples(), pool, prefetch=4 * self.num_workers
+        )
+        buckets: Dict[Tuple[int, int], List] = {}
+        try:
+            for ex in examples:
+                b = buckets.setdefault(ex["canvas"], [])
+                b.append(ex)
+                if len(b) == self.batch_size:
+                    yield collate(b, train=True)
+                    buckets[ex["canvas"]] = []
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+class EvalLoader:
+    """Finite iterator over (batch, metadata list). The final partial batch
+    is padded by repeating the last example; metadata marks padding."""
+
+    def __init__(self, dataset_dicts, mapper: DatasetMapper, batch_size: int = 1, num_workers: int = 4,
+                 with_gt: bool = False):
+        self.dataset_dicts = dataset_dicts
+        self.mapper = mapper
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+        self.sampler = InferenceSampler(len(dataset_dicts))
+        self.with_gt = with_gt
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def __iter__(self):
+        idxs = list(self.sampler)
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            examples = _bounded_map(
+                self.mapper,
+                (self.dataset_dicts[i] for i in idxs),
+                pool,
+                prefetch=4 * self.num_workers,
+            )
+            buckets: Dict[Tuple[int, int], List] = {}
+            for ex in examples:
+                b = buckets.setdefault(ex["canvas"], [])
+                b.append(ex)
+                if len(b) == self.batch_size:
+                    yield self._emit(b)
+                    buckets[ex["canvas"]] = []
+        for b in buckets.values():
+            if b:
+                yield self._emit(b, pad=True)
+
+    def _emit(self, exs, pad: bool = False):
+        metas = [
+            {
+                "image_id": e["image_id"],
+                "orig_size": e["orig_size"],
+                "image_size": e["image_size"],
+                "gt_ids": e["gt_ids"],
+                "gt_scores": e["gt_scores"],
+                "gt_boxes_orig": e["gt_boxes_orig"],
+                "padding": False,
+            }
+            for e in exs
+        ]
+        if pad and len(exs) < self.batch_size:
+            n_pad = self.batch_size - len(exs)
+            exs = exs + [exs[-1]] * n_pad
+            metas = metas + [dict(metas[-1], padding=True) for _ in range(n_pad)]
+        return collate(exs, train=False, with_gt=self.with_gt), metas
+
+
+def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None) -> TrainLoader:
+    if cfg.INPUT.MOSAIC > 0:
+        raise NotImplementedError(
+            "INPUT.MOSAIC > 0: the mosaic mapper is not ported yet (ROADMAP.md queue 1, item 9)"
+        )
+    dataset_dicts = get_dataset_dicts_all(cfg)
+    if mapper is None:
+        mapper = DatasetMapper(cfg, is_train=True, seed=max(cfg.SEED, 0))
+    return TrainLoader(
+        dataset_dicts, mapper, cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_WORKERS,
+        _build_sampler(cfg, dataset_dicts),
+    )
+
+
+def build_detection_test_loader(cfg, dataset_name: str, mapper: Optional[DatasetMapper] = None,
+                                batch_size: int = 1, with_gt: bool = False) -> EvalLoader:
+    dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
+    if mapper is None:
+        mapper = DatasetMapper(cfg, is_train=False, keep_ignore=with_gt)
+    return EvalLoader(
+        dataset_dicts, mapper, batch_size, cfg.DATALOADER.NUM_WORKERS, with_gt=with_gt,
+    )

@@ -94,6 +94,9 @@ COCO_CATEGORIES = [
 # Novel (unseen) classes = the 20 PASCAL-VOC categories (COCO ids).
 COCO_NOVEL_IDS = [1, 2, 3, 4, 5, 6, 7, 9, 16, 17, 18, 19, 20, 21, 44, 62, 63, 64, 67, 72]
 
+# contiguous-index unseen table (match lvc defaults.py:181-189)
+COCO_UNSEEN_IDS = [0, 1, 2, 3, 4, 5, 6, 8, 14, 15, 16, 17, 18, 19, 39, 56, 57, 58, 60, 62]
+
 
 def _get_coco_instances_meta():
     thing_ids = [k["id"] for k in COCO_CATEGORIES]

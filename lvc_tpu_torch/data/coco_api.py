@@ -1,12 +1,14 @@
-"""Minimal COCO dataset API (a pycocotools.coco.COCO-compatible subset).
+"""Minimal COCO dataset API (pycocotools.coco.COCO-compatible subset).
 
-A copy of the index, ``getAnnIds`` and ``loadAnns`` of
-``lvc_tpu/data/coco_api.py::COCO``, the part the verification path uses
-(the other getters, ``loadRes`` and ``COCO_PK`` are not ported yet), kept so
-that the port never imports the JAX package.
+A copy of ``lvc_tpu/data/coco_api.py`` (the port keeps its own; pycocotools
+is not a dependency): ann/img/cat indices, ranged ``getAnnIds`` and
+``loadRes`` for bbox result lists. Not ported yet: ``loadRes`` of
+segmentation results, which needs the mask structures (ROADMAP.md queue 1,
+item 10), and ``COCO_PK`` of the candidate-filter tool (item 9).
 """
 from __future__ import annotations
 
+import copy
 import json
 from collections import defaultdict
 from typing import Dict, List, Optional, Union
@@ -19,6 +21,7 @@ class COCO:
         self.imgs: Dict[int, dict] = {}
         self.cats: Dict[int, dict] = {}
         self.imgToAnns: Dict[int, List[dict]] = defaultdict(list)
+        self.catToImgs: Dict[int, List[int]] = defaultdict(list)
         if annotation_file is not None:
             if isinstance(annotation_file, dict):
                 self.dataset = annotation_file
@@ -30,7 +33,7 @@ class COCO:
 
     def createIndex(self):
         anns, cats, imgs = {}, {}, {}
-        imgToAnns = defaultdict(list)
+        imgToAnns, catToImgs = defaultdict(list), defaultdict(list)
         for ann in self.dataset.get("annotations", []):
             imgToAnns[ann["image_id"]].append(ann)
             anns[ann["id"]] = ann
@@ -38,9 +41,12 @@ class COCO:
             imgs[img["id"]] = img
         for cat in self.dataset.get("categories", []):
             cats[cat["id"]] = cat
+        for ann in self.dataset.get("annotations", []):
+            catToImgs[ann["category_id"]].append(ann["image_id"])
         self.anns, self.imgs, self.cats = anns, imgs, cats
-        self.imgToAnns = imgToAnns
+        self.imgToAnns, self.catToImgs = imgToAnns, catToImgs
 
+    # ------------------------------------------------------------------ get
     def getAnnIds(self, imgIds=[], catIds=[], areaRng=[], iscrowd=None) -> List[int]:
         imgIds = _as_list(imgIds)
         catIds = _as_list(catIds)
@@ -61,8 +67,74 @@ class COCO:
             return [a["id"] for a in anns if a.get("iscrowd", 0) == iscrowd]
         return [a["id"] for a in anns]
 
+    def getCatIds(self, catNms=[], supNms=[], catIds=[]) -> List[int]:
+        catNms, supNms, catIds = map(_as_list, (catNms, supNms, catIds))
+        cats = self.dataset.get("categories", [])
+        if catNms:
+            cats = [c for c in cats if c["name"] in catNms]
+        if supNms:
+            cats = [c for c in cats if c.get("supercategory") in supNms]
+        if catIds:
+            cats = [c for c in cats if c["id"] in catIds]
+        return [c["id"] for c in cats]
+
+    def getImgIds(self, imgIds=[], catIds=[]) -> List[int]:
+        imgIds = _as_list(imgIds)
+        catIds = _as_list(catIds)
+        if len(imgIds) == len(catIds) == 0:
+            return list(self.imgs.keys())
+        ids = set(imgIds) if imgIds else set(self.imgs.keys())
+        if catIds:
+            for i, cat in enumerate(catIds):
+                imgs_c = set(self.catToImgs[cat])
+                ids = imgs_c if (i == 0 and not imgIds) else ids & imgs_c
+        return list(ids)
+
     def loadAnns(self, ids=[]) -> List[dict]:
         return [self.anns[i] for i in _as_list(ids)]
+
+    def loadCats(self, ids=[]) -> List[dict]:
+        return [self.cats[i] for i in _as_list(ids)]
+
+    def loadImgs(self, ids=[]) -> List[dict]:
+        return [self.imgs[i] for i in _as_list(ids)]
+
+    # ------------------------------------------------------------- loadRes
+    def loadRes(self, resFile: Union[str, list]) -> "COCO":
+        """Create a result COCO from a detection list/file
+        (pycocotools semantics for bbox results)."""
+        res = COCO()
+        res.dataset["images"] = [img for img in self.dataset["images"]]
+        if isinstance(resFile, str):
+            with open(resFile) as f:
+                anns = json.load(f)
+        else:
+            anns = resFile
+        assert isinstance(anns, list), "results must be a list"
+        if len(anns) == 0:
+            res.dataset["annotations"] = []
+            res.dataset["categories"] = copy.deepcopy(self.dataset["categories"])
+            res.createIndex()
+            return res
+        anns_img_ids = set(a["image_id"] for a in anns)
+        assert anns_img_ids <= set(self.getImgIds()), "results contain unknown images"
+        anns = copy.deepcopy(anns)
+        if "bbox" in anns[0] and anns[0]["bbox"] != []:
+            res.dataset["categories"] = copy.deepcopy(self.dataset["categories"])
+            for i, ann in enumerate(anns):
+                bb = ann["bbox"]
+                if "area" not in ann:
+                    ann["area"] = bb[2] * bb[3]
+                ann["id"] = i + 1
+                ann.setdefault("iscrowd", 0)
+        elif "segmentation" in anns[0]:
+            raise NotImplementedError(
+                "segmentation results need the mask structures, which are not ported yet "
+                "(ROADMAP.md queue 1, item 10)"
+            )
+        res.dataset["annotations"] = anns
+        res.createIndex()
+        return res
 
 
 def _as_list(x):

@@ -1,21 +1,24 @@
-"""Host-side plumbing of the label-verification CLI.
+"""Dataset-dict utilities and the host-side plumbing of the verification CLI.
 
-A copy of the parts of ``lvc_tpu/data/utils.py`` that the verification path
-uses, kept so that the port never imports the JAX package: result-JSON
-registration (``register_individual``, ``register_results``), the DINO crop
-helpers (``get_padding``, ``get_crops_qe``), the seen-gt overlap check
-(``iou_check_gt``) and the per-class precision report
+A copy of the parts of ``lvc_tpu/data/utils.py`` that the port's paths use,
+kept so that the port never imports the JAX package: the training-set merge
+of ``data/build.py::get_dataset_dicts_all`` (``remove_ignore_overlap``,
+``filter_image_annotations``, ``combine_datasets``, ``unseen_sample``),
+result-JSON registration (``register_individual``, ``register_results``),
+the DINO crop helpers (``get_padding``, ``get_crops_qe``), the seen-gt
+overlap check (``iou_check_gt``) and the per-class precision report
 (``iou_check``, ``print_precision_per_class``).
 """
 from __future__ import annotations
 
 import os
+import random
 from collections import defaultdict
-from typing import List
+from typing import Dict, List, Sequence
 
 import numpy as np
 
-from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
+from lvc_tpu_torch.data.builtin_meta import COCO_UNSEEN_IDS, _get_builtin_metadata
 from lvc_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from lvc_tpu_torch.data.coco_api import COCO
 from lvc_tpu_torch.data.meta_coco import load_coco_json
@@ -39,6 +42,91 @@ def _anns_xyxy(annos: List[dict]) -> np.ndarray:
     boxes = np.array([a["bbox"] for a in annos], np.float64)
     mode = annos[0].get("bbox_mode", BoxMode.XYWH_ABS)
     return np.asarray(BoxMode.convert(boxes, mode, BoxMode.XYXY_ABS))
+
+
+def remove_ignore_overlap(dataset_dicts: List[dict], thresh: float = 0.5) -> List[dict]:
+    """Drop ignore_qe boxes overlapping a real annotation with IoU >= thresh
+    (lvc utils.py:27-56)."""
+    for d in dataset_dicts:
+        annos_ig = [a for a in d["annotations"] if a.get("ignore_qe", 0)]
+        if not annos_ig:
+            continue
+        annos_real = [a for a in d["annotations"] if not a.get("ignore_qe", 0)]
+        if not annos_real:
+            continue
+        ious = _iou_xyxy(_anns_xyxy(annos_real), _anns_xyxy(annos_ig))
+        keep = ious.max(axis=0) < thresh
+        d["annotations"] = [a for a, k in zip(annos_ig, keep) if k] + annos_real
+    return dataset_dicts
+
+
+def filter_image_annotations(
+    dataset_dicts: List[dict],
+    dataset_name: str,
+    drop_class_names: Sequence[str],
+    test: bool = False,
+) -> List[dict]:
+    """Remove annotations of the given classes; drop images left empty
+    (lvc utils.py:386-412)."""
+    metadata = MetadataCatalog.get(dataset_name)
+    class_names = metadata.thing_classes
+    assert all(c in class_names for c in drop_class_names), "unknown class in filter"
+    drop_ids = {class_names.index(c) for c in drop_class_names}
+    for d in dataset_dicts:
+        d["annotations"] = [a for a in d["annotations"] if a["category_id"] not in drop_ids]
+    if not test:
+        dataset_dicts = [d for d in dataset_dicts if len(d["annotations"])]
+    return dataset_dicts
+
+
+def combine_datasets(list_of_dataset_dicts: List[List[dict]]) -> List[dict]:
+    """Merge per-image annotation lists keyed by image_id; the largest
+    dataset is the base (lvc utils.py:415-437)."""
+    indexed = []
+    for dicts in list_of_dataset_dicts:
+        m: Dict = {}
+        for d in dicts:
+            if d["image_id"] in m:
+                m[d["image_id"]]["annotations"].extend(d["annotations"])
+            else:
+                m[d["image_id"]] = d
+        indexed.append(m)
+    base = indexed.pop(int(np.argmax([len(m) for m in indexed])))
+    for rest in indexed:
+        for img_id, d in rest.items():
+            if img_id in base:
+                base[img_id]["annotations"].extend(d["annotations"])
+            else:
+                base[img_id] = d
+    return list(base.values())
+
+
+def unseen_sample(dataset_dicts: List[dict]) -> List[dict]:
+    """Balanced subsetting: cap each category's image count at the largest
+    unseen-class count (lvc utils.py:281-308)."""
+    rng = random.Random(20000)
+    cat2imgs = defaultdict(list)
+    for i, d in enumerate(dataset_dicts):
+        cat_ids, counts = np.unique(
+            [a["category_id"] for a in d["annotations"]], return_counts=True
+        )
+        for cid, cnt in zip(cat_ids, counts):
+            cat2imgs[cid].append([i, cnt])
+    samp_num = max(len(v) for k, v in cat2imgs.items() if k in COCO_UNSEEN_IDS)
+    keep_ids = []
+    for k, v in cat2imgs.items():
+        if len(v) <= samp_num:
+            keep_ids.extend([x[0] for x in v])
+        else:
+            inds = rng.sample(v, len(v))
+            tot = 0
+            for iid, cnt in inds:
+                tot += cnt
+                if tot > samp_num:
+                    break
+                keep_ids.append(iid)
+    keep_ids = sorted(set(keep_ids))
+    return [dataset_dicts[i] for i in keep_ids]
 
 
 # ---------------------------------------------------------------- register

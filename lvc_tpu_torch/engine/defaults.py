@@ -1,10 +1,22 @@
-"""Argument parser and process setup of the port's CLIs.
+"""Argument parser, process setup and the hook-driven trainer of the port.
 
-Counterpart of ``default_argument_parser`` and ``default_setup`` of
-``lvc_tpu/engine/defaults.py`` (:48-88): the same flags, the same logging,
-config dump and numpy seeding, with the torch device logged in place of the
-jax devices. The distributed flags are accepted for compatibility; the
-port's CLIs run in one process.
+Counterpart of ``lvc_tpu/engine/defaults.py``: ``default_argument_parser``
+and ``default_setup`` (:48-88; the torch device is logged in place of the jax
+devices) and ``DefaultTrainer`` (:91-321). One process drives one device,
+``cfg.MODEL.DEVICE`` (``"cuda"`` unless the caller asks for ``"cpu"``; with no
+GPU and no ``"cpu"`` it raises, as ``build_model`` does): there is no mesh,
+and the distributed flags are accepted for compatibility only.
+
+The trainer builds the model, fills its weights through ``_materialize``
+(the ``"he"`` rule, which subclasses override), loads ``MODEL.WEIGHTS`` or
+resumes on top, and runs ``make_train_step`` under the hooks: the iteration
+timer, the LR logger, the periodic checkpointer, the evaluation hook and
+the metric writers. Each step takes a numpy batch from the loader (its wait
+is the ``data_time`` scalar), moves it to the device, and draws its sampling
+priorities from one ``torch.Generator`` on the device, reseeded from ``SEED``
+and the iteration, so a resumed run samples as an uninterrupted one would
+(the JAX step folds the step into its key the same way). ``DefaultPredictor``
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -12,9 +24,28 @@ import argparse
 import logging
 import os
 import sys
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
+
+from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+from lvc_tpu_torch.data.build import build_detection_test_loader, build_detection_train_loader
+from lvc_tpu_torch.engine import hooks as hooks_mod
+from lvc_tpu_torch.engine.train_loop import make_train_step
+from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
+from lvc_tpu_torch.evaluation.evaluator import inference_on_dataset
+from lvc_tpu_torch.evaluation.testing import print_csv_format, verify_results
+from lvc_tpu_torch.modeling.meta_arch.build import build_model, resolve_device
+from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer, lr_schedule
+from lvc_tpu_torch.utils.events import (
+    CommonMetricPrinter,
+    EventStorage,
+    JSONWriter,
+    TensorboardWriter,
+)
+from lvc_tpu_torch.utils.init import he_init
 
 logger = logging.getLogger("lvc_tpu_torch")
 
@@ -63,3 +94,159 @@ def default_setup(cfg, args):
     seed = cfg.SEED if cfg.SEED >= 0 else int.from_bytes(os.urandom(4), "little")
     np.random.seed(seed)
     return seed
+
+
+class DefaultTrainer:
+    """Builds the model, loader, optimizer and schedule, and runs the hook
+    loop (the reference DefaultTrainer surface: train/test/build_*)."""
+
+    def __init__(self, cfg, eval_only: bool = False):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.MODEL.DEVICE)
+        self.seed = max(cfg.SEED, 0)
+        self.model = self.build_model(cfg)
+        self._materialize(self.model, self.seed)
+        self.optimizer = self.build_optimizer(cfg, self.model)
+        self.scheduler = build_lr_schedule(cfg, self.optimizer)
+        self.checkpointer = DetectionCheckpointer(
+            self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer, scheduler=self.scheduler
+        )
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.iter = 0
+        self.storage: Optional[EventStorage] = None
+        self._hooks: List[hooks_mod.HookBase] = []
+        if eval_only:
+            # the reference's eval-only path builds the model only
+            # (tools/train_net.py:115-123): no loader, no step, no hooks
+            self.data_loader = None
+            return
+        self.data_loader = self.build_train_loader(cfg)
+        self._loader_iter = iter(self.data_loader)
+        self.model.train()
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.scheduler,
+            mixed_precision=cfg.SOLVER.AMP.ENABLED,
+        )
+        self._generator = torch.Generator(device=self.device)
+        self.register_hooks(self.build_hooks())
+
+    def _materialize(self, model, seed: int):
+        """The initial weights (``MODEL.WEIGHTS`` and resumed checkpoints load
+        on top): the ``"he"`` rule, the JAX trainer's default
+        (``materialize_variables(conv_init="he")``)."""
+        he_init(model, torch.Generator(device=self.device).manual_seed(seed))
+
+    # ----------------------------------------------------------- factories
+    @classmethod
+    def build_model(cls, cfg):
+        return build_model(cfg, device=cfg.MODEL.DEVICE)
+
+    @classmethod
+    def build_optimizer(cls, cfg, model):
+        return build_optimizer(cfg, model)
+
+    @classmethod
+    def build_train_loader(cls, cfg):
+        return build_detection_train_loader(cfg)
+
+    @classmethod
+    def build_test_loader(cls, cfg, dataset_name):
+        # batch 1: the JAX trainer's batch on one device
+        return build_detection_test_loader(cfg, dataset_name, batch_size=1)
+
+    @classmethod
+    def build_evaluator(cls, cfg, dataset_name):
+        return COCOEvaluator(dataset_name, cfg, output_dir=os.path.join(cfg.OUTPUT_DIR, "inference"))
+
+    def build_hooks(self) -> List[hooks_mod.HookBase]:
+        cfg = self.cfg
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            raise NotImplementedError(
+                "TEST.PRECISE_BN needs BatchNorm, which is not ported yet "
+                "(ROADMAP.md queue 1, item 7: data parallel)"
+            )
+        return [
+            hooks_mod.IterationTimer(),
+            hooks_mod.LRSchedulerHook(lr_schedule(cfg)),
+            hooks_mod.PeriodicCheckpointerHook(
+                self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER
+            ),
+            hooks_mod.EvalHookFsdet(cfg.TEST.EVAL_PERIOD, self.test_with_self, cfg),
+            hooks_mod.PeriodicWriter(self.build_writers(), period=20),
+        ]
+
+    def build_writers(self):
+        return [
+            CommonMetricPrinter(self.max_iter),
+            JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json")),
+            TensorboardWriter(self.cfg.OUTPUT_DIR),
+        ]
+
+    def register_hooks(self, hooks):
+        for h in hooks:
+            h.trainer = self
+        self._hooks.extend(hooks)
+
+    # ------------------------------------------------------------ training
+    def resume_or_load(self, resume: bool = True) -> bool:
+        resumed, start = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume)
+        if resumed:
+            self.start_iter = start
+        return resumed
+
+    def run_step(self):
+        t0 = time.perf_counter()
+        batch = next(self._loader_iter)
+        data_time = time.perf_counter() - t0
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        self._generator.manual_seed((self.seed << 32) + self.iter)
+        try:
+            metrics = self.train_step(batch, self._generator)
+        except FloatingPointError as e:
+            raise FloatingPointError(f"at iteration={self.iter}: {e}") from e
+        self.storage.put_scalars(data_time=data_time, **{k: float(v) for k, v in metrics.items()})
+
+    def train(self):
+        logger.info("Starting training from iteration %d", self.start_iter)
+        with EventStorage(self.start_iter) as self.storage:
+            try:
+                for h in self._hooks:
+                    h.before_train()
+                for self.iter in range(self.start_iter, self.max_iter):
+                    self.storage.iter = self.iter
+                    for h in self._hooks:
+                        h.before_step()
+                    self.run_step()
+                    for h in self._hooks:
+                        h.after_step()
+            finally:
+                for h in self._hooks:
+                    h.after_train()
+        if hasattr(self, "last_eval_results") and self.cfg.TEST.EXPECTED_RESULTS:
+            verify_results(self.cfg, self.last_eval_results)
+        return getattr(self, "last_eval_results", None)
+
+    # ----------------------------------------------------------- evaluation
+    def test_with_self(self):
+        return type(self).test(self.cfg, self.model)
+
+    @classmethod
+    def test(cls, cfg, model):
+        """Evaluate ``model`` on every ``DATASETS.TEST`` set, in eval mode
+        (its mode is restored after)."""
+        was_training = model.training
+        model.eval()
+        results = {}
+        try:
+            for dataset_name in cfg.DATASETS.TEST:
+                loader = cls.build_test_loader(cfg, dataset_name)
+                evaluator = cls.build_evaluator(cfg, dataset_name)
+                results_i = inference_on_dataset(model, loader, evaluator)
+                results[dataset_name] = results_i
+                print_csv_format(results_i)
+        finally:
+            model.train(was_training)
+        if len(results) == 1:
+            results = list(results.values())[0]
+        return results

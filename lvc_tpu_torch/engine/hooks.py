@@ -1,0 +1,186 @@
+"""Trainer hooks (counterpart of ``lvc_tpu/engine/hooks.py``).
+
+Counterpart of detectron2/engine/hooks.py (IterationTimer:75,
+PeriodicWriter:146, PeriodicCheckpointer:177, LRScheduler:196, EvalHook:300)
+and lvc/engine/hooks.py (EvalHookFsdet:16 with flattened-scalar storage and
+inference/res_final.json dumps).
+
+``LRSchedulerHook`` only logs the scheduled learning rate, as the JAX hook
+does: the port's train step steps its ``LambdaLR`` itself
+(``engine/train_loop.py``), so a hook that stepped it too would advance the
+schedule twice per iteration. PreciseBN has no counterpart: it refreshes
+BatchNorm statistics, and BN is not ported (the trainer raises when
+``TEST.PRECISE_BN.ENABLED``).
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Callable
+
+import torch
+
+from lvc_tpu_torch.evaluation.testing import flatten_results_dict
+
+logger = logging.getLogger(__name__)
+
+
+class HookBase:
+    trainer = None  # set by the trainer
+
+    def before_train(self):
+        pass
+
+    def after_train(self):
+        pass
+
+    def before_step(self):
+        pass
+
+    def after_step(self):
+        pass
+
+
+class IterationTimer(HookBase):
+    """The ``time`` scalar: each step's host seconds (loader wait, the step
+    and its synchronisation), after ``warmup_iter`` steps."""
+
+    def __init__(self, warmup_iter: int = 3):
+        self._warmup_iter = warmup_iter
+        self._start_time = None
+        self._step_start = None
+
+    def before_train(self):
+        self._start_time = time.perf_counter()
+
+    def before_step(self):
+        self._step_start = time.perf_counter()
+
+    def after_step(self):
+        dt = time.perf_counter() - self._step_start
+        if self.trainer.iter - self.trainer.start_iter >= self._warmup_iter:
+            self.trainer.storage.put_scalar("time", dt)
+
+    def after_train(self):
+        total = time.perf_counter() - self._start_time
+        n = max(self.trainer.iter - self.trainer.start_iter, 1)
+        logger.info("Total training time: %.1fs (%.4f s/it over %d iters)", total, total / n, n)
+
+
+class LRSchedulerHook(HookBase):
+    """Logs ``schedule(iter)``, the learning rate of the step just taken (the
+    scheduler itself is stepped by the train step)."""
+
+    def __init__(self, schedule: Callable[[int], float]):
+        self._schedule = schedule
+
+    def after_step(self):
+        lr = float(self._schedule(self.trainer.iter))
+        self.trainer.storage.put_scalar("lr", lr, smoothing_hint=False)
+
+
+class PeriodicCheckpointerHook(HookBase):
+    """Saves ``model_{iter:07d}`` every ``period`` steps and after the last."""
+
+    def __init__(self, checkpointer, period: int, max_iter: int):
+        self._checkpointer = checkpointer
+        self._period = period
+        self._max_iter = max_iter
+
+    def after_step(self):
+        it = self.trainer.iter
+        if (it + 1) % self._period == 0 or (it + 1) >= self._max_iter:
+            self._checkpointer.save(f"model_{it:07d}", iteration=it + 1)
+
+
+class PeriodicWriter(HookBase):
+    def __init__(self, writers, period: int = 20):
+        self._writers = writers
+        self._period = period
+
+    def after_step(self):
+        if (self.trainer.iter + 1) % self._period == 0 or (
+            self.trainer.iter + 1
+        ) >= self.trainer.max_iter:
+            for w in self._writers:
+                w.write(self.trainer.storage)
+
+    def after_train(self):
+        for w in self._writers:
+            w.write(self.trainer.storage)
+            w.close()
+
+
+class ProfilerHook(HookBase):
+    """A ``torch.profiler`` trace over the steps ``start_iter`` to
+    ``end_iter`` (counterpart of the JAX hook's ``jax.profiler`` capture and
+    the reference's AutogradProfiler, d2 hooks.py:236-297), written as a
+    Chrome trace to ``<output_dir>/profiler/trace.json``."""
+
+    def __init__(self, start_iter: int, end_iter: int, output_dir: str):
+        self._start = start_iter
+        self._end = end_iter
+        self._dir = os.path.join(output_dir, "profiler")
+        self._prof = None
+
+    def before_step(self):
+        if self.trainer.iter == self._start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+
+    def _stop(self):
+        self._prof.stop()
+        os.makedirs(self._dir, exist_ok=True)
+        path = os.path.join(self._dir, "trace.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        logger.info("Saved profiler trace to %s", path)
+
+    def after_step(self):
+        if self._prof is not None and self.trainer.iter >= self._end:
+            self._stop()
+
+    def after_train(self):
+        if self._prof is not None:
+            self._stop()
+
+
+class EvalHookFsdet(HookBase):
+    """Periodic eval; flattens result scalars into storage and json-dumps
+    the results (lvc hooks.py:16-84): ``inference/iter_{iter:07d}.json``
+    every ``eval_period`` steps, ``inference/res_final.json`` after
+    training."""
+
+    def __init__(self, eval_period: int, eval_fn: Callable, cfg):
+        self._period = eval_period
+        self._fn = eval_fn
+        self._cfg = cfg
+
+    def _do_eval(self, final: bool):
+        results = self._fn()
+        if results:
+            flat = flatten_results_dict(results)
+            for k, v in flat.items():
+                try:
+                    self.trainer.storage.put_scalar(k, float(v), smoothing_hint=False)
+                except (TypeError, ValueError):
+                    pass
+            out_dir = os.path.join(self._cfg.OUTPUT_DIR, "inference")
+            os.makedirs(out_dir, exist_ok=True)
+            name = "res_final.json" if final else f"iter_{self.trainer.iter:07d}.json"
+            with open(os.path.join(out_dir, name), "w") as f:
+                json.dump(results, f)
+        return results
+
+    def after_step(self):
+        if self._period > 0 and (self.trainer.iter + 1) % self._period == 0:
+            if (self.trainer.iter + 1) < self.trainer.max_iter:
+                self._do_eval(final=False)
+
+    def after_train(self):
+        self.trainer.last_eval_results = self._do_eval(final=True)

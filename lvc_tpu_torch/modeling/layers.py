@@ -1,7 +1,7 @@
 """Neural-net building blocks (PyTorch, NCHW tensors in channels_last memory).
 
 Counterpart of ``lvc_tpu/modeling/layers.py`` (FrozenBatchNorm:59,
-get_norm:131, Conv2d:257, max_pool_torch:438). Module and buffer names follow
+GroupNorm:127, get_norm:131, Conv2d:257, max_pool_torch:438). Module and buffer names follow
 detectron2's ``state_dict`` (``conv1.weight``, ``conv1.norm.running_var``), so
 the weight bridge in ``lvc_tpu_torch/checkpoint/convert.py`` is a rename.
 
@@ -76,16 +76,54 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 
+class GroupNorm(nn.Module):
+    """flax's ``nn.GroupNorm(num_groups=32)``, what the JAX package's
+    ``get_norm("GN")`` builds: epsilon 1e-6 (torch's default is 1e-5), the
+    variance as ``E[x^2] - E[x]^2`` clipped at 0, the statistics and the
+    affine in float32, the result in the input's dtype. The affine is
+    ``weight``/``bias`` (flax's ``scale``/``bias``); the weight bridge maps
+    them."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {num_channels} channels")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        xf = x.float()
+        g = xf.reshape(n, self.num_groups, -1)
+        mean = g.mean(-1)
+        var = ((g * g).mean(-1) - mean * mean).clamp_min(0.0)
+        shape = (n, c) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(c // self.num_groups, 1).view(shape)
+        var = var.repeat_interleave(c // self.num_groups, 1).view(shape)
+        # a bf16 forward (AMP) sees its parameters in bf16, as JAX's AMP step
+        # casts them; the arithmetic stays float32 either way
+        weight = self.weight.to(x.dtype).float().view((1, c) + (1,) * (x.dim() - 2))
+        bias = self.bias.to(x.dtype).float().view(weight.shape)
+        return ((xf - mean) * (torch.rsqrt(var + self.eps) * weight) + bias).to(x.dtype)
+
+
 def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
-    """Norm factory by detectron2 name. Only the frozen norm of the serving
-    path is ported."""
+    """Norm factory by detectron2 name (``layers.py:131``): ``FrozenBN`` and
+    ``GN`` (32 groups). ``BN``/``SyncBN`` need batch statistics across the
+    replicas of a data-parallel step, which is not ported yet."""
     if not norm:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm(num_features)
-    raise NotImplementedError(
-        f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, item 6: training)"
-    )
+    if norm == "GN":
+        return GroupNorm(32, num_features)
+    if norm in ("BN", "SyncBN", "naiveSyncBN"):
+        raise NotImplementedError(
+            f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, item 7: data parallel)"
+        )
+    raise ValueError(f"Unknown norm: {norm}")
 
 
 class Conv2d(nn.Conv2d):

@@ -93,6 +93,12 @@ class Detections(NamedTuple):
     proposal_idx: torch.Tensor  # (B, D) index into the input proposals
 
 
+def index_detections(dets: Detections, i) -> Detections:
+    """One image's rows of a batched ``Detections``
+    (``lvc_tpu/modeling/roi_heads/fast_rcnn.py:192``)."""
+    return type(dets)(*[f[i] for f in dets])
+
+
 def fast_rcnn_inference(
     boxes: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
     scores: torch.Tensor,  # (B, R, K+1) softmax probabilities

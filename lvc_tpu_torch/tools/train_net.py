@@ -1,0 +1,73 @@
+"""Training and evaluation CLI of the port (twin of ``tools/train_net.py``):
+base training, fine-tuning stages and eval-only runs, with the same flags.
+
+    python -m lvc_tpu_torch.tools.train_net \\
+        --config-file configs/COCO-detection/faster_rcnn_R_50_FPN_base.yaml \\
+        MODEL.WEIGHTS model.pth OUTPUT_DIR out
+    python -m lvc_tpu_torch.tools.train_net --eval-only --config-file ... MODEL.WEIGHTS out/model_final.pth
+
+It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. Datasets are the
+COCO splits registered under ``$DETECTRON2_DATASETS``. Only the ``coco``
+evaluator is ported: ``ProposalNetwork`` (RPNEvaluator), ``pascal_voc`` and
+``lvis`` raise.
+"""
+from __future__ import annotations
+
+import os
+
+from lvc_tpu_torch.config import get_cfg, set_global_cfg
+from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits)
+from lvc_tpu_torch.data.catalog import MetadataCatalog
+from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser, default_setup
+from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
+from lvc_tpu_torch.evaluation.testing import verify_results
+
+
+class Trainer(DefaultTrainer):
+    @classmethod
+    def build_evaluator(cls, cfg, dataset_name):
+        if cfg.MODEL.META_ARCHITECTURE == "ProposalNetwork":
+            raise NotImplementedError(
+                "ProposalNetwork and its RPNEvaluator are not ported yet (ROADMAP.md queue 1, item 8)"
+            )
+        ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
+        if ev_type == "coco":
+            return COCOEvaluator(
+                dataset_name, cfg, output_dir=os.path.join(cfg.OUTPUT_DIR, "inference")
+            )
+        if ev_type in ("pascal_voc", "lvis"):
+            raise NotImplementedError(
+                f"the {ev_type} evaluator is not ported yet (ROADMAP.md queue 1, items 8-9)"
+            )
+        raise NotImplementedError(f"no evaluator for type {ev_type}")
+
+
+def setup(args):
+    cfg = get_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts)
+    cfg.freeze()
+    set_global_cfg(cfg)
+    default_setup(cfg, args)
+    return cfg
+
+
+def main(args):
+    cfg = setup(args)
+
+    if args.eval_only:
+        trainer = Trainer(cfg, eval_only=True)
+        trainer.resume_or_load(resume=args.resume)
+        res = Trainer.test(cfg, trainer.model)
+        if cfg.TEST.EXPECTED_RESULTS:
+            verify_results(cfg, res)
+        return res
+
+    trainer = Trainer(cfg)
+    trainer.resume_or_load(resume=args.resume)
+    return trainer.train()
+
+
+if __name__ == "__main__":
+    main(default_argument_parser().parse_args())

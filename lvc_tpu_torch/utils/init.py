@@ -1,9 +1,41 @@
 """Seeded weights for a model that has no checkpoint (counterpart of the
-``conv_init="damped"`` rule of ``lvc_tpu/utils/init.py:21``)."""
+``conv_init`` rules of ``lvc_tpu/utils/init.py:21``, ``materialize_variables``):
+``he_init``, the trainer's default, and ``damped_init``."""
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
+
+
+def _is_norm_or_stat(name: str, leaf: str) -> bool:
+    """Norm weights (``<conv>.norm.weight``, FrozenBN or GN) and ``running_var``
+    start at one."""
+    return leaf == "running_var" or (leaf == "weight" and ".norm." in f".{name}")
+
+
+@torch.no_grad()
+def he_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The ``"he"`` rule, on detectron2 names: conv weights N(0, sqrt(2 /
+    fan_out)) with fan_out = out x kh x kw (detectron2's ``c2_msra_fill``),
+    linear weights N(0, sqrt(1 / fan_in)); ones for norm weights and
+    ``running_var``; zeros for biases, ``running_mean`` and anything else.
+    Draws come from ``generator`` (on the model's device) in ``state_dict``
+    order."""
+    for name, t in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if _is_norm_or_stat(name, leaf):
+            t.fill_(1.0)
+        elif leaf == "weight" and t.dim() == 4:
+            std = math.sqrt(2.0 / (t.shape[0] * t.shape[2] * t.shape[3]))
+            t.copy_(torch.randn(t.shape, generator=generator, device=t.device, dtype=t.dtype) * std)
+        elif leaf == "weight" and t.dim() == 2:
+            std = math.sqrt(1.0 / t.shape[1])
+            t.copy_(torch.randn(t.shape, generator=generator, device=t.device, dtype=t.dtype) * std)
+        else:
+            t.zero_()
+    return model
 
 
 @torch.no_grad()
@@ -19,7 +51,7 @@ def damped_init(model: nn.Module, seed: int = 0) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("bias", "running_mean"):
             t.zero_()
-        elif leaf == "running_var" or (leaf == "weight" and ".norm." in f".{name}"):
+        elif _is_norm_or_stat(name, leaf):
             t.fill_(1.0)
         else:
             t.copy_(torch.randn(t.shape, generator=gen, device=device, dtype=t.dtype) * 0.01)
