@@ -84,7 +84,25 @@ Phases, each of which raises (non-zero exit) on failure:
 18. the synthetic-AP gate (lvc_tpu_torch.tools.verify_synthetic_ap): a
    GroupNorm R-50-FPN trained from scratch for 600 iterations on drawn
    shapes, float32 and AMP; each must pass verify_results (AP50 >= 60).
-Phases 1-11 and 16-18 run with the fused path off, whatever the environment
+19. corrector reference check: a narrow cascade UBBR model (3 stages,
+   BoxOnlyLayersCascade, POOLER_IMPL pallas) at float32 on the card and on
+   the CPU from the same weights: RBG from the same draws, one training
+   step's forward and backward from the same sampled slots (stage losses,
+   box-head and FPN-output gradients), reg-only inference on seeded
+   candidates, and ProposalNetwork's proposals; K2/K3 launches 3/3 per
+   training step, 3/0 per reg-only forward;
+20. the correct path at full width through the three CLIs on phase 17's
+   tree: train_net --eval-only with ProposalNetwork (both proposal
+   pickles, AR), train_net_reg on configs/COCO-detection/
+   cascade_ubbr_R_50_FPN_base.yaml as it stands (float32, IMS_PER_BATCH 16
+   at 832x1344, 30 iterations with checkpoints, then its IoU test) and
+   train_net_reg_qe --resume --eval-only on jittered candidates of the test
+   split: ms/iter, data_time, peak memory, one profiled iteration, K2/K3
+   launches per step and per batch, iou_in/iou_out, correction ms/img; K2
+   and K3 on one training step's own inputs (3 stages of 16 x 64 slots,
+   float32, C=256) and K2 on one reg-only batch's candidate slots, against
+   their plain versions on the same tensors (K2 bit-equal, K3 1e-5 * S).
+Phases 1-11 and 16-20 run with the fused path off, whatever the environment
 says.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -1984,6 +2002,481 @@ def synthetic_ap_gate(tag):
         raise AssertionError(f"synthetic AP gate failed in {failures}")
 
 
+# ---------------------------------------------------------------------------
+# The box corrector (Correct): proposal extraction, cascade UBBR training
+# (train_net_reg) and candidate correction (train_net_reg_qe)
+# ---------------------------------------------------------------------------
+
+UBBR_YAML = "configs/COCO-detection/cascade_ubbr_R_50_FPN_base.yaml"
+
+
+def corrector_cfg(device: str):
+    """The cascade UBBR config as it stands (3 stages, BoxOnlyLayersCascade,
+    NUM_FC 3, RBG) at the narrow widths of ``narrow_cfg``, float32,
+    POOLER_IMPL pallas: K2 forward and K3 backward on the card, their plain
+    versions on the CPU."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(UBBR_YAML)
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64
+    cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16
+    cfg.MODEL.FPN.OUT_CHANNELS = 64
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
+    cfg.MODEL.ROI_HEADS.POOLER_IMPL = "pallas"
+    cfg.MODEL.DEVICE = device
+    return cfg
+
+
+def corrector_inputs():
+    """The narrow corrector on the CPU with calibrated weights (its stages'
+    regressors scaled so that they move boxes by pixels), a seeded batch of
+    2 images (valid gts not contiguous in one), RBG draws, and the slots
+    the base sampler picks from the RBG proposals of those draws: (model,
+    batch, draws, sampled), all on the CPU."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.modeling.proposal_generator.rbg import rbg_proposals
+
+    cpu = build_model(corrector_cfg("cpu"), device="cpu")
+    calibrated_init(cpu, seed=0)
+    with torch.no_grad():
+        for name, t in cpu.state_dict().items():
+            if ".bbox_pred.weight" in name:
+                t.mul_(0.02)
+    batch = train_batch(2, 128, 192, 6, seed=5, device="cpu", num_classes=60, n_gt=(2, 5), size=(16, 90))
+    batch["gt_valid"][1, 0] = False
+    rbg = cpu.proposal_generator
+    draws = rbg.draws(2, torch.Generator().manual_seed(1), "cpu")
+    props = rbg_proposals(batch["gt_boxes"], batch["gt_valid"], batch["image_size"], *draws, rbg.t)
+    sampled = cpu.roi_heads.label_and_sample_proposals(
+        props[0], props[2], batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"], None,
+        torch.Generator().manual_seed(2))
+    return cpu, batch, draws, sampled
+
+
+def corrector_reference_check(tag):
+    """The corrector card vs CPU at float32 from the same weights (the
+    calibrated init, the stage heads' regressors scaled so that the stages
+    move their boxes): one training step's forward and backward with the
+    same RBG draws and the same sampled slots (drawn once on the CPU), each
+    stage's loss to rel 1e-4 and every parameter gradient of the box heads
+    and the FPN outputs to rel L2 1e-4; reg-only inference on seeded jittered
+    candidates, boxes within 1e-3 px; ``ProposalNetwork``'s proposals within
+    1e-3 px at every slot whose objectness is 1e-4 or more from its
+    neighbours' (away from near-ties). K2/K3 launch counts of each card
+    run: 3/3, 3/0 and 0/0."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.modeling.proposal_generator.rbg import rbg_proposals
+    from lvc_tpu_torch.modeling.roi_heads.roi_heads import SampledProposals
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools.train_net_reg import jitter_candidates, reg_only_model
+
+    cfg = corrector_cfg("cpu")
+    cpu, batch, draws, sampled = corrector_inputs()
+    gpu = build_model(corrector_cfg("cuda"))
+    gpu.load_state_dict(cpu.state_dict())
+    gt = {"boxes": batch["gt_boxes"], "classes": batch["gt_classes"], "valid": batch["gt_valid"]}
+    rbg_t = cpu.proposal_generator.t
+    heads = ("roi_heads.", "backbone.fpn_output")
+    res = {}
+    for key, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = model.device
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        model.train()
+        model.zero_grad(set_to_none=True)
+        on = {k: v.to(dev) for k, v in gt.items()}
+        p = rbg_proposals(on["boxes"], on["valid"], batch["image_size"].to(dev), *(d.to(dev) for d in draws), rbg_t)
+        features = model.backbone(model.model_images(batch))
+        losses = model.roi_heads.cascade_losses(
+            features, SampledProposals(*(t.to(dev) for t in sampled)), on, batch["image_size"].to(dev))
+        sum(losses.values()).backward()
+        grads = {n: q.grad.detach().cpu().double() for n, q in model.named_parameters()
+                 if n.startswith(heads) and q.grad is not None}
+        train_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+        model.eval()
+        cands = torch.from_numpy(jitter_candidates(np.random.RandomState(0), batch["gt_boxes"].numpy(),
+                                                   batch["gt_valid"].numpy()))
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        out = reg_only_model(cfg, model)(dict(batch, gt_boxes=cands))
+        reg_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+        res[key] = ([t.cpu() for t in p], {k: float(v.detach()) for k, v in losses.items()}, grads,
+                    [t.cpu() for t in out], train_n, reg_n)
+    (c_p, c_loss, c_grad, c_out, _, _), (g_p, g_loss, g_grad, g_out, g_train_n, g_reg_n) = res["cpu"], res["gpu"]
+    rbg_err = float((c_p[0] - g_p[0]).abs().max())
+    if not torch.equal(c_p[2], g_p[2]) or rbg_err > 1e-4:
+        raise AssertionError(f"RBG proposals differ: validity or box err {rbg_err}")
+    loss_err = max(abs(g_loss[k] - v) / max(abs(v), 1e-30) for k, v in c_loss.items())
+    if set(c_loss) != {f"loss_box_reg_stage{k}" for k in range(3)} or set(g_loss) != set(c_loss) \
+            or loss_err > 1e-4 or min(c_loss.values()) <= 0:
+        raise AssertionError(f"corrector losses differ: cpu {c_loss} card {g_loss}")
+    rel = {n: float((g_grad[n] - w).norm() / w.norm().clamp(min=1e-30)) for n, w in c_grad.items()}
+    worst = max(rel, key=rel.get)
+    if set(c_grad) != set(g_grad) or len(rel) < 20 or rel[worst] > 1e-4:
+        raise AssertionError(f"corrector grads differ: {worst} rel L2 {rel[worst]} over {len(rel)}")
+    v = c_out[2]
+    reg_err = float((c_out[0][v] - g_out[0][v]).abs().max())
+    moved = float((c_out[0][v] - torch.from_numpy(jitter_candidates(
+        np.random.RandomState(0), batch["gt_boxes"].numpy(), batch["gt_valid"].numpy()))[v]).abs().max())
+    if not torch.equal(v, g_out[2]) or int(v.sum()) < 4 or reg_err > 1e-3 or moved <= 0:
+        raise AssertionError(f"reg-only boxes differ: {reg_err} px (moved {moved} px)")
+    if g_train_n != (3, 3) or g_reg_n != (3, 0):
+        raise AssertionError(f"K2/K3 launches: training step {g_train_n} (want 3/3), reg-only {g_reg_n} (want 3/0)")
+
+    pcfg = narrow_cfg("pallas")
+    pcfg.MODEL.META_ARCHITECTURE = "ProposalNetwork"
+    pcfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 200
+    pcfg.MODEL.RPN.POST_NMS_TOPK_TEST = 100
+    weights = build_model(pcfg, device="cpu")
+    calibrated_init(weights, seed=0)
+    pn = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(pcfg, device=dev)
+        model.load_state_dict(weights.state_dict())
+        ra.roi_align_paired.launches = 0
+        pn.append(({k: t.cpu() for k, t in model(batch).items()}, ra.roi_align_paired.launches))
+    (c, _), (g, g_n) = pn
+    logits = c["objectness_logits"]
+    gap = torch.full_like(logits, float("inf"))
+    gap[:, 1:] = (logits[:, 1:] - logits[:, :-1]).abs()
+    gap[:, :-1] = torch.minimum(gap[:, :-1], (logits[:, :-1] - logits[:, 1:]).abs())
+    clear = c["proposal_valid"] & g["proposal_valid"] & (gap > 1e-4)
+    prop_err = float((c["proposal_boxes"][clear] - g["proposal_boxes"][clear]).abs().max())
+    if int(clear.sum()) < 0.9 * int(c["proposal_valid"].sum()) or prop_err > 1e-3 or g_n != 0:
+        raise AssertionError(f"ProposalNetwork: {int(clear.sum())} clear slots, box err {prop_err}, K2 {g_n}")
+    print(f"corrector reference: card vs CPU at float32, narrow cascade UBBR (3 stages, BoxOnlyLayersCascade, "
+          f"NUM_FC 3); RBG from the same draws {int(c_p[2].sum())} kept, box err {rbg_err:.2e} (tol 1e-4); "
+          f"stage losses {c_loss} max rel err {loss_err:.2e} (tol 1e-4); {len(rel)} box-head and FPN-output "
+          f"grads max rel L2 {rel[worst]:.2e} ({worst}; tol 1e-4); reg-only {int(v.sum())} candidates moved up to "
+          f"{moved:.3f} px, card vs CPU {reg_err:.2e} px (tol 1e-3); ProposalNetwork {int(clear.sum())} clear "
+          f"slots box err {prop_err:.2e} px (tol 1e-3); card K2/K3 launches: training step {g_train_n[0]}/"
+          f"{g_train_n[1]}, reg-only {g_reg_n[0]}/{g_reg_n[1]}, ProposalNetwork {g_n}/0 {tag}")
+
+
+class PoolRecorder:
+    """While in use, stands in for K2's and K3's wrappers in
+    ``ops.roi_align``: keeps the arguments of every call the path makes (a
+    copy of K3's gout) and passes the call on to the wrapper."""
+
+    def __init__(self):
+        from lvc_tpu_torch.ops import roi_align as ra
+
+        self.ra, self.fwd, self.bwd = ra, [], []
+        self.k2, self.k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
+
+    def forward(self, levels, taps):
+        self.fwd.append((list(levels), taps))
+        return self.k2(levels, taps)
+
+    def backward(self, level_shapes, taps, gout):
+        self.bwd.append((list(level_shapes), taps, gout.clone()))
+        return self.k3(level_shapes, taps, gout)
+
+    def __enter__(self):
+        self.ra.roi_align_paired, self.ra.roi_align_paired_bwd = self.forward, self.backward
+        return self
+
+    def __exit__(self, *exc):
+        self.ra.roi_align_paired, self.ra.roi_align_paired_bwd = self.k2, self.k3
+
+
+def check_recorded_pool(what, rec, tag):
+    """K2 and K3 on the very tensors a run of the path gave them (recorded by
+    ``PoolRecorder``), against their plain versions on the same tensors on
+    the card, at the tolerances of the card tests: K2 bit for bit; K3 within
+    1e-5 * S of the plain float32 sums (S: the plain backward on |gout| and
+    |weights|; plus 1 bf16 ulp of the cast for bf16), two calls bit-equal.
+    Kernel counts are set to 0 just before and must read one launch per
+    call (two per K3 call) just after."""
+    import torch
+
+    ra = rec.ra
+    k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
+    k2.launches = k3.launches = 0
+    fwd = []
+    for levels, taps in rec.fwd:
+        got = k2(levels, taps)
+        want = ra.roi_align_taps_plain(levels, taps, True)
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError(f"{what}: K2 differs from its plain version, max abs err "
+                                 f"{float((got.float() - want.float()).abs().max())}")
+        n, P, NR = taps.rows.shape
+        fwd.append(f"{n} boxes P={P} NR={NR} NT={taps.tcol.shape[-1]}")
+    max_ratio, max_err = 0.0, 0.0
+    for level_shapes, taps, gout in rec.bwd:
+        got, again = k3(level_shapes, taps, gout), k3(level_shapes, taps, gout)
+        want = ra.roi_align_taps_plain_backward(level_shapes, taps, gout)
+        S = ra.roi_align_taps_plain_backward(
+            level_shapes, taps._replace(wy=taps.wy.abs(), wx=taps.wx.abs()), gout.abs())
+        for l, (a, b, w, s) in enumerate(zip(got, again, want, S)):
+            ref = w.to(gout.dtype).float()
+            err = (a.float() - ref).abs()
+            tol = 1e-5 * s + (bf16_ulp(ref) if gout.dtype == torch.bfloat16 else 0.0)
+            if a.dtype != gout.dtype or not torch.isfinite(a).all() or not bool((err <= tol).all()) \
+                    or not torch.equal(a, b):
+                raise AssertionError(f"{what}: K3 level {l} over 1e-5 * S or two calls differ")
+            max_err = max(max_err, float(err.max()))
+            max_ratio = max(max_ratio, float((err / s.clamp(min=1e-30)).max()))
+        del got, again, want, S
+    n = k2.launches, k3.launches
+    if n != (len(rec.fwd), 2 * len(rec.bwd)) or not rec.fwd:
+        raise AssertionError(f"{what}: K2/K3 launches {n} for {len(rec.fwd)}/{len(rec.bwd)} recorded calls")
+    levels = rec.fwd[0][0]
+    k3_part = (f"K3 on {len(rec.bwd)} calls max abs err {max_err:.3e} max err/S {max_ratio:.3e} (tol 1e-5 * S), "
+               f"two calls bit-equal; " if rec.bwd else "")
+    print(f"{what}: the path's own K2/K3 inputs (levels {[tuple(f.shape) for f in levels]} {levels[0].dtype}) "
+          f"against the plain versions on the card: K2 bit-equal on {len(fwd)} calls ({'; '.join(fwd)}); "
+          f"{k3_part}launches {n[0]}/{n[1]} {tag}")
+
+
+def write_candidates(src_json: str, out_json: str, keep_ids, seed: int = 0) -> int:
+    """The annotations of ``src_json`` whose category is in ``keep_ids``,
+    each box jittered as ``jitter_candidates`` jitters (alpha 0.25, beta
+    0.3) and clipped to its image, with a score, as a COCO dict that
+    ``register_results`` reads. Returns the number of candidates."""
+    import json
+
+    import numpy as np
+
+    with open(src_json) as f:
+        data = json.load(f)
+    rng = np.random.RandomState(seed)
+    sizes = {im["id"]: (im["height"], im["width"]) for im in data["images"]}
+    anns = []
+    for a in data["annotations"]:
+        if a["category_id"] not in keep_ids:
+            continue
+        x, y, w, h = a["bbox"]
+        tx, ty = rng.uniform(-0.25, 0.25, 2)
+        tw, th = np.exp(rng.uniform(np.log(0.7), np.log(1.3), 2))
+        H, W = sizes[a["image_id"]]
+        x0, y0 = min(max(x + w * tx, 0.0), W - 2.0), min(max(y + h * ty, 0.0), H - 2.0)
+        x1, y1 = min(x0 + w * tw, float(W)), min(y0 + h * th, float(H))
+        anns.append(dict(a, bbox=[x0, y0, x1 - x0, y1 - y0], area=(x1 - x0) * (y1 - y0),
+                         score=float(rng.uniform(0.8, 1.0))))
+    with open(out_json, "w") as f:
+        json.dump(dict(data, annotations=anns), f)
+    return len(anns)
+
+
+def correct_path(tag):
+    """The correct path at full width through the three CLIs, in this
+    process, on phase 17's seeded COCO tree (48 train and 16 test JPEGs of
+    480x640 and 640x480), from a damped-init R-50-FPN ``.pth``:
+    1. ``train_net --eval-only MODEL.META_ARCHITECTURE ProposalNetwork`` on
+       the test and trainval splits: both proposal pickles, AR, ms/img;
+    2. ``train_net_reg`` on cascade_ubbr_R_50_FPN_base.yaml as it stands
+       (R-50-FPN, FREEZE_AT 2, 60 classes, 3 cascade stages of
+       BoxOnlyLayersCascade, IOUS 0.3/0.5/0.7, NUM_FC 3, RBG, 64 slots per
+       image at POSITIVE_FRACTION 1.0, crop 0.8, IMS_PER_BATCH 16 at
+       832x1344, float32, POOLER_IMPL auto) with the trainval proposal file,
+       30 iterations with a checkpoint every 15, then its IoU test on the
+       test split: ms/iter and img/s over the steps after warm-up,
+       data_time, peak memory, one profiled iteration, K2/K3 launches per
+       step (3/3) and per test batch (3/0), iou_in/iou_out; then K2 and K3
+       on one more step's own tensors (16 x 64 slots a stage, float32,
+       C=256) and K2 on one reg-only test batch's candidate slots, each
+       against its plain version on the same tensors;
+    3. ``train_net_reg_qe --resume --eval-only`` on jittered candidates of
+       the test split's gt (the classes the 60-class corrector covers): one
+       row per candidate, ids preserved, finite boxes inside their images,
+       K2 launches 3 per image, ms/img.
+    Kernel counts are set to 0 just before each CLI and read just after."""
+    import json
+    import math
+    import os
+    import pickle
+    import statistics
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    import numpy as np
+
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.data.build import build_detection_test_loader
+    from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import train_net, train_net_reg, train_net_reg_qe
+    from lvc_tpu_torch.utils.init import damped_init
+
+    class RegCapture(train_net_reg.RegTrainer):
+        last = None
+        test_s = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            RegCapture.last = self
+            self.step_s = []
+
+        def run_step(self):
+            t0 = time.perf_counter()
+            super().run_step()
+            self.step_s.append(time.perf_counter() - t0)
+
+        @classmethod
+        def test(cls, cfg, model):
+            RegCapture.train_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+            t0 = time.perf_counter()
+            ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+            res = super().test(cfg, model)
+            torch.cuda.synchronize()
+            RegCapture.test_s = time.perf_counter() - t0
+            RegCapture.test_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+            return res
+
+    def run(module, argv):
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        t0 = time.perf_counter()
+        res = module.main(default_argument_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
+
+    n_train, n_test = TRAIN_NET_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        use_coco_tree(root)
+        cfg = get_cfg()
+        cfg.merge_from_file(TRAIN_NET_YAML)
+        weights = DetectionCheckpointer(damped_init(build_model(cfg), seed=0), os.path.join(tmp, "w")).save(
+            "damped_init", iteration=0)
+
+        # 1. proposal extraction
+        det = os.path.join(tmp, "det")
+        res, secs, n = run(train_net, ["--eval-only", "--config-file", TRAIN_NET_YAML, "MODEL.WEIGHTS", weights,
+                                       "MODEL.META_ARCHITECTURE", "ProposalNetwork", "DATASETS.TEST",
+                                       "('coco_test_base', 'coco_trainval_base')", "OUTPUT_DIR", det])
+        pkls = {}
+        for split, n_img in (("trainval", n_train), ("test", n_test)):
+            with open(os.path.join(det, f"coco_proposals_{split}_results.pkl"), "rb") as f:
+                pkls[split] = pickle.load(f)
+            p = pkls[split]
+            if len(p["ids"]) != n_img or any(len(b) == 0 or not (b == b).all() for b in p["boxes"]):
+                raise AssertionError(f"coco_proposals_{split}_results.pkl: {len(p['ids'])} images")
+        ar = res["coco_test_base"]["bbox"]
+        if n != (0, 0) or not all(math.isfinite(v) and 0 <= v <= 100 for v in ar.values()):
+            raise AssertionError(f"ProposalNetwork: K2/K3 {n}, AR {ar}")
+        print(f"train_net ProposalNetwork --eval-only: R-50-FPN, {n_train + n_test} images in {secs:.1f} s, "
+              f"{secs / (n_train + n_test) * 1e3:.2f} ms/img end to end at batch 1 (load, decode, resize, forward, "
+              f"proposals to the host; model build and weight load included); proposals per image "
+              f"{min(len(b) for b in pkls['test']['boxes'])}-{max(len(b) for b in pkls['test']['boxes'])}; "
+              f"test AR {ar} (a damped-init RPN) {tag}")
+
+        # 2. corrector training and its IoU test
+        ub = os.path.join(tmp, "ubbr")
+        opts = ["--config-file", UBBR_YAML, "MODEL.WEIGHTS", weights, "SEED", "0",
+                "DATASETS.PROPOSAL_FILES_TRAIN", f"('{det}/coco_proposals_trainval_results.pkl',)",
+                "DATASETS.PROPOSAL_FILES_TEST", f"('{det}/coco_proposals_test_results.pkl',)",
+                "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_NET_PERIOD), "SOLVER.MAX_ITER", str(TRAIN_NET_ITERS),
+                "OUTPUT_DIR", ub]
+        saved, train_net_reg.RegTrainer = train_net_reg.RegTrainer, RegCapture
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            res, secs, n = run(train_net_reg, opts)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            train_net_reg.RegTrainer = saved
+        trainer = RegCapture.last
+        c = trainer.cfg
+        if (c.SOLVER.IMS_PER_BATCH, c.MODEL.ROI_HEADS.POOLER_IMPL, c.SOLVER.AMP.ENABLED, c.MODEL.ROI_HEADS.NAME,
+                c.MODEL.ROI_HEADS.OUTPUT_LAYER, c.MODEL.PROPOSAL_GENERATOR.NAME) != (
+                16, "auto", False, "CascadeROIHeads", "BoxOnlyLayersCascade", "RBG"):
+            raise AssertionError("the phase must run cascade_ubbr_R_50_FPN_base.yaml as it stands")
+        with open(os.path.join(ub, "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = {k for r in rows for k in r if k.startswith("loss_box_reg_stage")}
+        if len(losses) != 3 or not all(math.isfinite(r[k]) for r in rows for k in losses if k in r):
+            raise AssertionError(f"metrics.json: stage losses {rows}")
+        for name in (f"model_{TRAIN_NET_PERIOD - 1:07d}.pth", f"model_{TRAIN_NET_ITERS - 1:07d}.pth",
+                     "last_checkpoint"):
+            if not os.path.exists(os.path.join(ub, name)):
+                raise AssertionError(f"{name} was not written")
+        ubbr = res["ubbr"]
+        train_n, test_n = RegCapture.train_n, RegCapture.test_n
+        if train_n != (3 * TRAIN_NET_ITERS, 3 * TRAIN_NET_ITERS) or test_n != (3 * n_test, 0):
+            raise AssertionError(f"K2/K3 launches: training {train_n}, test {test_n}")
+        if not ubbr["per_class"] or not all(0 <= v["iou_in"] <= 1 and 0 <= v["iou_out"] <= 1
+                                            for v in ubbr["per_class"].values()):
+            raise AssertionError(f"IoU test: {ubbr}")
+        data = trainer.storage.histories()["data_time"].values()
+        steps = trainer.step_s[3:]
+        window_s = sum(steps)
+        print(f"train_net_reg: cascade UBBR R-50-FPN base (60 classes, 3 stages, RBG 128 slots, 64 sampled per "
+              f"image), float32, IMS_PER_BATCH 16 at 832x1344, {TRAIN_NET_ITERS} iterations in {secs:.1f} s with "
+              f"the IoU test: all {len(steps)} steps after warm-up in {window_s:.3f} s, "
+              f"{window_s / len(steps) * 1e3:.2f} ms/iter and {16 * len(steps) / window_s:.2f} img/s end to end; "
+              f"data_time median {statistics.median(data) * 1e3:.2f} ms (max {max(data) * 1e3:.2f}); peak memory "
+              f"{peak:.2f} GiB; final losses { {k: round(rows[-1][k], 4) for k in sorted(losses)} } {tag}")
+        print(f"train_net_reg: K2/K3 launches {train_n[0] // TRAIN_NET_ITERS}/{train_n[1] // TRAIN_NET_ITERS} "
+              f"per training step, {test_n[0] // n_test}/{test_n[1]} per test batch of 1; IoU test on "
+              f"{sum(v['n'] for v in ubbr['per_class'].values())} jittered test gts in {RegCapture.test_s:.2f} s: "
+              f"mean iou_in {ubbr['mean_iou_in']:.4f} iou_out {ubbr['mean_iou_out']:.4f} {tag}")
+        profile_call(trainer.run_step, window_s / len(steps) * 1e3,
+                     "train_net_reg iteration (loader wait, B=16 float32 step)", tag, stages=TRAIN_STAGES)
+
+        # the kernels on one training step's and one reg-only batch's own
+        # tensors: the three stages' boxes at 16 x 64 slots over the float32
+        # C=256 pyramid, then the candidate slots of one test image
+        with PoolRecorder() as rec:
+            trainer.run_step()
+        if len(rec.fwd) != 3 or len(rec.bwd) != 3 or rec.fwd[0][1].rows.shape[0] != 16 * 64:
+            raise AssertionError(f"recorded step: {len(rec.fwd)}/{len(rec.bwd)} pool calls")
+        check_recorded_pool("train_net_reg step", rec, tag)
+        del rec
+        reg = train_net_reg.reg_only_model(c, trainer.model)
+        batches = iter(build_detection_test_loader(c, c.DATASETS.TEST[0], batch_size=1, with_gt=True))
+        batch, _ = next(batches)
+        batches.close()
+        cands = train_net_reg.jitter_candidates(np.random.RandomState(0), batch["gt_boxes"], batch["gt_valid"])
+        with PoolRecorder() as rec, torch.no_grad():
+            reg(dict(batch, gt_boxes=cands))
+        if len(rec.fwd) != 3 or rec.bwd or rec.fwd[0][1].rows.shape[0] != c.PAD.MAX_GT_PER_IMAGE:
+            raise AssertionError(f"recorded reg-only batch: {len(rec.fwd)}/{len(rec.bwd)} pool calls")
+        check_recorded_pool("train_net_reg reg-only batch", rec, tag)
+        del rec, reg
+
+        # 3. candidate correction
+        meta = _get_builtin_metadata("coco_fewshot")
+        covered = {k for k, v in meta["thing_dataset_id_to_contiguous_id"].items() if v < 60}
+        cands = os.path.join(tmp, "candidates.json")
+        n_cand = write_candidates(os.path.join(root, "cocosplit", "datasplit", "5k.json"), cands, covered)
+        res, secs, n = run(train_net_reg_qe, ["--resume", "--eval-only", "--config-file", UBBR_YAML, "OUTPUT_DIR", ub,
+                                              "DATASETS.TRAIN", "('coco_test_base',)", "DATASETS.DT_PATH",
+                                              f"('{cands}',)", "MODEL.LOAD_PROPOSALS", "False",
+                                              "QUERY_EXPAND.ENABLED", "True"])
+        with open(cands) as f:
+            src = json.load(f)
+        with open(cands.replace(".json", "_ubbr.json")) as f:
+            out = json.load(f)
+        sizes = {im["id"]: (im["height"], im["width"]) for im in src["images"]}
+        want = {a["id"]: a for a in src["annotations"]}
+        if len(out) != n_cand or sorted(r["id"] for r in out) != sorted(want):
+            raise AssertionError(f"_ubbr.json: {len(out)} rows for {n_cand} candidates, ids differ")
+        moved = 0.0
+        for r in out:
+            H, W = sizes[r["image_id"]]
+            x, y, w, h = r["bbox"]
+            if not all(math.isfinite(v) for v in r["bbox"]) or x < -1e-3 or y < -1e-3 or x + w > W + 1e-3 \
+                    or y + h > H + 1e-3 or r["category_id"] != want[r["id"]]["category_id"]:
+                raise AssertionError(f"_ubbr.json row {r} (image {H}x{W})")
+            moved = max(moved, max(abs(a - b) for a, b in zip(r["bbox"], want[r["id"]]["bbox"])))
+        if n != (3 * len(sizes), 0):
+            raise AssertionError(f"train_net_reg_qe: K2/K3 launches {n}; want {3 * len(sizes)}/0")
+        print(f"train_net_reg_qe --resume --eval-only: {n_cand} candidates of {len(sizes)} test images corrected "
+              f"in {secs:.1f} s, {secs / len(sizes) * 1e3:.2f} ms/img end to end at batch 1 (model build, "
+              f"checkpoint load, decode, resize, forward, rows); "
+              f"_ubbr.json has one row per candidate with its id, boxes finite and inside their images, moved up "
+              f"to {moved:.3f} px; K2/K3 launches {n[0]}/{n[1]} ({n[0] // len(sizes)} per image) {tag}")
+
+
 def main() -> int:
     import torch
 
@@ -2032,6 +2525,8 @@ def main() -> int:
         trainer_reference_check(tag)
         train_net_path(tag)
         synthetic_ap_gate(tag)
+        corrector_reference_check(tag)
+        correct_path(tag)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

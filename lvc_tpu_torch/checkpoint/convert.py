@@ -5,7 +5,9 @@ The port's module names are detectron2's ``state_dict`` names, which
 flax tree. ``from_flax`` is the inverse of that mapping (as ``flax_to_torch``
 at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
 (in, out) -> (out, in), FrozenBN affine and statistics to ``<conv>.norm.*``.
-``to_flax`` goes the other way. ``vit_from_flax`` and ``vit_to_flax`` do the
+``to_flax`` goes the other way. The cascade heads' stages are
+``box_head_{k}``/``box_predictor_{k}`` in flax and ``box_head.{k}``/
+``box_predictor.{k}`` in the state_dict (``convert.py:51-53, 119-123``). ``vit_from_flax`` and ``vit_to_flax`` do the
 same for the DINO verifier ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
 """
@@ -19,6 +21,8 @@ import torch
 
 _RES_BLOCK = re.compile(r"res\d\.\d+")
 _RES_STAGE = re.compile(r"res\d")
+_CASCADE = re.compile(r"^(box_head|box_predictor)_(\d+)$")
+_CASCADE_MODULES = ("box_head", "box_predictor")
 
 
 def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -45,7 +49,7 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(variables.get("params", {})).items():
-        parts = list(path)
+        parts = [_CASCADE.sub(r"\1.\2", p) for p in path]
         if parts[-1] == "kernel" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "bias" and parts[-2] == "conv":
@@ -80,6 +84,8 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             # flax names stage blocks "res2.0": re-fuse stage and block index
             if parts and _RES_STAGE.fullmatch(parts[-1]) and p.isdigit():
                 parts[-1] = parts[-1] + "." + p
+            elif parts and parts[-1] in _CASCADE_MODULES and p.isdigit():
+                parts[-1] = parts[-1] + "_" + p  # a cascade stage
             else:
                 parts.append(p)
         name, mod = parts[-1], parts[:-1]

@@ -3,10 +3,12 @@
 inference_on_dataset:85-161).
 
 An eval-mode loop with warm-up and compute timing. ``infer_fn`` runs the
-model on a padded batch and returns its ``Detections``; the evaluators take
-(Detections, metas) pairs. Where the JAX loop waits with
-``jax.block_until_ready``, this one calls ``torch.cuda.synchronize`` when the
-detections are on the card, so the compute time is the device's.
+model on a padded batch and returns what the meta-architecture returns
+(``Detections``, ``RegOnlyOutput`` or the proposal dict), which goes to the
+evaluator unchanged with the batch's metas, as JAX's eval step hands it on.
+Where the JAX loop waits with ``jax.block_until_ready``, this one calls
+``torch.cuda.synchronize`` when the output is on the card, so the compute
+time is the device's.
 """
 from __future__ import annotations
 
@@ -20,8 +22,14 @@ import torch
 logger = logging.getLogger(__name__)
 
 
+def _device(out) -> torch.device:
+    """The device of the first tensor in a model output."""
+    values = out.values() if isinstance(out, dict) else out
+    return next(v.device for v in values if isinstance(v, torch.Tensor))
+
+
 def inference_on_dataset(infer_fn: Callable, data_loader, evaluator) -> dict:
-    """infer_fn(batch) -> Detections (padded). Timing mirrors the
+    """infer_fn(batch) -> the model's padded output. Timing mirrors the
     reference: the first iterations are warm-up, compute time is measured
     apart from data time."""
     evaluator.reset()
@@ -32,8 +40,9 @@ def inference_on_dataset(infer_fn: Callable, data_loader, evaluator) -> dict:
     for idx, (batch, metas) in enumerate(data_loader):
         t0 = time.perf_counter()
         dets = infer_fn(batch)
-        if dets.boxes.is_cuda:
-            torch.cuda.synchronize(dets.boxes.device)
+        device = _device(dets)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         if idx >= num_warmup:
             total_compute += t1 - t0

@@ -1,16 +1,26 @@
 """Model construction from config (counterpart of
-``lvc_tpu/modeling/meta_arch/build.py``: _build_generalized_rcnn:195,
-build_rpn:34, _roi_heads_kwargs:125, build_model:366). Only
-``GeneralizedRCNN`` with a ResNet-FPN backbone, the RPN (or ``RPN_Ignore``)
-and ``StandardROIHeads`` is ported, with its training keys.
+``lvc_tpu/modeling/meta_arch/build.py``: build_roi_heads:63-85,
+build_rpn:34, _roi_heads_kwargs:125, build_proposal_generator:170-191,
+_build_generalized_rcnn:195, _build_generalized_rcnn_reg_only:208-221,
+_build_proposal_network:352-361, build_model:366). Ported: a ResNet-FPN
+backbone; ``GeneralizedRCNN``, ``GeneralizedRCNNRegOnly`` and
+``ProposalNetwork``; the RPN (or ``RPN_Ignore``) and ``RBG`` proposal
+generators; ``StandardROIHeads``, ``CascadeROIHeads``,
+``CascadeUBBRROIHeads`` and ``UBBRROIHeads``, with their training keys.
 """
 from __future__ import annotations
 
 import torch
 
 from lvc_tpu_torch.modeling.backbone.fpn import build_resnet_fpn_backbone, fpn_strides
-from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN
+from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, GeneralizedRCNNRegOnly, ProposalNetwork
+from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
+from lvc_tpu_torch.modeling.roi_heads.cascade_rcnn import (
+    CascadeROIHeads,
+    CascadeUBBRROIHeads,
+    UBBRROIHeads,
+)
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -32,31 +42,17 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def build_model(cfg, device=None) -> GeneralizedRCNN:
-    """cfg -> ``GeneralizedRCNN`` on ``device`` (default ``cuda``), with
-    parameters in float32 and activations in ``MODEL.DTYPE``, in eval mode
-    (``model.train()`` for the losses). Weights come from
-    ``checkpoint.convert.from_flax`` or ``utils.init.damped_init``."""
-    device = resolve_device(device)
-    m = cfg.MODEL
-    if m.META_ARCHITECTURE != "GeneralizedRCNN":
-        _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, items 9-10")
-    if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
-        _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
-    if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "RPN_Ignore"):
-        _unported(f"proposal generator {m.PROPOSAL_GENERATOR.NAME!r}", "queue 1, item 9")
-    if m.ROI_HEADS.NAME != "StandardROIHeads":
-        _unported(f"ROI heads {m.ROI_HEADS.NAME!r}", "queue 1, item 9")
-    if m.ROI_HEADS.OUTPUT_LAYER != "FastRCNNOutputLayers":
-        _unported(f"output layer {m.ROI_HEADS.OUTPUT_LAYER!r}", "queue 1, item 5")
-    if m.MASK_ON or m.KEYPOINT_ON:
-        _unported("mask and keypoint heads", "queue 1, item 10")
-    if m.DTYPE not in _DTYPES:
-        raise ValueError(f"MODEL.DTYPE {m.DTYPE!r}")
+_META_ARCHS = {
+    "GeneralizedRCNN": GeneralizedRCNN,
+    "GeneralizedRCNNRegOnly": GeneralizedRCNNRegOnly,
+    "ProposalNetwork": ProposalNetwork,
+}
+_ROI_HEADS = ("StandardROIHeads", "CascadeROIHeads", "CascadeUBBRROIHeads", "UBBRROIHeads")
 
-    backbone = build_resnet_fpn_backbone(cfg)
-    strides = fpn_strides(m.FPN.IN_FEATURES)
-    rpn = RPN(
+
+def build_rpn(cfg, strides) -> RPN:
+    m = cfg.MODEL
+    return RPN(
         in_features=tuple(m.RPN.IN_FEATURES),
         strides=strides,
         in_channels=m.FPN.OUT_CHANNELS,
@@ -78,8 +74,27 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
         post_nms_topk_train=m.RPN.POST_NMS_TOPK_TRAIN,
         ignore_regions=m.PROPOSAL_GENERATOR.NAME == "RPN_Ignore",
     )
+
+
+def build_proposal_generator(cfg, strides):
+    m = cfg.MODEL
+    if m.PROPOSAL_GENERATOR.NAME == "RBG":
+        return RBG(
+            alpha=m.RBG.ALPHA,
+            beta=m.RBG.BETA,
+            t=m.RBG.T,
+            batch_size_per_image=m.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=m.ROI_HEADS.POSITIVE_FRACTION,
+        )
+    if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "RPN_Ignore"):
+        _unported(f"proposal generator {m.PROPOSAL_GENERATOR.NAME!r}", "queue 1, item 9")
+    return build_rpn(cfg, strides)
+
+
+def build_roi_heads(cfg, strides):
+    m = cfg.MODEL
     h = m.ROI_BOX_HEAD
-    roi_heads = StandardROIHeads(
+    common = dict(
         in_features=tuple(m.ROI_HEADS.IN_FEATURES),
         strides=strides,
         in_channels=m.FPN.OUT_CHANNELS,
@@ -108,9 +123,51 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
         box_reg_loss_type=h.BBOX_REG_LOSS_TYPE,
         reg_off=m.ROI_HEADS.REG_OFF,
     )
-    model = GeneralizedRCNN(
-        backbone, rpn, roi_heads,
-        pixel_mean=tuple(m.PIXEL_MEAN), pixel_std=tuple(m.PIXEL_STD),
-        compute_dtype=_DTYPES[m.DTYPE],
-    )
+    name = m.ROI_HEADS.NAME
+    if name == "CascadeROIHeads":
+        ious = tuple(m.ROI_BOX_CASCADE_HEAD.IOUS)
+        return CascadeROIHeads(
+            cascade_ious=ious,
+            cascade_bbox_reg_weights=tuple(tuple(w) for w in m.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS)[:len(ious)],
+            ubbr_lambda=m.UBBR.LAMBDA,
+            output_layer=m.ROI_HEADS.OUTPUT_LAYER,
+            **common,
+        )
+    if name == "CascadeUBBRROIHeads":
+        return CascadeUBBRROIHeads(cascade_steps=m.UBBR.CASCADE_STEPS, ubbr_lambda=m.UBBR.LAMBDA, **common)
+    return (UBBRROIHeads if name == "UBBRROIHeads" else StandardROIHeads)(**common)
+
+
+def build_model(cfg, device=None) -> GeneralizedRCNN:
+    """cfg -> the meta-architecture on ``device`` (default ``cuda``), with
+    parameters in float32 and activations in ``MODEL.DTYPE``, in eval mode
+    (``model.train()`` for the losses). Weights come from
+    ``checkpoint.convert.from_flax`` or ``utils.init.damped_init``."""
+    device = resolve_device(device)
+    m = cfg.MODEL
+    if m.META_ARCHITECTURE not in _META_ARCHS:
+        _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, items 9-10")
+    if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
+        _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
+    if m.ROI_HEADS.NAME not in _ROI_HEADS:
+        _unported(f"ROI heads {m.ROI_HEADS.NAME!r}", "queue 1, item 9")
+    # the cascade heads pick their output layer from OUTPUT_LAYER, as in JAX
+    if m.ROI_HEADS.OUTPUT_LAYER == "CosineSimOutputLayers" and m.ROI_HEADS.NAME in (
+        "StandardROIHeads", "UBBRROIHeads"
+    ):
+        _unported(f"output layer {m.ROI_HEADS.OUTPUT_LAYER!r}", "queue 1, item 5")
+    if m.MASK_ON or m.KEYPOINT_ON:
+        _unported("mask and keypoint heads", "queue 1, item 10")
+    if m.DTYPE not in _DTYPES:
+        raise ValueError(f"MODEL.DTYPE {m.DTYPE!r}")
+
+    backbone = build_resnet_fpn_backbone(cfg)
+    strides = fpn_strides(m.FPN.IN_FEATURES)
+    kwargs = dict(pixel_mean=tuple(m.PIXEL_MEAN), pixel_std=tuple(m.PIXEL_STD), compute_dtype=_DTYPES[m.DTYPE])
+    if m.META_ARCHITECTURE == "ProposalNetwork":
+        model = ProposalNetwork(backbone, build_rpn(cfg, strides), **kwargs)
+    else:
+        model = _META_ARCHS[m.META_ARCHITECTURE](
+            backbone, build_proposal_generator(cfg, strides), build_roi_heads(cfg, strides), **kwargs
+        )
     return model.to(device=device, memory_format=torch.channels_last).eval()

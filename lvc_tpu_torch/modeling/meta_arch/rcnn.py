@@ -1,5 +1,6 @@
 """Generalized R-CNN (counterpart of ``lvc_tpu/modeling/meta_arch/rcnn.py``:
-model_images:25, GeneralizedRCNN:55-131).
+model_images:25, GeneralizedRCNN:55-131, GeneralizedRCNNRegOnly:213,
+ProposalNetwork:279).
 
 The model takes the JAX package's batch dict, ``image`` (B, H, W, 3) raw
 pixels in cfg INPUT.FORMAT order and ``image_size`` (B, 2) true (h, w) inside
@@ -8,7 +9,12 @@ the padded canvas. In eval mode it returns padded ``Detections`` (under
 ``gt_classes`` (B, G), ``gt_valid`` (B, G), optional ``gt_ignores`` (B, G)) it
 returns the JAX loss dict: ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
 ``loss_box_reg``. It runs on the device its parameters live on; the batch is
-moved there.
+moved there. With the ``RBG`` proposal generator the proposals are jittered
+gt boxes (plus ``proposal_boxes``/``proposal_logits``/``proposal_valid`` when
+the batch holds them, which the loader's batches do not, as in JAX).
+``GeneralizedRCNNRegOnly`` trains the same way and in eval mode regresses the
+batch's gt slots as candidates (``RegOnlyOutput``); ``ProposalNetwork`` returns
+the RPN's proposals as a dict.
 """
 from __future__ import annotations
 
@@ -20,19 +26,25 @@ from torch import nn
 from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.backbone.fpn import FPN
+from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
 
 
+_PROPOSAL_KEYS = ("proposal_boxes", "proposal_logits", "proposal_valid")
+
+
 class GeneralizedRCNN(nn.Module):
-    """backbone -> RPN -> ROI heads."""
+    """backbone -> RPN (or RBG) -> ROI heads."""
+
+    train_ignores = True  # the gt ignore regions reach the ROI heads in training
 
     def __init__(
         self,
         backbone: FPN,
-        proposal_generator: RPN,
-        roi_heads: StandardROIHeads,
+        proposal_generator: Optional[nn.Module],
+        roi_heads: Optional[StandardROIHeads],
         pixel_mean: Sequence[float] = (103.53, 116.28, 123.675),
         pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
         compute_dtype: torch.dtype = torch.float32,
@@ -91,8 +103,32 @@ class GeneralizedRCNN(nn.Module):
         with torch.no_grad():
             features = self.backbone(self.model_images(batch))
             image_sizes = self._as_tensor(batch["image_size"])
-            proposals, _, prop_valid, _ = self.proposal_generator(features, image_sizes)
+            proposals, _, prop_valid, _ = self._propose(batch, features, image_sizes)
             return self.roi_heads(features, proposals, prop_valid, image_sizes)
+
+    def _gt(self, batch: Dict, ignores: bool = True) -> Dict[str, torch.Tensor]:
+        gt = {
+            "boxes": self._as_tensor(batch["gt_boxes"]).float(),
+            "classes": self._as_tensor(batch["gt_classes"]),
+            "valid": self._as_tensor(batch["gt_valid"]).bool(),
+        }
+        if ignores and "gt_ignores" in batch:
+            gt["ignores"] = self._as_tensor(batch["gt_ignores"]).bool()
+        return gt
+
+    def _propose(self, batch: Dict, features, image_sizes, gt=None, generator=None):
+        """The proposal generator's (proposals, objectness, valid, losses).
+        RBG also takes the batch's precomputed proposals, the RPN the gt
+        ignore regions."""
+        gt = gt or {}
+        if isinstance(self.proposal_generator, RBG):
+            given = {k: self._as_tensor(batch[k]) for k in _PROPOSAL_KEYS if k in batch}
+            return self.proposal_generator(
+                features, image_sizes, gt.get("boxes"), gt.get("valid"), generator, **given
+            )
+        return self.proposal_generator(
+            features, image_sizes, gt.get("boxes"), gt.get("valid"), gt.get("ignores"), generator
+        )
 
     def _losses(self, batch: Dict, generator) -> Dict[str, torch.Tensor]:
         """The stages run in profiler ranges ``backbone``, ``rpn`` and
@@ -100,18 +136,49 @@ class GeneralizedRCNN(nn.Module):
         with record_function("backbone"):
             features = self.backbone(self.model_images(batch))
         image_sizes = self._as_tensor(batch["image_size"])
-        gt = {
-            "boxes": self._as_tensor(batch["gt_boxes"]).float(),
-            "classes": self._as_tensor(batch["gt_classes"]),
-            "valid": self._as_tensor(batch["gt_valid"]).bool(),
-        }
-        if "gt_ignores" in batch:
-            gt["ignores"] = self._as_tensor(batch["gt_ignores"]).bool()
+        gt = self._gt(batch, ignores=self.train_ignores)
         with record_function("rpn"):
-            proposals, _, prop_valid, rpn_losses = self.proposal_generator(
-                features, image_sizes, gt["boxes"], gt["valid"], gt.get("ignores"), generator
-            )
+            proposals, _, prop_valid, rpn_losses = self._propose(batch, features, image_sizes, gt, generator)
         with record_function("roi_heads"):
             losses = dict(self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator))
         losses.update(rpn_losses)
         return losses
+
+
+class GeneralizedRCNNRegOnly(GeneralizedRCNN):
+    """The box corrector's meta-architecture: trains like
+    ``GeneralizedRCNN`` (the gt ignore flags do not reach the heads, as in
+    JAX); in eval mode the batch's gt slots are the candidates, and the
+    output is ``RegOnlyOutput`` aligned to them."""
+
+    train_ignores = False
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None):
+        if self.training and "gt_boxes" in batch:
+            return self._losses(batch, generator)
+        with torch.no_grad():
+            features = self.backbone(self.model_images(batch))
+            gt = self._gt(batch, ignores=False)
+            return self.roi_heads(
+                features, gt["boxes"], gt["valid"], self._as_tensor(batch["image_size"]), gt,
+                candidates_as_proposals=True,
+            )
+
+
+class ProposalNetwork(GeneralizedRCNN):
+    """Backbone + RPN, for proposal extraction: in eval mode the dict of
+    ``proposal_boxes`` (B, K, 4), ``objectness_logits`` (B, K) and
+    ``proposal_valid`` (B, K); in training the RPN losses."""
+
+    def __init__(self, backbone: FPN, proposal_generator: RPN, **kwargs):
+        super().__init__(backbone, proposal_generator, None, **kwargs)
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None):
+        if self.training and "gt_boxes" in batch:
+            features = self.backbone(self.model_images(batch))
+            gt = self._gt(batch, ignores=False)
+            return self._propose(batch, features, self._as_tensor(batch["image_size"]), gt, generator)[3]
+        with torch.no_grad():
+            features = self.backbone(self.model_images(batch))
+            boxes, logits, valid, _ = self._propose(batch, features, self._as_tensor(batch["image_size"]))
+        return {"proposal_boxes": boxes, "objectness_logits": logits, "proposal_valid": valid}

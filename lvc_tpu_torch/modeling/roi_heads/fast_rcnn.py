@@ -1,7 +1,7 @@
 """Fast R-CNN output layers and fixed-shape inference.
 
 Counterpart of ``lvc_tpu/modeling/roi_heads/fast_rcnn.py``
-(FastRCNNOutputLayers:24, fast_rcnn_losses:123-173, Detections:181,
+(FastRCNNOutputLayers:24, BoxOnlyLayers:94, fast_rcnn_losses:123-173, Detections:181,
 fast_rcnn_inference:198-261). The whole batch is processed at once on padded
 (B, R, ...) slots with validity masks.
 """
@@ -36,6 +36,21 @@ class FastRCNNOutputLayers(nn.Module):
         return scores.float(), deltas.float()
 
 
+class BoxOnlyLayers(nn.Module):
+    """Class-agnostic box-only regressor of the UBBR heads: one linear
+    ``bbox_pred`` on the flattened input cast to float32, N(0, 0.001) weights
+    and zero bias as in JAX."""
+
+    def __init__(self, in_features: int, box_dim: int = 4):
+        super().__init__()
+        self.bbox_pred = nn.Linear(in_features, box_dim)
+        nn.init.normal_(self.bbox_pred.weight, std=0.001)
+        nn.init.zeros_(self.bbox_pred.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bbox_pred(x.reshape(x.shape[0], -1).float())
+
+
 def fast_rcnn_losses(
     class_logits: torch.Tensor,  # (N, K+1)
     proposal_deltas: torch.Tensor,  # (N, K*4) or (N, 4)
@@ -49,13 +64,9 @@ def fast_rcnn_losses(
 ) -> Dict[str, torch.Tensor]:
     """Softmax CE as the mean over valid non-ignore slots; box regression as
     the sum over foreground slots divided by ALL valid slots (the reference's
-    normalization). The loss math runs in float32."""
-    if box_reg_loss_type == "giou":
-        raise NotImplementedError(
-            "BBOX_REG_LOSS_TYPE 'giou' (the UBBR heads) is not ported yet "
-            "(ROADMAP.md queue 1, item 5: it comes with the LVC pipeline)"
-        )
-    if box_reg_loss_type != "smooth_l1":
+    normalization), as ``1 - GIoU`` of the decoded boxes under
+    ``box_reg_loss_type`` "giou". The loss math runs in float32."""
+    if box_reg_loss_type not in ("smooth_l1", "giou"):
         raise ValueError(box_reg_loss_type)
     num_classes = class_logits.shape[-1] - 1
     class_logits = class_logits.float()
@@ -77,8 +88,11 @@ def fast_rcnn_losses(
         d = proposal_deltas.reshape(proposal_deltas.shape[0], num_classes, box_dim)
         cls = gt_classes.clamp(0, num_classes - 1).long()
         pred_deltas = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, box_dim))[:, 0]
-    gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
-    reg = smooth_l1(pred_deltas, gt_deltas, smooth_l1_beta).sum(-1)
+    if box_reg_loss_type == "smooth_l1":
+        gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
+        reg = smooth_l1(pred_deltas, gt_deltas, smooth_l1_beta).sum(-1)
+    else:
+        reg = 1.0 - box_ops.pairwise_giou(box2box.apply_deltas(pred_deltas, proposal_boxes), gt_boxes)
     loss_box_reg = global_ratio(torch.where(fg, reg, zero).sum(), n_valid)
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box_reg}
 

@@ -74,7 +74,10 @@ class StandardROIHeads(nn.Module):
         smooth_l1_beta: float = 0.0,
         box_reg_loss_type: str = "smooth_l1",
         reg_off: bool = False,
+        **head_options,
     ):
+        """``head_options`` go to ``_build_box_heads`` (the cascade heads'
+        stage options)."""
         super().__init__()
         if pooler_impl == "tiled":
             raise NotImplementedError(
@@ -92,13 +95,11 @@ class StandardROIHeads(nn.Module):
         self.pooler_max_grid = pooler_max_grid
         self.canonical_box_size = canonical_box_size
         self.canonical_level = canonical_level
-        self.box_head = FastRCNNConvFCHead(
-            in_channels, pooler_resolution, num_conv, conv_dim, num_fc, fc_dim, head_norm, dropout
-        )
-        out_dim = fc_dim if num_fc else conv_dim * pooler_resolution ** 2
-        self.box_predictor = FastRCNNOutputLayers(out_dim, num_classes, cls_agnostic_bbox_reg)
+        self.head_args = (in_channels, pooler_resolution, num_conv, conv_dim, num_fc, fc_dim, head_norm, dropout)
+        self.head_dim = fc_dim if num_fc else conv_dim * pooler_resolution ** 2
         self.box2box = Box2BoxTransform(bbox_reg_weights)
         self.proposal_matcher = Matcher(iou_thresholds, iou_labels, allow_low_quality_matches=False)
+        self._build_box_heads(cls_agnostic_bbox_reg, **head_options)
         self.pos_threshold = iou_thresholds[0]
         self.batch_size_per_image = batch_size_per_image
         self.positive_fraction = positive_fraction
@@ -110,6 +111,12 @@ class StandardROIHeads(nn.Module):
         self.nms_thresh = nms_thresh_test
         self.detections_per_image = detections_per_image
         self.pre_nms_candidates = pre_nms_candidates
+
+    def _build_box_heads(self, cls_agnostic_bbox_reg: bool) -> None:
+        """``box_head`` and ``box_predictor``; subclasses build their own
+        heads here from their own options."""
+        self.box_head = FastRCNNConvFCHead(*self.head_args)
+        self.box_predictor = FastRCNNOutputLayers(self.head_dim, self.num_classes, cls_agnostic_bbox_reg)
 
     # ------------------------------------------------------------- sampling
     def label_and_sample_proposals(

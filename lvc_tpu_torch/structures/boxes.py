@@ -1,7 +1,7 @@
 """Box primitives as plain functions on ``(..., 4)`` XYXY tensors.
 
-Counterpart of ``lvc_tpu/structures/boxes.py:45-95`` (area, clip, nonempty,
-pairwise_iou, pairwise_ioa), with the same formulas in the same operation order so the
+Counterpart of ``lvc_tpu/structures/boxes.py:45-131`` (area, clip, nonempty,
+pairwise_iou, pairwise_ioa, matched_pairwise_iou, pairwise_giou), with the same formulas in the same operation order so the
 NMS decisions made from these IoUs match the JAX package bit for bit.
 ``BoxMode`` is the dataset dicts' box encoding, converted in numpy.
 """
@@ -89,3 +89,33 @@ def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = pairwise_intersection(boxes1, boxes2)
     safe = torch.where(area2 > 0, area2, torch.ones_like(area2))[..., None, :]
     return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))
+
+
+def _matched_overlap(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Intersection and union of aligned box lists."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter, area(boxes1) + area(boxes2) - inter
+
+
+def matched_pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of aligned (..., 4) box lists; 0 where the
+    intersection is 0 (``lvc_tpu/structures/boxes.py:98``)."""
+    inter, union = _matched_overlap(boxes1, boxes2)
+    safe = torch.where(union > 0, union, torch.ones_like(union))
+    return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))
+
+
+def pairwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise generalized IoU of aligned (..., 4) box lists
+    (``lvc_tpu/structures/boxes.py:111``): a union or an enclosing area that
+    is not positive divides by 1."""
+    inter, union = _matched_overlap(boxes1, boxes2)
+    iou = inter / torch.where(union > 0, union, torch.ones_like(union))
+    lt_c = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb_c = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh_c = (rb_c - lt_c).clamp(min=0)
+    area_c = wh_c[..., 0] * wh_c[..., 1]
+    return iou - (area_c - union) / torch.where(area_c > 0, area_c, torch.ones_like(area_c))

@@ -7,9 +7,11 @@ base training, fine-tuning stages and eval-only runs, with the same flags.
     python -m lvc_tpu_torch.tools.train_net --eval-only --config-file ... MODEL.WEIGHTS out/model_final.pth
 
 It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. Datasets are the
-COCO splits registered under ``$DETECTRON2_DATASETS``. Only the ``coco``
-evaluator is ported: ``ProposalNetwork`` (RPNEvaluator), ``pascal_voc`` and
-``lvis`` raise.
+COCO splits registered under ``$DETECTRON2_DATASETS``. With
+``MODEL.META_ARCHITECTURE ProposalNetwork`` an ``--eval-only`` run extracts
+proposals (the ``RPNEvaluator`` writes ``coco_proposals_*_results.pkl`` into
+``OUTPUT_DIR``); otherwise the ``coco`` evaluator runs. The ``pascal_voc``
+and ``lvis`` evaluators raise: they are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits
 from lvc_tpu_torch.data.catalog import MetadataCatalog
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser, default_setup
 from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
+from lvc_tpu_torch.evaluation.rpn_evaluation import RPNEvaluator
 from lvc_tpu_torch.evaluation.testing import verify_results
 
 
@@ -27,9 +30,7 @@ class Trainer(DefaultTrainer):
     @classmethod
     def build_evaluator(cls, cfg, dataset_name):
         if cfg.MODEL.META_ARCHITECTURE == "ProposalNetwork":
-            raise NotImplementedError(
-                "ProposalNetwork and its RPNEvaluator are not ported yet (ROADMAP.md queue 1, item 8)"
-            )
+            return RPNEvaluator(dataset_name, cfg, output_dir=cfg.OUTPUT_DIR)
         ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
         if ev_type == "coco":
             return COCOEvaluator(

@@ -1,5 +1,5 @@
 """The port stands alone: importing it and building a model (the detector, the
-verifier ViT and its CLI) pulls in neither
+box corrector, the proposal network, the verifier ViT and the CLIs) pulls in neither
 jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
 and without a GPU the entry points refuse to run unless asked for the CPU."""
 import ast
@@ -44,7 +44,12 @@ def test_import_and_build_leave_jax_out():
         "cfg = get_cfg(); cfg.merge_from_file('configs/Base-RCNN-FPN.yaml')\n"
         "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
         "build_model(cfg, device='cpu')\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/COCO-detection/cascade_ubbr_R_50_FPN_base.yaml')\n"
+        "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
+        "build_model(cfg, device='cpu')\n"
+        "cfg.MODEL.META_ARCHITECTURE = 'ProposalNetwork'; build_model(cfg, device='cpu')\n"
         "import lvc_tpu_torch.tools.run_nearest_neighbours\n"
+        "import lvc_tpu_torch.tools.train_net_reg, lvc_tpu_torch.tools.train_net_reg_qe\n"
         "from lvc_tpu_torch.pipeline.verification import build_dino\n"
         "build_dino('dino_vits16', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"

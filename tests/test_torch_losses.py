@@ -85,13 +85,25 @@ def test_fast_rcnn_losses_match_jax(cls_agnostic):
     assert float(got["loss_box_reg"]) > 0
 
 
-def test_fast_rcnn_losses_giou_names_the_roadmap():
-    logits, deltas, props, gt, classes, valid = _fast_rcnn_inputs(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_rcnn_losses(
-            *(torch.from_numpy(x) for x in (logits, deltas, props, gt, classes, valid)),
-            Box2BoxTransform(WEIGHTS), box_reg_loss_type="giou",
-        )
+@pytest.mark.parametrize("cls_agnostic", [False, True])
+def test_fast_rcnn_losses_giou_names_the_roadmap(cls_agnostic):
+    """The ``giou`` branch (ROADMAP queue 1, item 5; ported with the box
+    corrector) against JAX's, class-specific and class-agnostic: ``1 - GIoU``
+    of the decoded boxes over the foreground rows, divided by all valid
+    rows."""
+    logits, deltas, props, gt, classes, valid = _fast_rcnn_inputs(cls_agnostic)
+    want = jax_fast_rcnn_losses(
+        *(jnp.asarray(x) for x in (logits, deltas, props, gt, classes, valid)), JaxB2B(WEIGHTS),
+        box_reg_loss_type="giou",
+    )
+    got = fast_rcnn_losses(
+        *(torch.from_numpy(x) for x in (logits, deltas, props, gt, classes, valid)),
+        Box2BoxTransform(WEIGHTS), box_reg_loss_type="giou",
+    )
+    assert set(got) == set(want)
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
+    assert float(got["loss_box_reg"]) > 0
 
 
 def test_fast_rcnn_loss_gradient_reaches_proposals():

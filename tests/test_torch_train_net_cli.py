@@ -145,10 +145,13 @@ def test_cli_refuses_unported_evaluators(tree):
     root, weights = tree
     from lvc_tpu_torch.config import get_cfg
 
+    from lvc_tpu_torch.evaluation.rpn_evaluation import RPNEvaluator
+
     cfg = get_cfg()
     cfg.MODEL.META_ARCHITECTURE = "ProposalNetwork"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_net.Trainer.build_evaluator(cfg, "coco_test_base")
+    cfg.OUTPUT_DIR = os.path.join(root, "proposals")
+    evaluator = train_net.Trainer.build_evaluator(cfg, "coco_test_base")
+    assert isinstance(evaluator, RPNEvaluator) and evaluator._output_dir == cfg.OUTPUT_DIR
     port_catalog.MetadataCatalog.get("cli_voc_probe").set(evaluator_type="pascal_voc")
     with pytest.raises(NotImplementedError, match="items 8-9"):
         train_net.Trainer.build_evaluator(get_cfg(), "cli_voc_probe")
