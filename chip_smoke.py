@@ -101,8 +101,23 @@ Phases, each of which raises (non-zero exit) on failure:
    launches per step and per batch, iou_in/iou_out, correction ms/img; K2
    and K3 on one training step's own inputs (3 stages of 16 x 64 slots,
    float32, C=256) and K2 on one reg-only batch's candidate slots, against
-   their plain versions on the same tensors (K2 bit-equal, K3 1e-5 * S).
-Phases 1-11 and 16-20 run with the fused path off, whatever the environment
+   their plain versions on the same tensors (K2 bit-equal, K3 1e-5 * S);
+21. fine-tune reference check: one train step of the ft_all config
+   (CosineSimOutputLayers, 80 classes) at narrow widths, float32,
+   POOLER_IMPL pallas_train, on the card and on the CPU from the same
+   weights, with the backbone frozen and trained: losses and trainable
+   gradients; K2/K3 launches 1/0 frozen and 1/1 trained;
+22. the LVC chain of scripts/coco_full_run.sh at full width through its twin
+   (lvc_tpu_torch.tools.coco_full_run): all 18 steps on the configs as they
+   stand (float32, IMS_PER_BATCH 16 at 832x1344), each from the files of the
+   steps before it, on a seeded tree of 80 classes with 30-shot files and an
+   unlabeled split, from phase 17's and phase 20's checkpoints, 20
+   iterations a training run: ms/iter, data_time, peak memory and the K2/K3
+   launches of every iteration of the six training runs (1/1, 1/0, 1/0,
+   3/3, 3/0, 1/1), extraction ms/img, the relations between the files the
+   steps wrote; then K2 and K3 on one more step 18 iteration's own tensors
+   (16 x 512 slots, float32, C=256) against their plain versions.
+Phases 1-11 and 16-22 run with the fused path off, whatever the environment
 says.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -110,8 +125,11 @@ both convolutions and matmuls (set below).
 """
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1804,7 +1822,7 @@ TRAIN_NET_ITERS, TRAIN_NET_PERIOD, TRAIN_NET_RESUMED = 30, 15, 35
 TRAIN_NET_TREE = (48, 16)  # train and test images
 
 
-def train_net_path(tag):
+def train_net_path(tag, keep: str):
     """The training CLI's main path at full width: ``train_net.main`` in this
     process on faster_rcnn_R_50_FPN_base.yaml (R-50-FPN, 60 base classes,
     IMS_PER_BATCH 16, the 832x1344 canvas, POOLER_IMPL auto: K2 and K3 in
@@ -1813,8 +1831,9 @@ def train_net_path(tag):
     tree of 48 train and 16 test JPEGs of 480x640 and 640x480 with 1-8 boxes
     each; the score threshold is 0.001, so that the random detector's rows
     reach the evaluator. Then ``--resume`` to 35 iterations and
-    ``--eval-only`` from ``model_0000029.pth``. Kernel counts are set to 0
-    just before each run and read just after."""
+    ``--eval-only`` from ``model_0000029.pth``, which is copied to ``keep``
+    (phase 22 starts from it). Kernel counts are set to 0 just before each
+    run and read just after."""
     import json
     import math
     import os
@@ -1964,6 +1983,7 @@ def train_net_path(tag):
         if (k2, k3) != (n_test, 0) or box_err > 1e-3 or score_err > 1e-6 or err > 1e-9:
             raise AssertionError(f"--eval-only: K2/K3 {k2}/{k3}, box err {box_err} px, score err {score_err}, "
                                  f"results {res3['bbox']} vs {final['bbox']}")
+        shutil.copy(os.path.join(out, saved[1]), keep)
         print(f"train_net --eval-only {saved[1]}: {len(got)} result rows equal the final evaluation's "
               f"(box err {box_err:.1e} px, tol 1e-3; score err {score_err:.1e}, tol 1e-6), bbox {res3['bbox']} "
               f"equals res_final.json (max diff {err:.1e}); {Capture.test_s / n_test * 1e3:.2f} ms/img end to "
@@ -2263,7 +2283,7 @@ def write_candidates(src_json: str, out_json: str, keep_ids, seed: int = 0) -> i
     return len(anns)
 
 
-def correct_path(tag):
+def correct_path(tag, keep: str):
     """The correct path at full width through the three CLIs, in this
     process, on phase 17's seeded COCO tree (48 train and 16 test JPEGs of
     480x640 and 640x480), from a damped-init R-50-FPN ``.pth``:
@@ -2285,7 +2305,9 @@ def correct_path(tag):
        the test split's gt (the classes the 60-class corrector covers): one
        row per candidate, ids preserved, finite boxes inside their images,
        K2 launches 3 per image, ms/img.
-    Kernel counts are set to 0 just before each CLI and read just after."""
+    The corrector's last checkpoint is copied to ``keep`` (phase 22 starts
+    from it). Kernel counts are set to 0 just before each CLI and read just
+    after."""
     import json
     import math
     import os
@@ -2443,6 +2465,8 @@ def correct_path(tag):
         check_recorded_pool("train_net_reg reg-only batch", rec, tag)
         del rec, reg
 
+        shutil.copy(os.path.join(ub, f"model_{TRAIN_NET_ITERS - 1:07d}.pth"), keep)
+
         # 3. candidate correction
         meta = _get_builtin_metadata("coco_fewshot")
         covered = {k for k, v in meta["thing_dataset_id_to_contiguous_id"].items() if v < 60}
@@ -2475,6 +2499,400 @@ def correct_path(tag):
               f"checkpoint load, decode, resize, forward, rows); "
               f"_ubbr.json has one row per candidate with its id, boxes finite and inside their images, moved up "
               f"to {moved:.3f} px; K2/K3 launches {n[0]}/{n[1]} ({n[0] // len(sizes)} per image) {tag}")
+
+
+# ---------------------------------------------------------------------------
+# The LVC chain of scripts/coco_full_run.sh through its twin
+# ---------------------------------------------------------------------------
+
+CHAIN_RESPREAD = ("person", "car", "dog", "tv")  # unseen classes the random detector's rows are spread over
+
+
+def write_chain_tree(root: str, n_train: int, n_test: int, n_unlabeled: int, sizes=((480, 640), (640, 480)),
+                     seed: int = 0, max_boxes: int = 8) -> None:
+    """The tree every step of the chain reads: ``write_coco_tree`` over all 80
+    classes, the 30-shot file of every class
+    (``cocosplit/full_box_30shot_<class>_trainval.json``: up to 30 of its
+    non-crowd training boxes) and an unlabeled split (JPEGs under
+    ``coco/unlabeled2017``, listed without annotations in
+    ``coco/annotations/image_info_unlabeled2017.json``)."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES
+
+    write_coco_tree(root, n_train, n_test, sizes=sizes, seed=seed, max_boxes=max_boxes,
+                    category_ids=[c["id"] for c in COCO_CATEGORIES])
+    with open(os.path.join(root, "cocosplit", "datasplit", "trainvalno5k.json")) as f:
+        gt = json.load(f)
+    for c in COCO_CATEGORIES:
+        anns = [a for a in gt["annotations"] if a["category_id"] == c["id"] and not a["iscrowd"]][:30]
+        ids = {a["image_id"] for a in anns}
+        with open(os.path.join(root, "cocosplit", f"full_box_30shot_{c['name']}_trainval.json"), "w") as f:
+            json.dump({"images": [im for im in gt["images"] if im["id"] in ids], "annotations": anns,
+                       "categories": gt["categories"]}, f)
+    rng = np.random.RandomState(seed + 1)
+    img_dir = os.path.join(root, "coco", "unlabeled2017")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "coco", "annotations"), exist_ok=True)
+    images = []
+    for i in range(n_unlabeled):
+        H, W = sizes[i % len(sizes)]
+        low = rng.randint(0, 200, (H // 16 + 1, W // 16 + 1, 3)).astype(np.uint8)
+        img = np.kron(low, np.ones((16, 16, 1), np.uint8))[:H, :W].copy()
+        for _ in range(rng.randint(1, max_boxes + 1)):
+            w, h = rng.randint(W // 16, W // 2), rng.randint(H // 16, H // 2)
+            x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+            img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
+        name = f"img_{200001 + i:06d}.jpg"
+        Image.fromarray(img).save(os.path.join(img_dir, name), quality=90)
+        images.append({"id": 200001 + i, "file_name": name, "height": H, "width": W})
+    with open(os.path.join(root, "coco", "annotations", "image_info_unlabeled2017.json"), "w") as f:
+        json.dump({"images": images, "categories": gt["categories"]}, f)
+
+
+def respread_detections(path: str, lo: float = 0.6, hi: float = 0.99) -> None:
+    """Rewrite a detection file of a random detector, as
+    tests/test_lvc_loop_e2e.py does after its stage 10: in order of score,
+    the rows take the classes of ``CHAIN_RESPREAD`` in turn and scores
+    falling evenly from ``hi`` to ``lo`` (a random detector scores every
+    class near 1/81, below the chain's mining band [0.8, 1.0)); boxes, images
+    and the file format stay the detector's."""
+    import json
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES
+
+    ids = [next(c["id"] for c in COCO_CATEGORIES if c["name"] == n) for n in CHAIN_RESPREAD]
+    with open(path) as f:
+        dets = json.load(f)
+    dets.sort(key=lambda d: -d["score"])
+    for i, d in enumerate(dets):
+        d["category_id"] = ids[i % len(ids)]
+        d["score"] = hi - (hi - lo) * i / max(len(dets) - 1, 1)
+    with open(path, "w") as f:
+        json.dump(dets, f)
+
+
+def repoint_shots(root: str, mined_json: str, n_shots: int) -> int:
+    """Rewrite the 30-shot files so that every shot is one of ``n_shots`` kept
+    candidates of the class the mining kept most of, and every other class
+    has none, as tests/test_lvc_loop_e2e.py does before verifying: the kNN
+    vote is then that class for every query, so verification confirms
+    exactly its candidates whatever the random descriptors. Returns the
+    class's COCO id."""
+    import json
+    import os
+    from collections import Counter
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES
+
+    with open(mined_json) as f:
+        mined = json.load(f)
+    kept = [a for a in mined["annotations"] if not a.get("ignore_qe")]
+    cls = Counter(a["category_id"] for a in kept).most_common(1)[0][0]
+    shots = [a for a in kept if a["category_id"] == cls][:n_shots]
+    if len(shots) < n_shots:
+        raise AssertionError(f"mining kept {len(shots)} candidates of class {cls}; the shots need {n_shots}")
+    with open(os.path.join(root, "cocosplit", "datasplit", "trainvalno5k.json")) as f:
+        gt = json.load(f)
+    ids = {a["image_id"] for a in shots}
+    anns = [{"id": 10 ** 7 + i, "image_id": a["image_id"], "category_id": cls, "bbox": a["bbox"],
+             "area": float(a["bbox"][2] * a["bbox"][3]), "iscrowd": 0} for i, a in enumerate(shots)]
+    for c in COCO_CATEGORIES:
+        mine = c["id"] == cls
+        with open(os.path.join(root, "cocosplit", f"full_box_30shot_{c['name']}_trainval.json"), "w") as f:
+            json.dump({"images": [im for im in gt["images"] if im["id"] in ids] if mine else [],
+                       "annotations": anns if mine else [], "categories": gt["categories"]}, f)
+    return cls
+
+
+def drive_chain(root: str, work: str, iters: int, weights: str, ubbr_weights=None, opts=(), run=None):
+    """Run the 18 steps of ``lvc_tpu_torch.tools.coco_full_run`` with ``work``
+    as the working directory, on the tree that ``write_chain_tree`` wrote at
+    ``root``, each from the files the steps before it wrote. Before step 11
+    both detection files are respread (``respread_detections``), before step
+    14 the shots are repointed (``repoint_shots``, 12 shots for the chain's
+    KNN 10). ``run(step, go)`` may wrap each step (``go()`` runs it). Returns
+    the class the shots were repointed to."""
+    import os
+
+    from lvc_tpu_torch.tools import coco_full_run as chain
+
+    run = run or (lambda step, go: go())
+    inference = os.path.join(work, chain.FT, "inference")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        chain.use_datasets(root)
+        for step in chain.chain(root, iters, weights, ubbr_weights, opts):
+            if step.number == "11":
+                for split in ("trainval", "unlabeled"):
+                    respread_detections(os.path.join(inference, f"coco_instances_{split}_results.json"))
+            if step.number == "14 trainval":
+                cls = repoint_shots(root, os.path.join(
+                    inference, f"coco_instances_trainval_results{chain.MINED}.json"), 12)
+            run(step, lambda: chain.run_step(step))
+    finally:
+        os.chdir(cwd)
+    return cls
+
+
+def check_chain_files(work: str, cls: int, nn_model: str) -> dict:
+    """The relations between the files a run of the chain wrote under
+    ``work`` (raises AssertionError where one fails): each training run's
+    ``model_final.pth`` is its last checkpoint; ``remove`` dropped the box
+    predictor and ``combine`` holds 81 classifier rows; both proposal
+    pickles exist; per split, the verified candidates are mined ones of the
+    shots' class ``cls``, the corrected file has a row (with ``bbox_orig``)
+    for each, ``_id.json`` carries the corrected boxes by id, ``_ignore.json``
+    keeps exactly them and adds ignore regions; base-class gt was merged;
+    the retrain wrote finite losses. Returns the verified and ignore counts."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.tools import coco_full_run as chain
+
+    def load(path):
+        with open(os.path.join(work, path)) as f:
+            return json.load(f)
+
+    for d in (chain.BASE, chain.NOVEL, chain.FT, chain.UBBR_BASE, chain.UBBR_FT, chain.RETRAIN):
+        with open(os.path.join(work, d, "last_checkpoint")) as f:
+            last = os.path.join(work, d, f.read())
+        if not os.path.samefile(os.path.join(work, d, "model_final.pth"), last):
+            raise AssertionError(f"{d}/model_final.pth is not {last}")
+    removed = torch.load(os.path.join(work, chain.BASE, "model_reset_remove.pth"), weights_only=False)["model"]
+    combined = torch.load(os.path.join(work, chain.NOVEL, "model_reset_combine.pth"), weights_only=False)["model"]
+    if any("box_predictor" in k for k in removed) or combined[
+            "roi_heads.box_predictor.cls_score.weight"].shape[0] != 81:
+        raise AssertionError("checkpoint surgery: remove kept the predictor or combine lacks 81 rows")
+    for d in (chain.BASE, chain.FT):
+        for split in ("trainval", "test"):
+            if not os.path.exists(os.path.join(work, d, f"coco_proposals_{split}_results.pkl")):
+                raise AssertionError(f"{d}: no {split} proposals")
+    inf = os.path.join(chain.FT, "inference", "coco_instances_{}_results")
+    verified_suffix = f"{chain.MINED}_{nn_model}_10_cosine"
+    counts = {}
+    for split in ("trainval", "unlabeled"):
+        mined = load(inf.format(split) + chain.MINED + ".json")
+        verified = load(inf.format(split) + verified_suffix + ".json")["annotations"]
+        kept = {a["id"] for a in verified}
+        if not kept or not kept <= {a["id"] for a in mined["annotations"]} or {
+                a["category_id"] for a in verified} != {cls}:
+            raise AssertionError(f"{split}: {len(kept)} verified candidates, not all mined ones of class {cls}")
+        corrected = {a["id"]: a for a in load(inf.format(split) + verified_suffix + "_ubbr.json")}
+        by_id = {a["id"]: a for a in load(inf.format(split) + verified_suffix + "_ubbr_id.json")["annotations"]}
+        if set(corrected) != kept or set(by_id) != kept or any("bbox_orig" not in a for a in corrected.values()) \
+                or any(np.abs(np.subtract(by_id[i]["bbox"], a["bbox"])).max() > 1e-4 for i, a in corrected.items()):
+            raise AssertionError(f"{split}: corrected boxes do not follow the verified candidates by id")
+        ignore = load(inf.format(split) + verified_suffix + "_ubbr_id_ignore.json")["annotations"]
+        n_ignore = sum(bool(a.get("ignore_qe")) for a in ignore)
+        if {a["id"] for a in ignore if not a.get("ignore_qe")} != kept or not n_ignore:
+            raise AssertionError(f"{split}: _ignore.json keeps {len(ignore) - n_ignore} of {len(kept)}, "
+                                 f"{n_ignore} ignores")
+        counts[split] = (len(mined["annotations"]), len(kept), n_ignore)
+    wbase = load(inf.format("trainval") + verified_suffix + "_ubbr_id_ignore_wbase.json")["annotations"]
+    base_ig = load(inf.format("unlabeled") + verified_suffix + "_ubbr_id_ignore_wbase_base_ig.json")["annotations"]
+    if not any("score" not in a for a in wbase) or len(base_ig) < counts["unlabeled"][1] + counts["unlabeled"][2]:
+        raise AssertionError("combine_qe_with_base merged no base annotations")
+    with open(os.path.join(work, chain.RETRAIN, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    if not rows or not math.isfinite(rows[-1]["total_loss"]):
+        raise AssertionError(f"the retrain wrote no finite loss: {rows}")
+    return counts
+
+
+FT_ALL_YAML = "configs/COCO-detection/faster_rcnn_R_50_FPN_ft_all_30shot_aug_ftmore_dropout.yaml"
+
+
+def finetune_reference_check(tag):
+    """One train step of faster_rcnn_R_50_FPN_ft_all_30shot_aug_ftmore_dropout.yaml
+    (80 classes, CosineSimOutputLayers) at the narrow widths of
+    ``narrow_cfg``, float32, POOLER_IMPL pallas_train, DROPOUT 0 (masks
+    differ between devices) and exhaustive sampling, on the card (K2 + K3)
+    and on the CPU (plain versions) from the same weights, with the backbone
+    frozen as the config has it and unfrozen as coco_full_run step 18 has
+    it: every loss to rel 1e-4, every trainable gradient to rel L2 1e-4 (the
+    tolerances of phase 6); K2/K3 launch 1/0 with the backbone frozen (its
+    features take no gradient) and 1/1 without."""
+    import torch
+
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+
+    # phase 6's batch, its 5 classes spread over the 80: its float32 gradients are within 4.3e-6 of float64 on
+    # the CPU; with the same seed drawn over 80 classes the images differ, and float32 backbone gradients are
+    # 2.1e-3 from float64 on the CPU alone (the input is ill-conditioned, on either device)
+    batch = train_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 100))
+    batch["gt_classes"] = batch["gt_classes"] * 16
+    for freeze in (True, False):
+        cfg = get_cfg()
+        cfg.merge_from_file(FT_ALL_YAML)
+        cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64
+        cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16
+        cfg.MODEL.FPN.OUT_CHANNELS = 64
+        cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
+        cfg.MODEL.ROI_BOX_HEAD.DROPOUT = 0.0
+        cfg.MODEL.ROI_HEADS.POOLER_IMPL = "pallas_train"
+        cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
+        cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
+        cfg.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 8192
+        cfg.MODEL.RPN.POSITIVE_FRACTION = 0.999
+        cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 128
+        cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.999
+        cfg.MODEL.BACKBONE.FREEZE = freeze
+        cfg.SOLVER.WARMUP_ITERS = 0
+        cpu = build_model(cfg, device="cpu")
+        calibrated_init(cpu, seed=0)
+        gpu = build_model(cfg)
+        gpu.load_state_dict(cpu.state_dict())
+        res = {}
+        for key, model in (("cpu", cpu), ("gpu", gpu)):
+            model.train()
+            opt = build_optimizer(cfg, model)
+            step = make_train_step(model, opt, build_lr_schedule(cfg, opt))
+            ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+            metrics = step(batch, torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.requires_grad}
+            res[key] = {k: float(v) for k, v in metrics.items()}, grads, (
+                ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
+        (c_loss, c_grad, c_n), (g_loss, g_grad, g_n) = res["cpu"], res["gpu"]
+        want_n = (1, 0) if freeze else (1, 1)
+        if c_n != (0, 0) or g_n != want_n:
+            raise AssertionError(f"fine-tune step, backbone frozen {freeze}: K2/K3 launches {g_n}, want {want_n}")
+        loss_err = max(abs(g_loss[k] - v) / max(abs(v), 1e-30) for k, v in c_loss.items())
+        if set(c_loss) != set(g_loss) or loss_err > 1e-4 or c_loss["loss_box_reg"] <= 0:
+            raise AssertionError(f"fine-tune losses differ: cpu {c_loss} card {g_loss}")
+        if freeze == any(n.startswith("backbone.") for n in c_grad) or set(c_grad) != set(g_grad):
+            raise AssertionError("fine-tune step: the trainable set does not follow BACKBONE.FREEZE")
+        rel = {n: float((g_grad[n] - w).norm() / w.norm().clamp(min=1e-30)) for n, w in c_grad.items()}
+        worst = max(rel, key=rel.get)
+        if rel[worst] > 1e-4:
+            raise AssertionError(f"fine-tune grads differ: {worst} rel L2 {rel[worst]}")
+        print(f"fine-tune reference (cosine head, 80 classes, backbone frozen {freeze}): card vs CPU at float32, "
+              f"losses { {k: round(v, 5) for k, v in c_loss.items()} } max rel err {loss_err:.2e} (tol 1e-4); "
+              f"{len(rel)} trainable grads max rel L2 {rel[worst]:.2e} ({worst}; tol 1e-4); K2/K3 launches "
+              f"{g_n[0]}/{g_n[1]} {tag}")
+
+
+CHAIN_TREE = (32, 8, 8)  # training, test and unlabeled images
+CHAIN_ITERS = 20
+# K2/K3 launches of every iteration of the chain's training runs
+CHAIN_LAUNCHES = {"1": (1, 1), "3": (1, 0), "5": (1, 0), "8": (3, 3), "9": (3, 0), "18": (1, 1)}
+
+
+def lvc_chain_path(tag, weights: str, ubbr_weights: str):
+    """The LVC chain of scripts/coco_full_run.sh at full width through its
+    twin (``drive_chain``): all 18 steps on the configs as they stand
+    (R-50-FPN, IMS_PER_BATCH 16, 832x1344, float32), each from the files of
+    the steps before it, on a seeded tree (``write_chain_tree``: 32 training,
+    8 test and 8 unlabeled JPEGs of 480x640 and 640x480, 80 classes, 30-shot
+    files), from phase 17's checkpoint (steps 1 and 8) and phase 20's (step 8),
+    with ``CHAIN_ITERS`` iterations a training run, gradient clipping at norm
+    1 and a score threshold of 0 (a random cosine head can score every
+    foreground class of every box below 0.001; the mining steps need rows),
+    the verifier ViT-S/8 with seeded random weights. For each
+    training run: ms/iter and img/s over the iterations after the first
+    three, data_time, peak memory and the K2/K3 launches of every iteration
+    (``CHAIN_LAUNCHES``); for the extraction steps, ms/img; the files'
+    relations (``check_chain_files``); then K2 and K3 on one more step 18
+    iteration's own tensors (16 x 512 slots, float32, C=256) against their
+    plain versions. Kernel counts are set to 0 just before the chain and read
+    just after."""
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.engine.defaults import DefaultTrainer
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    opts = ["SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "SEED", "0"]
+    n_train, n_test, n_unlabeled = CHAIN_TREE
+    current = {}
+    real_step = DefaultTrainer.run_step
+    k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd  # the wrappers that count (PoolRecorder stands in)
+
+    def run_step(self):
+        n = k2.launches, k3.launches
+        t0 = time.perf_counter()
+        real_step(self)
+        current["times"].append(time.perf_counter() - t0)
+        current["launches"].append((k2.launches - n[0], k3.launches - n[1]))
+        current["trainer"] = self
+
+    def run(step, go):
+        current.clear()
+        current.update(times=[], launches=[])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        what = f"step {step.number} {step.tool}"
+        if step.number in CHAIN_LAUNCHES:
+            trainer, times, launches = current["trainer"], current["times"][3:], current["launches"]
+            c = trainer.cfg
+            if (c.SOLVER.IMS_PER_BATCH, c.MODEL.ROI_HEADS.POOLER_IMPL, c.SOLVER.AMP.ENABLED, c.SOLVER.MAX_ITER) != (
+                    16, "auto", False, CHAIN_ITERS) or len(launches) != CHAIN_ITERS:
+                raise AssertionError(f"{what}: not the config's batch 16, pool and float32, or not {CHAIN_ITERS} its")
+            if set(launches) != {CHAIN_LAUNCHES[step.number]}:
+                raise AssertionError(f"{what}: K2/K3 launches per iteration {sorted(set(launches))}, "
+                                     f"want {CHAIN_LAUNCHES[step.number]}")
+            data = trainer.storage.histories()["data_time"].values()
+            print(f"coco_full_run {what}: {c.MODEL.ROI_HEADS.NAME}/{c.MODEL.ROI_HEADS.OUTPUT_LAYER}, "
+                  f"{c.MODEL.ROI_HEADS.NUM_CLASSES} classes, backbone frozen {c.MODEL.BACKBONE.FREEZE}, mapper "
+                  f"{type(trainer.data_loader.mapper).__name__}: {CHAIN_ITERS} iterations in {secs:.1f} s with its evaluation; the "
+                  f"{len(times)} after the first 3 in {sum(times):.3f} s, {sum(times) / len(times) * 1e3:.2f} "
+                  f"ms/iter, {16 * len(times) / sum(times):.2f} img/s; data_time median "
+                  f"{statistics.median(data) * 1e3:.2f} ms (max {max(data) * 1e3:.2f}); peak memory {peak:.2f} GiB; "
+                  f"K2/K3 launches {launches[0][0]}/{launches[0][1]} every iteration {tag}")
+        else:
+            images = {"6": n_test + n_train, "7": n_test + n_train, "10": n_train + n_unlabeled}.get(step.number)
+            rate = f", {secs / images * 1e3:.2f} ms/img ({images} images, model build and load included)" \
+                if images else ""
+            print(f"coco_full_run {what}: {secs:.2f} s{rate} {tag}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        t0 = time.perf_counter()
+        write_chain_tree(root, *CHAIN_TREE, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        work = os.path.join(tmp, "work")
+        os.makedirs(work)
+        print(f"coco_full_run: tree of {n_train} training, {n_test} test and {n_unlabeled} unlabeled images "
+              f"written in {time.perf_counter() - t0:.1f} s {tag}")
+        DefaultTrainer.run_step = run_step
+        k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        try:
+            cls = drive_chain(root, work, CHAIN_ITERS, weights, ubbr_weights, opts, run)
+        finally:
+            DefaultTrainer.run_step = real_step
+        secs = time.perf_counter() - t0
+        n = k2.launches, k3.launches
+        counts = check_chain_files(work, cls, "dino_vits8")
+        print(f"coco_full_run: all 18 steps in {secs:.1f} s, each from the files of the steps before it; mined / "
+              f"verified (class {cls}) / ignore regions: {counts}; K2/K3 launches over the chain {n[0]}/{n[1]} "
+              f"{tag}")
+        # the kernels on one more step 18 iteration's own tensors: 16 x 512 slots over the float32 C=256 pyramid
+        with PoolRecorder() as rec:
+            current["trainer"].run_step()
+        if len(rec.fwd) != 1 or len(rec.bwd) != 1 or rec.fwd[0][1].rows.shape[0] != 16 * 512:
+            raise AssertionError(f"recorded step 18 iteration: {len(rec.fwd)}/{len(rec.bwd)} pool calls")
+        check_recorded_pool("coco_full_run step 18 iteration", rec, tag)
 
 
 def main() -> int:
@@ -2521,12 +2939,14 @@ def main() -> int:
     fused_reference_check(tag)
     fused_main_path(tag, kernels, serving_ms)
     fused_train_path(tag, kernels, train)
-    with fused_residual(False):
+    with fused_residual(False), tempfile.TemporaryDirectory() as keep:
         trainer_reference_check(tag)
-        train_net_path(tag)
+        train_net_path(tag, os.path.join(keep, "base.pth"))
         synthetic_ap_gate(tag)
         corrector_reference_check(tag)
-        correct_path(tag)
+        correct_path(tag, os.path.join(keep, "ubbr.pth"))
+        finetune_reference_check(tag)
+        lvc_chain_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ubbr.pth"))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
 (in, out) -> (out, in), FrozenBN affine and statistics to ``<conv>.norm.*``.
 ``to_flax`` goes the other way. The cascade heads' stages are
 ``box_head_{k}``/``box_predictor_{k}`` in flax and ``box_head.{k}``/
-``box_predictor.{k}`` in the state_dict (``convert.py:51-53, 119-123``). ``vit_from_flax`` and ``vit_to_flax`` do the
+``box_predictor.{k}`` in the state_dict (``convert.py:51-53, 119-123``).
+``CosineSimOutputLayers`` keeps a bare ``cls_score_weight`` (in, K+1) in
+flax and ``cls_score.weight`` (K+1, in) with no bias here; its learnable
+``scale`` has one name in both (``convert.py:80, 109, 136``).
+``vit_from_flax`` and ``vit_to_flax`` do the
 same for the DINO verifier ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
 """
@@ -56,6 +60,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts[:-2]) + ".bias"] = v
         elif parts[-1] == "kernel":
             out[".".join(parts[:-1]) + ".weight"] = v.T
+        elif parts[-1] == "cls_score_weight":
+            out[".".join(parts[:-1] + ["cls_score", "weight"])] = v.T
         elif parts[-2] == "FrozenBatchNorm_0":
             out[".".join(parts[:-2]) + ".norm." + parts[-1]] = v
         elif parts[-2] == "GroupNorm_0":
@@ -103,6 +109,10 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 raise KeyError(f"unrecognized norm key {key}")
         elif name == "weight" and v.ndim == 4:
             params[tuple(mod + ["conv", "kernel"])] = v.transpose(2, 3, 1, 0)
+        elif name == "weight" and v.ndim == 2 and mod[-1] == "cls_score" and (
+            key.rsplit(".", 1)[0] + ".bias" not in state_dict
+        ):
+            params[tuple(mod[:-1] + ["cls_score_weight"])] = v.T  # the cosine classifier
         elif name == "weight" and v.ndim == 2:
             params[tuple(mod + ["kernel"])] = v.T
         elif name == "bias" and state_dict[".".join(key.split(".")[:-1]) + ".weight"].dim() == 4:

@@ -7,8 +7,8 @@ d2's build_batch_data_loader. Examples are padded fixed-shape numpy arrays
 bucketed by canvas; a thread pool decodes/augments ahead of the train step
 (no worker processes: the heavy lifting is the native decoder, PIL and
 numpy, which release the GIL). The loaders yield numpy arrays; the trainer
-moves each batch to its device. ``INPUT.MOSAIC > 0`` raises: the mosaic
-mapper is not ported yet (ROADMAP.md queue 1, item 9).
+moves each batch to its device. ``INPUT.MOSAIC > 0`` wraps the default
+train mapper in ``MosaicDatasetMapper`` (``lvc_tpu/data/build.py:241-250``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 from lvc_tpu_torch.data import utils as data_utils
 from lvc_tpu_torch.data.catalog import DatasetCatalog
 from lvc_tpu_torch.data.dataset_mapper import DatasetMapper, collate
+from lvc_tpu_torch.data.mosaic import MosaicDatasetMapper
 from lvc_tpu_torch.data.samplers import (
     CategoryAreaAwareSampler,
     CategoryAwareSampler,
@@ -236,13 +237,14 @@ class EvalLoader:
 
 
 def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None) -> TrainLoader:
-    if cfg.INPUT.MOSAIC > 0:
-        raise NotImplementedError(
-            "INPUT.MOSAIC > 0: the mosaic mapper is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
     dataset_dicts = get_dataset_dicts_all(cfg)
     if mapper is None:
         mapper = DatasetMapper(cfg, is_train=True, seed=max(cfg.SEED, 0))
+        if cfg.INPUT.MOSAIC > 0:
+            # the mosaic loader switch (lvc defaults.py:518-520 / mosaic.py:130)
+            mapper = MosaicDatasetMapper(
+                mapper, dataset_dicts, cfg.INPUT.MOSAIC, cfg.INPUT.MOSAIC49SPLIT, seed=max(cfg.SEED, 0)
+            )
     return TrainLoader(
         dataset_dicts, mapper, cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_WORKERS,
         _build_sampler(cfg, dataset_dicts),

@@ -1,7 +1,8 @@
 """COCO category table and few-shot split metadata.
 
-A copy of the COCO part of ``lvc_tpu/data/builtin_meta.py`` (the PASCAL VOC
-and LVIS tables are not ported yet), kept so that the port never imports the
+A copy of the COCO part of ``lvc_tpu/data/builtin_meta.py`` and of its
+``LVIS_NOVEL_IDS`` (:133; the PASCAL VOC and the rest of the LVIS tables are
+not ported yet), kept so that the port never imports the
 JAX package. The novel (unseen) classes are the 20 PASCAL-VOC categories;
 base (seen) are the other 60, the standard FSOD split.
 """
@@ -96,6 +97,44 @@ COCO_NOVEL_IDS = [1, 2, 3, 4, 5, 6, 7, 9, 16, 17, 18, 19, 20, 21, 44, 62, 63, 64
 
 # contiguous-index unseen table (match lvc defaults.py:181-189)
 COCO_UNSEEN_IDS = [0, 1, 2, 3, 4, 5, 6, 8, 14, 15, 16, 17, 18, 19, 39, 56, 57, 58, 60, 62]
+
+# LVIS v0.5 few-shot split: 454 novel (rare) contiguous category indices out
+# of 1230, the table of the checkpoint-surgery tool's --lvis mode.
+LVIS_NOVEL_IDS = [
+    0, 6, 9, 13, 14, 15, 20, 21, 30, 37, 38, 39, 41, 45, 48, 50, 51, 63, 64,
+    69, 71, 73, 82, 85, 93, 99, 100, 104, 105, 106, 112, 115, 116, 119, 121,
+    124, 126, 129, 130, 135, 139, 141, 142, 143, 146, 149, 154, 158, 160,
+    162, 163, 166, 168, 172, 180, 181, 183, 195, 198, 202, 204, 205, 208,
+    212, 213, 216, 217, 218, 225, 226, 230, 235, 237, 238, 240, 241, 242,
+    244, 245, 248, 249, 250, 251, 252, 254, 257, 258, 264, 265, 269, 270,
+    272, 279, 283, 286, 290, 292, 294, 295, 297, 299, 302, 303, 305, 306,
+    309, 310, 312, 315, 316, 317, 319, 320, 321, 323, 325, 327, 328, 329,
+    334, 335, 341, 343, 349, 350, 353, 355, 356, 357, 358, 359, 360, 365,
+    367, 368, 369, 371, 377, 378, 384, 385, 387, 388, 392, 393, 401, 402,
+    403, 405, 407, 410, 412, 413, 416, 419, 420, 422, 426, 429, 432, 433,
+    434, 437, 438, 440, 441, 445, 453, 454, 455, 461, 463, 468, 472, 475,
+    476, 477, 482, 484, 485, 487, 488, 492, 494, 495, 497, 508, 509, 511,
+    513, 514, 515, 517, 520, 523, 524, 525, 526, 529, 533, 540, 541, 542,
+    544, 547, 550, 551, 552, 554, 555, 561, 563, 568, 571, 572, 580, 581,
+    583, 584, 585, 586, 589, 591, 592, 593, 595, 596, 599, 601, 604, 608,
+    609, 611, 612, 615, 616, 625, 626, 628, 629, 630, 633, 635, 642, 644,
+    645, 649, 655, 657, 658, 662, 663, 664, 670, 673, 675, 676, 682, 683,
+    685, 689, 695, 697, 699, 702, 711, 712, 715, 721, 722, 723, 724, 726,
+    729, 731, 733, 734, 738, 740, 741, 744, 748, 754, 758, 764, 766, 767,
+    768, 771, 772, 774, 776, 777, 781, 782, 784, 789, 790, 794, 795, 796,
+    798, 799, 803, 805, 806, 807, 808, 815, 817, 820, 821, 822, 824, 825,
+    827, 832, 833, 835, 836, 840, 842, 844, 846, 856, 862, 863, 864, 865,
+    866, 868, 869, 870, 871, 872, 875, 877, 882, 886, 892, 893, 897, 898,
+    900, 901, 904, 905, 907, 915, 918, 919, 920, 921, 922, 926, 927, 930,
+    931, 933, 939, 940, 944, 945, 946, 948, 950, 951, 953, 954, 955, 956,
+    958, 959, 961, 962, 963, 969, 974, 975, 988, 990, 991, 998, 999, 1001,
+    1003, 1005, 1008, 1009, 1010, 1012, 1015, 1020, 1022, 1025, 1026, 1028,
+    1029, 1032, 1033, 1046, 1047, 1048, 1049, 1050, 1055, 1066, 1067, 1068,
+    1072, 1073, 1076, 1077, 1086, 1094, 1099, 1103, 1111, 1132, 1135, 1137,
+    1138, 1139, 1140, 1144, 1146, 1148, 1150, 1152, 1153, 1156, 1158, 1165,
+    1166, 1167, 1168, 1169, 1171, 1178, 1179, 1180, 1186, 1187, 1188, 1189,
+    1203, 1204, 1205, 1213, 1215, 1218, 1224, 1225, 1227,
+]
 
 
 def _get_coco_instances_meta():

@@ -2,9 +2,9 @@
 
 A copy of ``lvc_tpu/data/coco_api.py`` (the port keeps its own; pycocotools
 is not a dependency): ann/img/cat indices, ranged ``getAnnIds`` and
-``loadRes`` for bbox result lists. Not ported yet: ``loadRes`` of
-segmentation results, which needs the mask structures (ROADMAP.md queue 1,
-item 10), and ``COCO_PK`` of the candidate-filter tool (item 9).
+``loadRes`` for bbox result lists, and ``COCO_PK`` (:169), the mining
+tool's area-ratio index. Not ported yet: ``loadRes`` of segmentation
+results, which needs the mask structures (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -139,3 +139,26 @@ class COCO:
 
 def _as_list(x):
     return x if isinstance(x, (list, tuple)) else [x]
+
+
+class COCO_PK(COCO):
+    """COCO with an area-ratio index and getAnnIds ranged by it, mirroring the
+    candidate-filter tool's extension
+    (tools/create_coco_dataset_from_dets_all.py:14-53); JAX's copy also takes
+    a score range, which no tool passes."""
+
+    def createIndex(self):
+        super().createIndex()
+        for ann in self.dataset.get("annotations", []):
+            img = self.imgs[ann["image_id"]]
+            img_area = img["height"] * img["width"]
+            ann["area_ratio"] = ann["area"] / img_area
+
+    def getAnnIds(self, imgIds=[], catIds=[], areaRng=[], iscrowd=None, areaRatioRng=[]) -> List[int]:
+        ids = super().getAnnIds(imgIds, catIds, areaRng, iscrowd)
+        anns = [self.anns[i] for i in ids]
+        if areaRatioRng:
+            anns = [
+                a for a in anns if areaRatioRng[0] <= a.get("area_ratio", 0.0) < areaRatioRng[1]
+            ]
+        return [a["id"] for a in anns]

@@ -106,11 +106,6 @@ class DefaultTrainer:
         self.seed = max(cfg.SEED, 0)
         self.model = self.build_model(cfg)
         self._materialize(self.model, self.seed)
-        self.optimizer = self.build_optimizer(cfg, self.model)
-        self.scheduler = build_lr_schedule(cfg, self.optimizer)
-        self.checkpointer = DetectionCheckpointer(
-            self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer, scheduler=self.scheduler
-        )
         self.start_iter = 0
         self.max_iter = cfg.SOLVER.MAX_ITER
         self.iter = 0
@@ -118,9 +113,18 @@ class DefaultTrainer:
         self._hooks: List[hooks_mod.HookBase] = []
         if eval_only:
             # the reference's eval-only path builds the model only
-            # (tools/train_net.py:115-123): no loader, no step, no hooks
-            self.data_loader = None
+            # (tools/train_net.py:115-123): no optimizer, loader, step or
+            # hooks, so --resume restores the model's weights alone (another
+            # meta-architecture's optimizer state would not fit, e.g.
+            # ProposalNetwork from a detector's checkpoint)
+            self.optimizer = self.scheduler = self.data_loader = None
+            self.checkpointer = DetectionCheckpointer(self.model, cfg.OUTPUT_DIR)
             return
+        self.optimizer = self.build_optimizer(cfg, self.model)
+        self.scheduler = build_lr_schedule(cfg, self.optimizer)
+        self.checkpointer = DetectionCheckpointer(
+            self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer, scheduler=self.scheduler
+        )
         self.data_loader = self.build_train_loader(cfg)
         self._loader_iter = iter(self.data_loader)
         self.model.train()

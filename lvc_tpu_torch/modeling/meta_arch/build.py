@@ -5,8 +5,9 @@ _build_generalized_rcnn:195, _build_generalized_rcnn_reg_only:208-221,
 _build_proposal_network:352-361, build_model:366). Ported: a ResNet-FPN
 backbone; ``GeneralizedRCNN``, ``GeneralizedRCNNRegOnly`` and
 ``ProposalNetwork``; the RPN (or ``RPN_Ignore``) and ``RBG`` proposal
-generators; ``StandardROIHeads``, ``CascadeROIHeads``,
-``CascadeUBBRROIHeads`` and ``UBBRROIHeads``, with their training keys.
+generators; ``StandardROIHeads`` (with ``FastRCNNOutputLayers`` or
+``CosineSimOutputLayers``), ``CascadeROIHeads``, ``CascadeUBBRROIHeads`` and
+``UBBRROIHeads``, with their training keys.
 """
 from __future__ import annotations
 
@@ -135,7 +136,9 @@ def build_roi_heads(cfg, strides):
         )
     if name == "CascadeUBBRROIHeads":
         return CascadeUBBRROIHeads(cascade_steps=m.UBBR.CASCADE_STEPS, ubbr_lambda=m.UBBR.LAMBDA, **common)
-    return (UBBRROIHeads if name == "UBBRROIHeads" else StandardROIHeads)(**common)
+    return (UBBRROIHeads if name == "UBBRROIHeads" else StandardROIHeads)(
+        output_layer=m.ROI_HEADS.OUTPUT_LAYER, cosine_scale=m.ROI_HEADS.COSINE_SCALE, **common
+    )
 
 
 def build_model(cfg, device=None) -> GeneralizedRCNN:
@@ -151,11 +154,6 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
         _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
     if m.ROI_HEADS.NAME not in _ROI_HEADS:
         _unported(f"ROI heads {m.ROI_HEADS.NAME!r}", "queue 1, item 9")
-    # the cascade heads pick their output layer from OUTPUT_LAYER, as in JAX
-    if m.ROI_HEADS.OUTPUT_LAYER == "CosineSimOutputLayers" and m.ROI_HEADS.NAME in (
-        "StandardROIHeads", "UBBRROIHeads"
-    ):
-        _unported(f"output layer {m.ROI_HEADS.OUTPUT_LAYER!r}", "queue 1, item 5")
     if m.MASK_ON or m.KEYPOINT_ON:
         _unported("mask and keypoint heads", "queue 1, item 10")
     if m.DTYPE not in _DTYPES:

@@ -1,7 +1,8 @@
 """Fast R-CNN output layers and fixed-shape inference.
 
 Counterpart of ``lvc_tpu/modeling/roi_heads/fast_rcnn.py``
-(FastRCNNOutputLayers:24, BoxOnlyLayers:94, fast_rcnn_losses:123-173, Detections:181,
+(FastRCNNOutputLayers:24, CosineSimOutputLayers:57, BoxOnlyLayers:94,
+fast_rcnn_losses:123-173, Detections:181,
 fast_rcnn_inference:198-261). The whole batch is processed at once on padded
 (B, R, ...) slots with validity masks.
 """
@@ -34,6 +35,34 @@ class FastRCNNOutputLayers(nn.Module):
         scores = F.linear(x, self.cls_score.weight.to(x.dtype), self.cls_score.bias.to(x.dtype))
         deltas = F.linear(x, self.bbox_pred.weight.to(x.dtype), self.bbox_pred.bias.to(x.dtype))
         return scores.float(), deltas.float()
+
+
+class CosineSimOutputLayers(nn.Module):
+    """TFA's cosine classifier: ``scale`` times the cosine of the feature and
+    each class's weight row (``cls_score``, no bias), each divided by its L2
+    norm plus 1e-5; ``scale == -1`` makes the scale a learnable (1,)
+    parameter starting at 20. The box regressor is a plain linear. As in
+    JAX, the whole predictor runs in float32, outside any autocast region."""
+
+    def __init__(self, in_features: int, num_classes: int, scale: float = 20.0,
+                 cls_agnostic_bbox_reg: bool = False):
+        super().__init__()
+        self.cls_score = nn.Linear(in_features, num_classes + 1, bias=False)
+        self.bbox_pred = nn.Linear(in_features, (1 if cls_agnostic_bbox_reg else num_classes) * 4)
+        if scale == -1:
+            self.scale = nn.Parameter(torch.full((1,), 20.0))
+        else:
+            self.scale = scale
+
+    def forward(self, x: torch.Tensor):
+        with torch.autocast(x.device.type, enabled=False):
+            x = x.reshape(x.shape[0], -1).float()
+            x_normalized = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-5)
+            w = self.cls_score.weight
+            w_normalized = w / (torch.linalg.vector_norm(w, dim=1, keepdim=True) + 1e-5)
+            scores = self.scale * (x_normalized @ w_normalized.t())
+            deltas = self.bbox_pred(x)
+        return scores, deltas
 
 
 class BoxOnlyLayers(nn.Module):

@@ -18,6 +18,7 @@ from lvc_tpu_torch.modeling.box_regression import Box2BoxTransform
 from lvc_tpu_torch.modeling.matcher import Matcher
 from lvc_tpu_torch.modeling.roi_heads.box_head import FastRCNNConvFCHead
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import (
+    CosineSimOutputLayers,
     Detections,
     FastRCNNOutputLayers,
     fast_rcnn_inference,
@@ -112,11 +113,19 @@ class StandardROIHeads(nn.Module):
         self.detections_per_image = detections_per_image
         self.pre_nms_candidates = pre_nms_candidates
 
-    def _build_box_heads(self, cls_agnostic_bbox_reg: bool) -> None:
-        """``box_head`` and ``box_predictor``; subclasses build their own
-        heads here from their own options."""
+    def _build_box_heads(self, cls_agnostic_bbox_reg: bool, output_layer: str = "FastRCNNOutputLayers",
+                         cosine_scale: float = 20.0) -> None:
+        """``box_head`` and ``box_predictor``: ``CosineSimOutputLayers`` when
+        ``output_layer`` names it, else ``FastRCNNOutputLayers``, as JAX
+        chooses. Subclasses build their own heads here from their own
+        options."""
         self.box_head = FastRCNNConvFCHead(*self.head_args)
-        self.box_predictor = FastRCNNOutputLayers(self.head_dim, self.num_classes, cls_agnostic_bbox_reg)
+        if output_layer == "CosineSimOutputLayers":
+            self.box_predictor = CosineSimOutputLayers(
+                self.head_dim, self.num_classes, cosine_scale, cls_agnostic_bbox_reg
+            )
+        else:
+            self.box_predictor = FastRCNNOutputLayers(self.head_dim, self.num_classes, cls_agnostic_bbox_reg)
 
     # ------------------------------------------------------------- sampling
     def label_and_sample_proposals(

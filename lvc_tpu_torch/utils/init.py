@@ -9,23 +9,24 @@ import torch
 from torch import nn
 
 
-def _is_norm_or_stat(name: str, leaf: str) -> bool:
-    """Norm weights (``<conv>.norm.weight``, FrozenBN or GN) and ``running_var``
-    start at one."""
-    return leaf == "running_var" or (leaf == "weight" and ".norm." in f".{name}")
+def _starts_at_one(name: str, leaf: str) -> bool:
+    """Norm weights (``<conv>.norm.weight``, FrozenBN or GN), ``running_var``
+    and the cosine classifier's learnable ``scale`` start at one, as JAX's
+    ``materialize_variables`` fills them."""
+    return leaf in ("running_var", "scale") or (leaf == "weight" and ".norm." in f".{name}")
 
 
 @torch.no_grad()
 def he_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The ``"he"`` rule, on detectron2 names: conv weights N(0, sqrt(2 /
     fan_out)) with fan_out = out x kh x kw (detectron2's ``c2_msra_fill``),
-    linear weights N(0, sqrt(1 / fan_in)); ones for norm weights and
-    ``running_var``; zeros for biases, ``running_mean`` and anything else.
-    Draws come from ``generator`` (on the model's device) in ``state_dict``
-    order."""
+    linear weights N(0, sqrt(1 / fan_in)); ones for norm weights,
+    ``running_var`` and ``scale``; zeros for biases, ``running_mean`` and
+    anything else. Draws come from ``generator`` (on the model's device) in
+    ``state_dict`` order."""
     for name, t in model.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
-        if _is_norm_or_stat(name, leaf):
+        if _starts_at_one(name, leaf):
             t.fill_(1.0)
         elif leaf == "weight" and t.dim() == 4:
             std = math.sqrt(2.0 / (t.shape[0] * t.shape[2] * t.shape[3]))
@@ -40,10 +41,11 @@ def he_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 @torch.no_grad()
 def damped_init(model: nn.Module, seed: int = 0) -> nn.Module:
-    """N(0, 0.01) for every learned weight; ones for norm weights and
-    ``running_var``; zeros for biases and ``running_mean``. The draws come
-    from a ``torch.Generator`` on the model's device, in ``state_dict``
-    order, so a seed gives the same weights on every run on that device."""
+    """N(0, 0.01) for every learned weight; ones for norm weights,
+    ``running_var`` and ``scale``; zeros for biases and ``running_mean``. The
+    draws come from a ``torch.Generator`` on the model's device, in
+    ``state_dict`` order, so a seed gives the same weights on every run on
+    that device."""
     tensors = model.state_dict()
     device = next(iter(tensors.values())).device
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -51,7 +53,7 @@ def damped_init(model: nn.Module, seed: int = 0) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("bias", "running_mean"):
             t.zero_()
-        elif _is_norm_or_stat(name, leaf):
+        elif _starts_at_one(name, leaf):
             t.fill_(1.0)
         else:
             t.copy_(torch.randn(t.shape, generator=gen, device=device, dtype=t.dtype) * 0.01)

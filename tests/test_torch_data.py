@@ -10,7 +10,8 @@ through both packages:
 - the samplers give equal index streams for a seed;
 - ``get_dataset_dicts_all``'s few-shot ``all`` merge (and the QE branch's
   ``remove_ignore_overlap``, and ``unseen_sample``) give equal dicts;
-- the first batches of ``TrainLoader`` and ``EvalLoader`` are equal, the
+- the first batches of ``TrainLoader`` (also with the mosaic mapper) and
+  ``EvalLoader`` are equal, the
   eval metas and the padded last batch included (one loader worker: the
   mapper's random stream is shared by its threads, so with more workers
   the order of the draws depends on scheduling, in JAX as here);
@@ -47,6 +48,7 @@ from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES
 from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata as port_meta
 from lvc_tpu_torch.data.dataset_mapper import DatasetMapper, read_image
 from lvc_tpu_torch.data.meta_coco import register_meta_coco as port_register
+from lvc_tpu_torch.data.mosaic import MosaicDatasetMapper
 
 SIZES = ((96, 128), (128, 96), (80, 80), (100, 70))
 N_TRAIN, N_TEST = 10, 5
@@ -256,9 +258,18 @@ def test_eval_loader_batches_equal_jax(tree):
 
 
 def test_loader_refuses_mosaic(tree):
-    _, cfg = _cfgs(**{"INPUT.MOSAIC": 0.5, "DATASETS.TRAIN": ("coco_trainval_base",)})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build.build_detection_train_loader(cfg)
+    """Since the mosaic mapper is ported, ``INPUT.MOSAIC`` > 0 no longer
+    raises: the train loader wraps its mapper in ``MosaicDatasetMapper`` and
+    its first batches (4- and 9-tile mosaics and plain images) equal JAX's."""
+    jcfg, pcfg = _cfgs(**{"INPUT.MOSAIC": 0.5, "INPUT.MOSAIC49SPLIT": 0.5, "SOLVER.IMS_PER_BATCH": 2,
+                          "DATASETS.TRAIN": ("coco_trainval_base",)})
+    got = build.build_detection_train_loader(pcfg)
+    assert isinstance(got.mapper, MosaicDatasetMapper)
+    want = jax_build.build_detection_train_loader(jcfg)
+    for g, w in zip(itertools.islice(got, 6), itertools.islice(want, 6)):
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 def test_native_decode_and_resize_equal_jax(tree, tmp_path):

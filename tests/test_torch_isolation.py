@@ -1,5 +1,6 @@
 """The port stands alone: importing it and building a model (the detector, the
-box corrector, the proposal network, the verifier ViT and the CLIs) pulls in neither
+box corrector, the proposal network, the cosine fine-tune detector, the verifier
+ViT and the CLIs, the LVC chain's included) pulls in neither
 jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
 and without a GPU the entry points refuse to run unless asked for the CPU."""
 import ast
@@ -48,8 +49,16 @@ def test_import_and_build_leave_jax_out():
         "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
         "build_model(cfg, device='cpu')\n"
         "cfg.MODEL.META_ARCHITECTURE = 'ProposalNetwork'; build_model(cfg, device='cpu')\n"
+        "cfg = get_cfg()\n"
+        "cfg.merge_from_file('configs/COCO-detection/faster_rcnn_R_50_FPN_ft_all_30shot_aug_ftmore_dropout.yaml')\n"
+        "cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64; cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16\n"
+        "build_model(cfg, device='cpu')\n"
         "import lvc_tpu_torch.tools.run_nearest_neighbours\n"
         "import lvc_tpu_torch.tools.train_net_reg, lvc_tpu_torch.tools.train_net_reg_qe\n"
+        "import lvc_tpu_torch.tools.coco_full_run, lvc_tpu_torch.tools.ckpt_surgery\n"
+        "import lvc_tpu_torch.tools.create_coco_dataset_from_dets_all, lvc_tpu_torch.tools.train_net_qe_ig\n"
+        "import lvc_tpu_torch.tools.combine_ubbr_with_qe, lvc_tpu_torch.tools.combine_pseudo_with_ignore\n"
+        "import lvc_tpu_torch.tools.combine_qe_with_base\n"
         "from lvc_tpu_torch.pipeline.verification import build_dino\n"
         "build_dino('dino_vits16', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"
