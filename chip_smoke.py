@@ -116,9 +116,29 @@ Phases, each of which raises (non-zero exit) on failure:
    launches of every iteration of the six training runs (1/1, 1/0, 1/0,
    3/3, 3/0, 1/1), extraction ms/img, the relations between the files the
    steps wrote; then K2 and K3 on one more step 18 iteration's own tensors
-   (16 x 512 slots, float32, C=256) against their plain versions.
-Phases 1-11 and 16-22 run with the fused path off, whatever the environment
-says.
+   (16 x 512 slots, float32, C=256) against their plain versions;
+23. data-parallel reference check: one step of phase 19's narrow corrector
+   and of a narrow R-50-FPN (float32, POOLER_IMPL pallas_train, sampling
+   not exhaustive, so the per-image generators decide the slots) on a
+   global batch of 4, by 2 ranks placed on the one card with
+   launch(..., devices=["cuda:0", "cuda:0"]) (gloo: NCCL refuses two ranks
+   on one device), by 1 rank of NCCL DDP, and by 1 process without DDP;
+   with two cards or more also by 2 NCCL ranks on two cards: losses,
+   gradients after the all-reduce, updated parameters and every image's
+   sampled slots agree, a toy global_ratio loss has its analytic gradient,
+   and K2/K3 launch 1/1 (detector) and 3/3 (cascade) a rank;
+24. the data-parallel training CLI: train_net.main through launch with 2
+   ranks placed on the one card (gloo) on faster_rcnn_R_50_FPN_base.yaml
+   as it stands (IMS_PER_BATCH 16, 8 a rank, 832x1344, AMP) from phase
+   17's damped init, 20 iterations with a checkpoint at 10, on phase 17's
+   seeded tree, then the sharded evaluation merged on rank 0: finite
+   losses, checkpoints and metrics.json from rank 0 alone, result rows and
+   AP equal to a 1-process --eval-only from the last checkpoint, K2/K3 1/1
+   a rank an iteration; ms/iter, data_time and peak memory a rank (two
+   ranks share one card: no scaling number); then sharded_knn_vote at
+   S=2,400, Q=50,000, D=384, k=10 over the 2 ranks against knn_vote.
+Phases 1-11 and 16-24 run with the fused path off, whatever the environment
+says (spawned ranks inherit it).
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
@@ -2895,6 +2915,508 @@ def lvc_chain_path(tag, weights: str, ubbr_weights: str):
         check_recorded_pool("coco_full_run step 18 iteration", rec, tag)
 
 
+# ----------------------------------------------------------------- data parallel
+DP_BATCH, DP_SEED = 4, 11  # phase 23's global batch and step seed
+DP_CARD_GRAD_REL = 1e-5  # gradients and updates, rel L2, 2 ranks against 1 process on the card
+DP_ITERS, DP_PERIOD = 20, 10  # phase 24's iterations and checkpoint period
+
+
+def dp_cfg(kind: str, device: str, impl: str = "pallas_train"):
+    """Phase 23's narrow models at float32 with sampling that is not
+    exhaustive, so that the per-image generators decide the slots:
+    ``detector`` is ``narrow_cfg`` (the RPN samples 256 of its 6,138
+    anchors, the ROI heads 64 of up to 104 boxes, a quarter positive);
+    ``cascade`` is ``corrector_cfg`` (RBG, 3 stages, each sampling 64 of
+    its 128 jittered boxes). ``impl`` pallas_train: K2 forward and K3
+    backward on the card, their plain versions on the CPU."""
+    if kind == "detector":
+        cfg = narrow_cfg(impl)
+        cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
+        cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
+        cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    else:
+        cfg = corrector_cfg(device)
+        cfg.MODEL.ROI_HEADS.POOLER_IMPL = impl
+    cfg.MODEL.DEVICE = device
+    cfg.SOLVER.BASE_LR = 0.01
+    return cfg
+
+
+def dp_inputs(kind: str, cfg):
+    """(weights, global batch) of phase 23 on the CPU: ``calibrated_init``
+    weights (the corrector's stage regressors scaled as in
+    ``corrector_inputs``) and a seeded batch of ``DP_BATCH`` 128x192 images
+    with 2-5 valid gts each."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+
+    model = build_model(cfg.clone(), device="cpu")
+    calibrated_init(model, seed=0)
+    weights = model.state_dict()
+    if kind == "cascade":
+        with torch.no_grad():
+            for name, t in weights.items():
+                if ".bbox_pred.weight" in name:
+                    t.mul_(0.02)
+    batch = train_batch(DP_BATCH, 128, 192, 6, seed=5, device="cpu", num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+                        n_gt=(2, 5), size=(16, 90))
+    return weights, batch
+
+
+class SlotRecorder:
+    """While in use, records the slots of every ``subsample_labels`` call of
+    the RPN and the ROI heads (cascade stages included), in call order: one
+    call an image, the images of a batch in turn."""
+
+    def __init__(self):
+        from lvc_tpu_torch.modeling.proposal_generator import rpn
+        from lvc_tpu_torch.modeling.roi_heads import roi_heads
+
+        self.modules = {"rpn": rpn, "roi": roi_heads}
+        self.calls = {"rpn": [], "roi": []}
+
+    def _wrap(self, site, fn):
+        def record(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.calls[site].append(out[0][out[2]].cpu())  # the filled slots' indices
+            return out
+        return record
+
+    def __enter__(self):
+        self.saved = {k: m.subsample_labels for k, m in self.modules.items()}
+        for k, m in self.modules.items():
+            m.subsample_labels = self._wrap(k, self.saved[k])
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.modules.items():
+            m.subsample_labels = self.saved[k]
+
+
+def dp_step(cfg, weights, batch, seed: int, data_parallel: bool):
+    """One train step of ``cfg``'s model from ``weights`` on ``batch`` (this
+    process's share), through ``make_data_parallel_train_step`` or, without
+    ``data_parallel``, ``make_train_step``: the metrics, every trainable
+    gradient (after DDP's all-reduce), the parameters after the step, the
+    sampled slots and the K2/K3 launches, all on the CPU."""
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_data_parallel_train_step, make_train_step
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+
+    device = torch.device("cuda", torch.cuda.current_device()) if cfg.MODEL.DEVICE == "cuda" else torch.device("cpu")
+    model = build_model(cfg, device=device)
+    model.load_state_dict(weights)
+    model.train()
+    opt = build_optimizer(cfg, model)
+    make = make_data_parallel_train_step if data_parallel else make_train_step
+    step = make(model, opt, build_lr_schedule(cfg, opt))
+    ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+    with SlotRecorder() as rec:
+        metrics = step({k: v.to(device) for k, v in batch.items()}, seed)
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.requires_grad},
+        "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+        "slots": rec.calls,
+        "launches": (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches),
+        "batch": len(batch["image"]),
+    }
+
+
+def global_ratio_toy(device):
+    """A toy loss through ``global_ratio`` under DDP in the default group:
+    rank r holds rows ``r(r+1)/2 .. (r+1)(r+2)/2`` of a seeded X (r + 1
+    rows), the loss is ``sum((X_r w)^2) / rows``, both sums over the ranks.
+    Returns (loss, w's gradient after DDP, the analytic gradient
+    ``2 X^T X w / N`` of all ranks' rows, N)."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+
+    from lvc_tpu_torch.modeling.sampling import global_ratio, sampling_axis_scope
+    from lvc_tpu_torch.utils import comm
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    n = world * (world + 1) // 2
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(n, 3, generator=g, dtype=torch.float64)
+    lin = torch.nn.Linear(3, 1, bias=False).double()
+    with torch.no_grad():
+        lin.weight.copy_(torch.tensor([[0.5, -1.0, 2.0]], dtype=torch.float64))
+    w = lin.weight.detach().clone()[0]
+    lin = lin.to(device)
+    ddp = DistributedDataParallel(lin)
+    x = X[rank * (rank + 1) // 2:(rank + 1) * (rank + 2) // 2].to(device)
+    with sampling_axis_scope():
+        loss = global_ratio((ddp(x) ** 2).sum(), len(x))
+    loss.backward()
+    analytic = 2 * X.T @ (X @ w) / n
+    return float(loss.detach()), lin.weight.grad.detach().cpu()[0], analytic, n
+
+
+def dp_rank_main(out_dir: str, jobs):
+    """One rank of a data-parallel check (phase 23, tests/test_torch_ddp.py):
+    for each job ``(name, cfg, weights, global batch, seed)`` one
+    ``dp_step`` on this rank's contiguous share of the batch, saved as
+    ``<out_dir>/<name>_rank<r>.pt``; then ``global_ratio_toy``, saved as
+    ``toy_rank<r>.pt``."""
+    import os
+
+    import torch
+
+    from lvc_tpu_torch.utils import comm
+
+    tf32_off()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    for name, cfg, weights, batch, seed in jobs:
+        n = len(batch["image"]) // world
+        share = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        torch.save(dp_step(cfg, weights, share, seed, data_parallel=True),
+                   os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+    device = "cuda" if jobs and jobs[0][1].MODEL.DEVICE == "cuda" else "cpu"
+    torch.save(global_ratio_toy(device), os.path.join(out_dir, f"toy_rank{rank}.pt"))
+
+
+def dp_load(out_dir: str, name: str, world: int):
+    import os
+
+    import torch
+
+    return [torch.load(os.path.join(out_dir, f"{name}_rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def dp_compare(ref, ranks, weights, loss_rel=2e-4, loss_abs=1e-5, grad_rel=1e-5, param_rel=1e-5):
+    """Hold the ranks of one data-parallel step to the one-process step on
+    the same global batch: every rank's losses within ``loss_rel`` /
+    ``loss_abs``; every trainable gradient within rel L2 ``grad_rel``; the
+    parameters after the step within ``param_rel`` of the update's L2 norm
+    (the step's change from ``weights``) plus one float32 rounding of the
+    parameter; every rank's parameters equal to rank 0's; each image's
+    sampled slots (by its global position) equal. Returns the largest
+    errors; raises on the first disagreement."""
+    import torch
+
+    world = len(ranks)
+    loss_err = 0.0
+    for r in ranks:
+        if set(r["metrics"]) != set(ref["metrics"]):
+            raise AssertionError(f"metrics {sorted(r['metrics'])} vs {sorted(ref['metrics'])}")
+        for k, want in ref["metrics"].items():
+            err = abs(r["metrics"][k] - want)
+            if err > loss_abs + loss_rel * abs(want):
+                raise AssertionError(f"{k}: {r['metrics'][k]} on a rank, {want} in one process")
+            loss_err = max(loss_err, err / max(abs(want), 1e-30))
+    grad_err = max(_rel_l2(ranks[0]["grads"][n], g) for n, g in ref["grads"].items())
+    if set(ranks[0]["grads"]) != set(ref["grads"]) or grad_err > grad_rel:
+        raise AssertionError(f"gradients differ: max rel L2 {grad_err:.2e} (tol {grad_rel})")
+    param_err = 0.0
+    for n, want in ref["params"].items():
+        # the update's error, less one float32 rounding of the parameter (an update far below the
+        # parameter's ulp is all rounding)
+        got = ranks[0]["params"][n]
+        err = float((got.double() - want.double()).norm())
+        update = float((want.double() - weights[n].double()).norm())
+        rounding = 2.0 ** -23 * float(want.double().norm())
+        param_err = max(param_err, max(err - rounding, 0.0) / max(update, 1e-30))
+        if err > param_rel * update + rounding:
+            raise AssertionError(f"{n}: parameters after the step differ by {err:.3e} (update {update:.3e})")
+        if any(not torch.equal(r["params"][n], got) for r in ranks):
+            raise AssertionError(f"{n}: the ranks' parameters differ after the step")
+    B = ranks[0]["batch"]
+    for site, calls in ref["slots"].items():
+        if len(calls) != len(ranks[0]["slots"][site]) * world:
+            raise AssertionError(f"{site}: {len(calls)} sampling calls in one process")
+        for r, rank in enumerate(ranks):
+            for j, got in enumerate(rank["slots"][site]):
+                inv, i = divmod(j, B)  # the call's stage and local image
+                want = calls[inv * B * world + r * B + i]
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{site} call {inv}: image {r * B + i} sampled other slots on rank {r}")
+    return {"loss": loss_err, "grad": grad_err, "param": param_err,
+            "slots": sum(len(c) for c in ref["slots"].values())}
+
+
+def dp_toy_check(out_dir: str, world: int) -> str:
+    """Every rank's toy loss equal and its gradient the analytic one (not
+    ``world`` times too small or too large): within 1e-12 (float64)."""
+    import torch
+
+    toys = dp_load(out_dir, "toy", world)
+    for loss, grad, analytic, n in toys:
+        if abs(loss - toys[0][0]) > 1e-12 or float((grad - analytic).abs().max()) > 1e-12 * float(analytic.abs().max()):
+            raise AssertionError(f"global_ratio toy: gradient {grad.tolist()} vs analytic {analytic.tolist()}")
+    return f"global_ratio toy gradient = analytic over {toys[0][3]} rows on {world} ranks"
+
+
+def dp_reference_check(tag):
+    """Phase 23: one data-parallel step of each narrow model (``dp_cfg``) on
+    the card from the same weights and the same global batch of
+    ``DP_BATCH`` images, three ways: 2 ranks placed on cuda:0 with
+    ``launch(..., devices=["cuda:0", "cuda:0"])`` (gloo: NCCL refuses two
+    ranks on one device), 1 process without DDP, and 1 rank of NCCL DDP;
+    with two cards or more, also 2 NCCL ranks on cuda:0 and cuda:1. Held by
+    ``dp_compare`` (the ranks' losses, gradients, updated parameters and
+    sampled slots) and the toy ``global_ratio`` gradient; K2/K3 1/1 a rank
+    for the detector, 3/3 for the cascade."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.engine.launch import launch
+
+    want_launches = {"detector": (1, 1), "cascade": (3, 3)}
+    jobs, refs = [], {}
+    for kind in ("detector", "cascade"):
+        cfg = dp_cfg(kind, "cuda")
+        weights, batch = dp_inputs(kind, cfg)
+        jobs.append((kind, cfg, weights, batch, DP_SEED))
+        refs[kind] = dp_step(cfg, weights, batch, DP_SEED, data_parallel=False)
+    layouts = [("2 gloo ranks on cuda:0", ["cuda:0", "cuda:0"]), ("1 NCCL rank", ["cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        layouts.append(("2 NCCL ranks on cuda:0, cuda:1", ["cuda:0", "cuda:1"]))
+    for what, devices in layouts:
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            launch(dp_rank_main, len(devices), args=(out, jobs), devices=devices)
+            secs = time.perf_counter() - t0
+            for kind, cfg, weights, _, _ in jobs:
+                ranks = dp_load(out, kind, len(devices))
+                got = [r["launches"] for r in ranks]
+                if any(g != want_launches[kind] for g in got):
+                    raise AssertionError(f"{kind} {what}: K2/K3 launches {got} a rank; want {want_launches[kind]}")
+                # the card's one-process step at the same batch split is the reference; a rank's convolutions run
+                # at a smaller batch, so the card may sum in another order than at B=4
+                err = dp_compare(refs[kind], ranks, weights, grad_rel=DP_CARD_GRAD_REL, param_rel=DP_CARD_GRAD_REL)
+                print(f"data parallel {kind} ({what}, launched in {secs:.1f} s): losses "
+                      f"{ {k: round(v, 5) for k, v in refs[kind]['metrics'].items()} } max rel err {err['loss']:.2e} "
+                      f"(tol 2e-4 / 1e-5), gradients max rel L2 {err['grad']:.2e}, updates {err['param']:.2e} (tol "
+                      f"{DP_CARD_GRAD_REL}), ranks' parameters equal, {err['slots']} images' slots equal; K2/K3 "
+                      f"{got[0][0]}/{got[0][1]} a rank {tag}")
+            print(f"data parallel ({what}): {dp_toy_check(out, len(devices))} {tag}")
+
+
+
+def dp_train_main(argv, report_dir: str, knn: bool):
+    """One rank of phase 24: ``train_net.main`` on ``argv`` with the CLI's
+    trainer recording its steps, then (``knn``) ``sharded_knn_vote`` at
+    S=2,400, Q=50,000, D=384, k=10 against ``knn_vote`` on the same card.
+    Writes ``<report_dir>/rank<r>.json``."""
+    import json
+    import os
+
+    import torch
+
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.ops.knn import knn_vote, sharded_knn_vote, similarity
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils import comm
+
+    class Capture(train_net.Trainer):
+        last = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            Capture.last = self
+            self.step_s = []
+
+        def run_step(self):
+            t0 = time.perf_counter()
+            super().run_step()
+            self.step_s.append(time.perf_counter() - t0)
+
+    train_net.Trainer = Capture
+    tf32_off()
+    torch.cuda.reset_peak_memory_stats()
+    ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+    t0 = time.perf_counter()
+    res = train_net.main(default_argument_parser().parse_args(argv))
+    secs = time.perf_counter() - t0
+    trainer = Capture.last
+    hist = trainer.storage.histories()
+    report = {
+        "rank": comm.get_rank(), "world": comm.get_world_size(), "secs": secs,
+        "launches": [ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches],
+        "step_s": trainer.step_s, "time": hist["time"].values(), "data_time": hist["data_time"].values(),
+        "losses": {k: h.values() for k, h in hist.items() if k.startswith(("loss", "total"))},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "results": res,
+        "save_to_disk": trainer.checkpointer.save_to_disk,
+        "writers": sum(type(h).__name__ == "PeriodicWriter" for h in trainer._hooks),
+        "batch": trainer.data_loader.batch_size,
+    }
+    if knn:
+        shots, classes, queries = clustered(4, 2400, 50000, 80, 384, "cuda")
+        topk, mode = sharded_knn_vote(shots, classes, queries, k=10)
+        want_topk, want_mode = knn_vote(shots, classes, queries, k=10)
+        sim = similarity(shots, queries).topk(11, dim=-1).values
+        clear = (sim[:, 9] - sim[:, 10]) > 1e-5  # no near-tie at the k-th neighbour
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            sharded_knn_vote(shots, classes, queries, k=10)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t1) * 1e3 / 5
+        t1 = time.perf_counter()
+        for _ in range(5):
+            knn_vote(shots, classes, queries, k=10)
+        torch.cuda.synchronize()
+        report["knn"] = {
+            "clear": int(clear.sum()), "queries": len(queries),
+            "topk_equal": bool((topk == want_topk)[clear].all()), "mode_equal": bool((mode == want_mode)[clear].all()),
+            "modes_equal_all": int((mode == want_mode).sum()), "ms": sharded_ms,
+            "knn_vote_ms": (time.perf_counter() - t1) * 1e3 / 5,
+        }
+    with open(os.path.join(report_dir, f"rank{comm.get_rank()}.json"), "w") as f:
+        json.dump(report, f, default=float)
+
+
+def dp_train_net_path(tag, world: int = 2, devices=("cuda:0", "cuda:0")):
+    """Phase 24: ``train_net.main`` through ``launch`` with 2 ranks placed on
+    the one card (``devices=["cuda:0", "cuda:0"]``, gloo; ``devices=None``:
+    the CLI's own placement, one card a rank, NCCL) on
+    faster_rcnn_R_50_FPN_base.yaml as it stands (IMS_PER_BATCH 16: 8 a rank,
+    832x1344, AMP) from phase 17's damped-init ``.pth``, ``DP_ITERS``
+    iterations with a checkpoint every ``DP_PERIOD``, on phase 17's seeded
+    tree, then the sharded final evaluation merged on rank 0. Checks:
+    finite losses; the checkpoints, ``last_checkpoint`` and one
+    ``metrics.json`` written by rank 0 alone; a 1-process ``--eval-only``
+    run from the last checkpoint whose result rows and AP equal the merged
+    evaluation's at phase 17's tolerance; K2/K3 1/1 a rank an iteration
+    (plus K2 once per test image of the rank's shard). Then
+    ``sharded_knn_vote`` over the ranks."""
+    import json
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.engine.launch import launch
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils.init import damped_init
+
+    n_train, n_test = TRAIN_NET_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        use_coco_tree(root)
+        cfg = get_cfg()
+        cfg.merge_from_file(TRAIN_NET_YAML)
+        model = damped_init(build_model(cfg), seed=0)
+        weights = DetectionCheckpointer(model, os.path.join(tmp, "weights")).save("damped_init", iteration=0)
+        del model
+        torch.cuda.empty_cache()
+        out, reports = os.path.join(tmp, "out"), os.path.join(tmp, "reports")
+        os.makedirs(reports)
+        opts = ["MODEL.WEIGHTS", weights, "SOLVER.AMP.ENABLED", "True", "SOLVER.BASE_LR", "1e-4",
+                "SOLVER.CHECKPOINT_PERIOD", str(DP_PERIOD), "SEED", "0",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001"]
+        yaml = ["--config-file", TRAIN_NET_YAML]
+        argv = yaml + ["--num-gpus", str(world)] + opts + ["OUTPUT_DIR", out, "SOLVER.MAX_ITER", str(DP_ITERS)]
+        t0 = time.perf_counter()
+        launch(dp_train_main, world, args=(argv, reports, True), devices=None if devices is None else list(devices))
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(reports, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        shared = devices is not None and len(set(devices)) < len(devices)
+        for r in ranks:
+            want = (DP_ITERS + n_test // len(ranks), DP_ITERS)
+            if tuple(r["launches"]) != want or r["batch"] != 16 // len(ranks):
+                raise AssertionError(f"rank {r['rank']}: K2/K3 {r['launches']} (want {want}), batch {r['batch']}")
+            if not all(math.isfinite(v) for vals in r["losses"].values() for v in vals) or len(r["losses"]) < 5:
+                raise AssertionError(f"rank {r['rank']}: non-finite or missing losses {r['losses']}")
+        if [(r["save_to_disk"], r["writers"]) for r in ranks] != [(True, 1)] + [(False, 0)] * (len(ranks) - 1):
+            raise AssertionError("only rank 0 may write checkpoints and metrics")
+        with open(os.path.join(out, "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        iters = [row["iteration"] for row in rows]
+        # one writer: a row every 20 steps and one after training (two writers would double them)
+        if iters != [DP_ITERS - 1] * 2 or not all(
+                math.isfinite(v) for row in rows for k, v in row.items() if k.startswith(("loss", "total"))):
+            raise AssertionError(f"metrics.json: {len(rows)} rows at iterations {iters}")
+        saved = [f"model_{DP_PERIOD - 1:07d}.pth", f"model_{DP_ITERS - 1:07d}.pth"]
+        for name in saved + ["last_checkpoint"]:
+            if not os.path.exists(os.path.join(out, name)):
+                raise AssertionError(f"{name} was not written")
+        with open(os.path.join(out, "inference", "res_final.json")) as f:
+            final = json.load(f)
+        merged = result_rows(os.path.join(out, "inference", "coco_instances_test_results.json"))
+        if ranks[0]["results"] != final or any(r["results"] for r in ranks[1:]):
+            raise AssertionError("the merged evaluation must come back on rank 0 alone")
+
+        # the 1-process --eval-only run from the last checkpoint, in this process
+        eval_out = os.path.join(tmp, "eval")
+        eval_opts = list(opts)
+        eval_opts[1] = os.path.join(out, saved[1])
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        res = train_net.main(default_argument_parser().parse_args(
+            yaml + ["--eval-only"] + eval_opts + ["OUTPUT_DIR", eval_out]))
+        k2, k3 = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+        got = result_rows(os.path.join(eval_out, "inference", "coco_instances_test_results.json"))
+        if len(got) != len(merged) or len(merged) < 100:
+            raise AssertionError(f"--eval-only: {len(got)} result rows; the merged evaluation wrote {len(merged)}")
+        box_err = score_err = 0.0
+        for w, g in zip(merged, got):
+            if (w["image_id"], w["category_id"]) != (g["image_id"], g["category_id"]):
+                raise AssertionError(f"--eval-only result rows differ: {g} vs {w}")
+            box_err = max(box_err, max(abs(a - b) for a, b in zip(w["bbox"], g["bbox"])))
+            score_err = max(score_err, abs(w["score"] - g["score"]))
+        ap_err = max(abs(res["bbox"][k] - v) for k, v in final["bbox"].items())
+        if (k2, k3) != (n_test, 0) or box_err > 1e-3 or score_err > 1e-6 or ap_err > 1e-9:
+            raise AssertionError(f"--eval-only: K2/K3 {k2}/{k3}, box err {box_err} px, score err {score_err}, "
+                                 f"results {res['bbox']} vs {final['bbox']}")
+    steps = [s for r in ranks for s in r["step_s"][3:]]
+    where = (f"{len(ranks)} ranks placed on the one card (gloo through the host; the ranks share one card here, so "
+             f"this is no scaling number)" if shared else f"{len(ranks)} NCCL ranks, one a card")
+    print(f"data parallel train_net: {where}, R-50-FPN base AMP, IMS_PER_BATCH 16 ({16 // len(ranks)} a rank) at "
+          f"832x1344, "
+          f"{DP_ITERS} iterations in {secs:.1f} s (spawn and build included): "
+          + "; ".join(f"rank {r['rank']} {statistics.mean(r['step_s'][3:]) * 1e3:.2f} ms/iter over the "
+                      f"{len(r['step_s'][3:])} steps after warm-up (`time` median "
+                      f"{statistics.median(r['time']) * 1e3:.2f} ms), data_time median "
+                      f"{statistics.median(r['data_time']) * 1e3:.2f} ms, peak memory {r['peak_gib']:.2f} GiB, K2/K3 "
+                      f"{r['launches'][0]}/{r['launches'][1]}" for r in ranks)
+          + f" (mean of all {statistics.mean(steps) * 1e3:.2f} ms/iter) {tag}")
+    print(f"data parallel train_net: final total_loss {rows[-1]['total_loss']:.4f}; rank 0 alone wrote "
+          f"{', '.join(saved)}, last_checkpoint and metrics.json ({len(rows)} rows); merged evaluation "
+          f"{len(merged)} rows, bbox AP {final['bbox']['AP']:.4f}, equal to the 1-process --eval-only from "
+          f"{saved[1]} (box err {box_err:.1e} px, tol 1e-3; score err {score_err:.1e}, tol 1e-6; AP diff "
+          f"{ap_err:.1e}, tol 1e-9; K2 {k2}) {tag}")
+    knn = ranks[0]["knn"]
+    if not (knn["topk_equal"] and knn["mode_equal"]) or knn["clear"] < 0.99 * knn["queries"]:
+        raise AssertionError(f"sharded_knn_vote differs from knn_vote away from near-ties: {knn}")
+    print(f"sharded_knn_vote S=2400 Q=50000 D=384 k=10 over {where}: top-k and modes equal to "
+          f"knn_vote on {knn['clear']} of {knn['queries']} queries away from near-ties (gap > 1e-5; modes equal on "
+          f"{knn['modes_equal_all']} of all), {knn['ms']:.3f} ms a call on rank 0 (the gather included; knn_vote "
+          f"alone on all the queries {knn['knn_vote_ms']:.3f} ms in the same rank) {tag}")
+
+
+def tf32_off():
+    """Float32 convolutions and matmuls without TF32, in this process (the
+    script's own and each rank it spawns: cuDNN allows TF32 by default)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     import torch
 
@@ -2907,8 +3429,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     card = card_line()
     tag = f"[{card}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}; "
@@ -2947,6 +3468,8 @@ def main() -> int:
         correct_path(tag, os.path.join(keep, "ubbr.pth"))
         finetune_reference_check(tag)
         lvc_chain_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ubbr.pth"))
+        dp_reference_check(tag)
+        dp_train_net_path(tag)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,17 +77,24 @@ def load_into_model(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
 
 
 class DetectionCheckpointer:
-    def __init__(self, model: nn.Module, save_dir: str = "", optimizer=None, scheduler=None):
+    """``save_to_disk``: False on every rank of a data-parallel run but the
+    main one (fvcore's flag), whose ``save`` then writes nothing."""
+
+    def __init__(self, model: nn.Module, save_dir: str = "", optimizer=None, scheduler=None,
+                 save_to_disk: bool = True):
         self.model = model
         self.save_dir = save_dir
         self.optimizer = optimizer
         self.scheduler = scheduler
+        self.save_to_disk = save_to_disk
 
     # ------------------------------------------------------------------ save
     def save(self, name: str, iteration: int) -> str:
         """Write ``<save_dir>/<name>.pth`` and point ``last_checkpoint`` at it."""
-        os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, f"{name}.pth")
+        if not self.save_to_disk:
+            return path
+        os.makedirs(self.save_dir, exist_ok=True)
         data = {"model": self.model.state_dict(), "iteration": int(iteration)}
         if self.optimizer is not None:
             data["optimizer"] = self.optimizer.state_dict()

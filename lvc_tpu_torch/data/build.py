@@ -9,6 +9,12 @@ bucketed by canvas; a thread pool decodes/augments ahead of the train step
 numpy, which release the GIL). The loaders yield numpy arrays; the trainer
 moves each batch to its device. ``INPUT.MOSAIC > 0`` wraps the default
 train mapper in ``MosaicDatasetMapper`` (``lvc_tpu/data/build.py:241-250``).
+
+In a data-parallel run each rank builds its own loaders from its ``rank``
+and the ``world_size`` (``lvc_tpu/data/build.py:237-266``): the train
+sampler strides the index stream by rank, the batch is the rank's share
+``IMS_PER_BATCH // world_size`` and the mapper's seed is ``SEED + rank``;
+the test loader's ``InferenceSampler`` gives each rank a contiguous shard.
 """
 from __future__ import annotations
 
@@ -107,17 +113,17 @@ def get_dataset_dicts_all(cfg) -> List[dict]:
     return dataset_dicts_new
 
 
-def _build_sampler(cfg, dataset_dicts):
+def _build_sampler(cfg, dataset_dicts, rank: int = 0, world_size: int = 1):
     name = cfg.DATALOADER.SAMPLER_TRAIN
-    seed = max(cfg.SEED, 0)
+    shard = dict(seed=max(cfg.SEED, 0), rank=rank, world_size=world_size)
     if name == "TrainingSampler":
-        return TrainingSampler(len(dataset_dicts), seed=seed)
+        return TrainingSampler(len(dataset_dicts), **shard)
     if name == "RepeatFactorTrainingSampler":
-        return RepeatFactorTrainingSampler(dataset_dicts, cfg.DATALOADER.REPEAT_THRESHOLD, seed=seed)
+        return RepeatFactorTrainingSampler(dataset_dicts, cfg.DATALOADER.REPEAT_THRESHOLD, **shard)
     if name == "CategoryAwareSampler":
-        return CategoryAwareSampler(dataset_dicts, seed=seed)
+        return CategoryAwareSampler(dataset_dicts, **shard)
     if name == "CategoryAreaAwareSampler":
-        return CategoryAreaAwareSampler(dataset_dicts, seed=seed)
+        return CategoryAreaAwareSampler(dataset_dicts, **shard)
     raise ValueError(f"Unknown sampler: {name}")
 
 
@@ -185,12 +191,12 @@ class EvalLoader:
     is padded by repeating the last example; metadata marks padding."""
 
     def __init__(self, dataset_dicts, mapper: DatasetMapper, batch_size: int = 1, num_workers: int = 4,
-                 with_gt: bool = False):
+                 rank: int = 0, world_size: int = 1, with_gt: bool = False):
         self.dataset_dicts = dataset_dicts
         self.mapper = mapper
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
-        self.sampler = InferenceSampler(len(dataset_dicts))
+        self.sampler = InferenceSampler(len(dataset_dicts), rank, world_size)
         self.with_gt = with_gt
 
     def __len__(self):
@@ -236,26 +242,36 @@ class EvalLoader:
         return collate(exs, train=False, with_gt=self.with_gt), metas
 
 
-def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None) -> TrainLoader:
+def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
+                                 rank: int = 0, world_size: int = 1) -> TrainLoader:
+    """The loader of rank ``rank``: batches of ``IMS_PER_BATCH // world_size``
+    (it raises when that does not divide). A given ``mapper`` keeps its own
+    seed."""
+    if cfg.SOLVER.IMS_PER_BATCH % world_size:
+        raise ValueError(
+            f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not divide over {world_size} ranks"
+        )
     dataset_dicts = get_dataset_dicts_all(cfg)
     if mapper is None:
-        mapper = DatasetMapper(cfg, is_train=True, seed=max(cfg.SEED, 0))
+        mapper = DatasetMapper(cfg, is_train=True, seed=max(cfg.SEED, 0) + rank)
         if cfg.INPUT.MOSAIC > 0:
             # the mosaic loader switch (lvc defaults.py:518-520 / mosaic.py:130)
             mapper = MosaicDatasetMapper(
-                mapper, dataset_dicts, cfg.INPUT.MOSAIC, cfg.INPUT.MOSAIC49SPLIT, seed=max(cfg.SEED, 0)
+                mapper, dataset_dicts, cfg.INPUT.MOSAIC, cfg.INPUT.MOSAIC49SPLIT, seed=max(cfg.SEED, 0) + rank
             )
     return TrainLoader(
-        dataset_dicts, mapper, cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_WORKERS,
-        _build_sampler(cfg, dataset_dicts),
+        dataset_dicts, mapper, cfg.SOLVER.IMS_PER_BATCH // world_size, cfg.DATALOADER.NUM_WORKERS,
+        _build_sampler(cfg, dataset_dicts, rank, world_size),
     )
 
 
 def build_detection_test_loader(cfg, dataset_name: str, mapper: Optional[DatasetMapper] = None,
-                                batch_size: int = 1, with_gt: bool = False) -> EvalLoader:
+                                batch_size: int = 1, rank: int = 0, world_size: int = 1,
+                                with_gt: bool = False) -> EvalLoader:
+    """The loader of rank ``rank``'s contiguous shard of ``dataset_name``."""
     dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
     if mapper is None:
         mapper = DatasetMapper(cfg, is_train=False, keep_ignore=with_gt)
     return EvalLoader(
-        dataset_dicts, mapper, batch_size, cfg.DATALOADER.NUM_WORKERS, with_gt=with_gt,
+        dataset_dicts, mapper, batch_size, cfg.DATALOADER.NUM_WORKERS, rank, world_size, with_gt=with_gt,
     )

@@ -6,7 +6,7 @@ Counterparts of detectron2/data/samplers/distributed_sampler.py
 (TrainingSampler:12, RepeatFactorTrainingSampler:57, InferenceSampler:173)
 and lvc/data/samplers.py (CategoryAwareSampler:11,
 CategoryAreaAwareSampler:88). Sharding is by ``rank`` and ``world_size``
-args (one process today).
+args; the trainer passes its process's.
 """
 from __future__ import annotations
 

@@ -4,19 +4,25 @@ Counterpart of ``lvc_tpu/engine/defaults.py``: ``default_argument_parser``
 and ``default_setup`` (:48-88; the torch device is logged in place of the jax
 devices) and ``DefaultTrainer`` (:91-321). One process drives one device,
 ``cfg.MODEL.DEVICE`` (``"cuda"`` unless the caller asks for ``"cpu"``; with no
-GPU and no ``"cpu"`` it raises, as ``build_model`` does): there is no mesh,
-and the distributed flags are accepted for compatibility only.
+GPU and no ``"cpu"`` it raises, as ``build_model`` does). A data-parallel run
+is one process a rank (``--num-gpus``, ``engine/launch.py``): each rank loads
+its share of every global batch (``IMS_PER_BATCH // world size``) and its
+shard of every test set, the step runs under DDP
+(``make_data_parallel_train_step``), and only the main rank writes the
+config dump, checkpoints, ``metrics.json`` and TensorBoard events.
 
 The trainer builds the model, fills its weights through ``_materialize``
 (the ``"he"`` rule, which subclasses override), loads ``MODEL.WEIGHTS`` or
 resumes on top, and runs ``make_train_step`` under the hooks: the iteration
 timer, the LR logger, the periodic checkpointer, the evaluation hook and
 the metric writers. Each step takes a numpy batch from the loader (its wait
-is the ``data_time`` scalar), moves it to the device, and draws its sampling
-priorities from one ``torch.Generator`` on the device, reseeded from ``SEED``
-and the iteration, so a resumed run samples as an uninterrupted one would
-(the JAX step folds the step into its key the same way). ``DefaultPredictor``
-is not ported yet.
+is the ``data_time`` scalar), moves it to the device, and passes the step a
+seed from ``SEED`` and the iteration, from which the step seeds one generator
+per image at the image's global position (and dropout's from the rank): a
+resumed run samples as an uninterrupted one would, and an image samples the
+same slots whichever rank holds it (the JAX step folds the step and the
+image's position into its keys the same way). ``DefaultPredictor`` is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
 from lvc_tpu_torch.data.build import build_detection_test_loader, build_detection_train_loader
 from lvc_tpu_torch.engine import hooks as hooks_mod
-from lvc_tpu_torch.engine.train_loop import make_train_step
+from lvc_tpu_torch.engine.train_loop import make_data_parallel_train_step, make_train_step
 from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
 from lvc_tpu_torch.evaluation.evaluator import inference_on_dataset
 from lvc_tpu_torch.evaluation.testing import print_csv_format, verify_results
@@ -45,6 +51,7 @@ from lvc_tpu_torch.utils.events import (
     JSONWriter,
     TensorboardWriter,
 )
+from lvc_tpu_torch.utils import comm
 from lvc_tpu_torch.utils.init import he_init
 
 logger = logging.getLogger("lvc_tpu_torch")
@@ -61,7 +68,7 @@ def default_argument_parser():
     parser.add_argument("--eval-iter", type=int, default=-1)
     parser.add_argument("--start-iter", type=int, default=-1)
     parser.add_argument("--end-iter", type=int, default=-1)
-    parser.add_argument("--num-gpus", type=int, default=1, help="(compat) ignored; one process")
+    parser.add_argument("--num-gpus", type=int, default=1, help="number of processes (ranks) per machine")
     parser.add_argument("--num-machines", type=int, default=1)
     parser.add_argument("--machine-rank", type=int, default=0)
     parser.add_argument("--dist-url", default="auto")
@@ -70,23 +77,25 @@ def default_argument_parser():
 
 
 def default_setup(cfg, args):
-    """Logging, the config dump into ``OUTPUT_DIR`` and the numpy seed
-    (``SEED``, or a random one when negative). Returns the seed."""
+    """Logging (warnings only off the main rank), the config dump into
+    ``OUTPUT_DIR`` (by the main rank) and the numpy seed (``SEED``, or a
+    random one when negative). Returns the seed."""
     output_dir = cfg.OUTPUT_DIR
-    if output_dir:
+    main = comm.is_main_process()
+    if output_dir and main:
         os.makedirs(output_dir, exist_ok=True)
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if main else logging.WARNING,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
         stream=sys.stdout,
         force=False,
     )
-    logger.info("Command line args: %s", args)
+    logger.info("Rank %d of %d; command line args: %s", comm.get_rank(), comm.get_world_size(), args)
     if cfg.MODEL.DEVICE == "cuda" and torch.cuda.is_available():
         logger.info("Device: cuda (%s)", torch.cuda.get_device_name(0))
     else:
         logger.info("Device: %s", cfg.MODEL.DEVICE)
-    if output_dir:
+    if output_dir and main:
         path = os.path.join(output_dir, "config.yaml")
         with open(path, "w") as f:
             f.write(cfg.dump())
@@ -98,7 +107,9 @@ def default_setup(cfg, args):
 
 class DefaultTrainer:
     """Builds the model, loader, optimizer and schedule, and runs the hook
-    loop (the reference DefaultTrainer surface: train/test/build_*)."""
+    loop (the reference DefaultTrainer surface: train/test/build_*). Every
+    rank builds the same initial weights (DDP broadcasts rank 0's when it
+    wraps the model) and then loads ``MODEL.WEIGHTS`` or resumes itself."""
 
     def __init__(self, cfg, eval_only: bool = False):
         self.cfg = cfg
@@ -118,21 +129,23 @@ class DefaultTrainer:
             # meta-architecture's optimizer state would not fit, e.g.
             # ProposalNetwork from a detector's checkpoint)
             self.optimizer = self.scheduler = self.data_loader = None
-            self.checkpointer = DetectionCheckpointer(self.model, cfg.OUTPUT_DIR)
+            self.checkpointer = DetectionCheckpointer(
+                self.model, cfg.OUTPUT_DIR, save_to_disk=comm.is_main_process()
+            )
             return
         self.optimizer = self.build_optimizer(cfg, self.model)
         self.scheduler = build_lr_schedule(cfg, self.optimizer)
         self.checkpointer = DetectionCheckpointer(
-            self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer, scheduler=self.scheduler
+            self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer, scheduler=self.scheduler,
+            save_to_disk=comm.is_main_process(),
         )
         self.data_loader = self.build_train_loader(cfg)
         self._loader_iter = iter(self.data_loader)
         self.model.train()
-        self.train_step = make_train_step(
-            self.model, self.optimizer, self.scheduler,
-            mixed_precision=cfg.SOLVER.AMP.ENABLED,
+        make_step = make_data_parallel_train_step if comm.get_world_size() > 1 else make_train_step
+        self.train_step = make_step(
+            self.model, self.optimizer, self.scheduler, mixed_precision=cfg.SOLVER.AMP.ENABLED
         )
-        self._generator = torch.Generator(device=self.device)
         self.register_hooks(self.build_hooks())
 
     def _materialize(self, model, seed: int):
@@ -152,12 +165,16 @@ class DefaultTrainer:
 
     @classmethod
     def build_train_loader(cls, cfg):
-        return build_detection_train_loader(cfg)
+        # each rank loads its share of every global batch (the reference
+        # strides its samplers by rank, distributed_sampler.py:12-55)
+        return build_detection_train_loader(cfg, rank=comm.get_rank(), world_size=comm.get_world_size())
 
     @classmethod
     def build_test_loader(cls, cfg, dataset_name):
-        # batch 1: the JAX trainer's batch on one device
-        return build_detection_test_loader(cfg, dataset_name, batch_size=1)
+        # batch 1: the JAX trainer's batch on one device; each rank its shard
+        return build_detection_test_loader(
+            cfg, dataset_name, batch_size=1, rank=comm.get_rank(), world_size=comm.get_world_size()
+        )
 
     @classmethod
     def build_evaluator(cls, cfg, dataset_name):
@@ -168,17 +185,20 @@ class DefaultTrainer:
         if cfg.TEST.PRECISE_BN.ENABLED:
             raise NotImplementedError(
                 "TEST.PRECISE_BN needs BatchNorm, which is not ported yet "
-                "(ROADMAP.md queue 1, item 7: data parallel)"
+                "(ROADMAP.md queue 1, item 12: BatchNorm)"
             )
-        return [
+        ret = [
             hooks_mod.IterationTimer(),
             hooks_mod.LRSchedulerHook(lr_schedule(cfg)),
             hooks_mod.PeriodicCheckpointerHook(
                 self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER
             ),
             hooks_mod.EvalHookFsdet(cfg.TEST.EVAL_PERIOD, self.test_with_self, cfg),
-            hooks_mod.PeriodicWriter(self.build_writers(), period=20),
         ]
+        if comm.is_main_process():
+            # the writers come last, after the evaluation's scalars
+            ret.append(hooks_mod.PeriodicWriter(self.build_writers(), period=20))
+        return ret
 
     def build_writers(self):
         return [
@@ -204,9 +224,8 @@ class DefaultTrainer:
         batch = next(self._loader_iter)
         data_time = time.perf_counter() - t0
         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-        self._generator.manual_seed((self.seed << 32) + self.iter)
         try:
-            metrics = self.train_step(batch, self._generator)
+            metrics = self.train_step(batch, (self.seed << 32) + self.iter)
         except FloatingPointError as e:
             raise FloatingPointError(f"at iteration={self.iter}: {e}") from e
         self.storage.put_scalars(data_time=data_time, **{k: float(v) for k, v in metrics.items()})
@@ -227,7 +246,7 @@ class DefaultTrainer:
             finally:
                 for h in self._hooks:
                     h.after_train()
-        if hasattr(self, "last_eval_results") and self.cfg.TEST.EXPECTED_RESULTS:
+        if hasattr(self, "last_eval_results") and self.cfg.TEST.EXPECTED_RESULTS and comm.is_main_process():
             verify_results(self.cfg, self.last_eval_results)
         return getattr(self, "last_eval_results", None)
 
@@ -238,7 +257,8 @@ class DefaultTrainer:
     @classmethod
     def test(cls, cfg, model):
         """Evaluate ``model`` on every ``DATASETS.TEST`` set, in eval mode
-        (its mode is restored after)."""
+        (its mode is restored after). Each rank runs its shard; the main
+        rank gets the merged results, the others empty dicts."""
         was_training = model.training
         model.eval()
         results = {}
@@ -248,9 +268,12 @@ class DefaultTrainer:
                 evaluator = cls.build_evaluator(cfg, dataset_name)
                 results_i = inference_on_dataset(model, loader, evaluator)
                 results[dataset_name] = results_i
-                print_csv_format(results_i)
+                if comm.is_main_process():
+                    print_csv_format(results_i)
         finally:
             model.train(was_training)
+        if not comm.is_main_process():
+            return {}
         if len(results) == 1:
             results = list(results.values())[0]
         return results

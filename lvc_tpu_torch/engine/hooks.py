@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from lvc_tpu_torch.evaluation.testing import flatten_results_dict
+from lvc_tpu_torch.utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -82,7 +83,8 @@ class LRSchedulerHook(HookBase):
 
 
 class PeriodicCheckpointerHook(HookBase):
-    """Saves ``model_{iter:07d}`` every ``period`` steps and after the last."""
+    """Saves ``model_{iter:07d}`` every ``period`` steps and after the last
+    (the main rank writes; every rank waits for it)."""
 
     def __init__(self, checkpointer, period: int, max_iter: int):
         self._checkpointer = checkpointer
@@ -93,6 +95,7 @@ class PeriodicCheckpointerHook(HookBase):
         it = self.trainer.iter
         if (it + 1) % self._period == 0 or (it + 1) >= self._max_iter:
             self._checkpointer.save(f"model_{it:07d}", iteration=it + 1)
+            comm.synchronize()
 
 
 class PeriodicWriter(HookBase):
@@ -154,7 +157,8 @@ class EvalHookFsdet(HookBase):
     """Periodic eval; flattens result scalars into storage and json-dumps
     the results (lvc hooks.py:16-84): ``inference/iter_{iter:07d}.json``
     every ``eval_period`` steps, ``inference/res_final.json`` after
-    training."""
+    training. In a data-parallel run every rank evaluates its shard and only
+    the main rank gets results; the ranks wait for each other after."""
 
     def __init__(self, eval_period: int, eval_fn: Callable, cfg):
         self._period = eval_period
@@ -175,6 +179,7 @@ class EvalHookFsdet(HookBase):
             name = "res_final.json" if final else f"iter_{self.trainer.iter:07d}.json"
             with open(os.path.join(out_dir, name), "w") as f:
                 json.dump(results, f)
+        comm.synchronize()
         return results
 
     def after_step(self):

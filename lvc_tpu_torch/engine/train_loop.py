@@ -1,10 +1,26 @@
-"""The training step (counterpart of ``lvc_tpu/engine/train_loop.py:23-121``,
-``make_train_step``, one process).
+"""The training step (counterpart of ``lvc_tpu/engine/train_loop.py``:
+``make_train_step`` :23-121, ``make_data_parallel_train_step`` :124-150).
 
 Each step runs the model in training mode to its loss dict, sums
 ``total_loss``, back-propagates, steps the optimizer and the schedule. A
 non-finite ``total_loss`` raises ``FloatingPointError`` after the step, as
 the JAX trainer's ``run_step`` does (``engine/defaults.py:275-278``).
+
+The sampling comes from ``generator``: a ``torch.Generator`` (or a list of
+one per image), or an int, the step's seed. From a seed the step makes one
+generator per image at its global position (``sampling.per_image_generators``)
+and seeds the device's default generator, which dropout draws from, from the
+seed and the rank, as JAX folds the step into its key and the shard's index
+into its dropout key (``train_loop.py:63-66``).
+
+``make_data_parallel_train_step`` is the step of one rank of a
+``torch.distributed`` group: the model runs under ``DistributedDataParallel``
+(its gradients averaged over the ranks) inside ``sampling_axis_scope``, where
+every loss normaliser is the global one and carries the gradient sum that
+makes DDP's average the one-process gradient (``modeling/sampling.py``); the
+metrics are averaged over the group, a no-op for the global losses. So an
+n-rank step on a global batch reproduces the one-process step on it: the
+same sampled slots, losses and gradients up to the order of float32 sums.
 
 ``mixed_precision`` mirrors the JAX step's AMP (``train_loop.py:75-97``):
 the parameters stay float32 masters; the raw image is cast to bf16 and
@@ -19,28 +35,45 @@ The backward and the optimizer step run in profiler ranges ``backward`` and
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
+
+from lvc_tpu_torch.modeling.sampling import data_rank, fold_in, per_image_generators, sampling_axis_scope
+from lvc_tpu_torch.utils import comm
 
 
 def make_train_step(
-    model, optimizer: torch.optim.Optimizer, scheduler, mixed_precision: bool = False
+    model, optimizer: torch.optim.Optimizer, scheduler, mixed_precision: bool = False,
+    data_parallel: Optional[DistributedDataParallel] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns ``train_step(batch, generator=None) -> metrics``: the losses
-    and ``total_loss`` (detached, on the model's device). ``generator``
-    draws the sampling priorities. The model must be in training mode."""
+    and ``total_loss`` (detached, on the model's device). The model must be
+    in training mode. ``data_parallel``: ``model`` wrapped in DDP, whose
+    forward the step runs in the sampling scope of its process group (use
+    ``make_data_parallel_train_step``)."""
+    forward = model if data_parallel is None else data_parallel
+    device = next(model.parameters()).device
 
-    def train_step(batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def train_step(batch: Dict, generator=None) -> Dict[str, torch.Tensor]:
+        scope = nullcontext() if data_parallel is None else sampling_axis_scope(data_parallel.process_group)
         saved = model.compute_dtype
-        if mixed_precision:
-            model.compute_dtype = torch.bfloat16
-            batch = dict(batch, image=torch.as_tensor(batch["image"]).to(torch.bfloat16))
-        try:
-            losses = model(batch, generator=generator)
-        finally:
-            model.compute_dtype = saved
+        with scope:
+            if isinstance(generator, int):
+                seed = generator
+                generator = per_image_generators(seed, len(batch["image"]), device)
+                torch.manual_seed(fold_in(seed, 1, data_rank()))
+            if mixed_precision:
+                model.compute_dtype = torch.bfloat16
+                batch = dict(batch, image=torch.as_tensor(batch["image"]).to(torch.bfloat16))
+            try:
+                losses = forward(batch, generator=generator)
+            finally:
+                model.compute_dtype = saved
         losses = {k: v.float() for k, v in losses.items()}
         total = sum(losses.values())
         with record_function("backward"):
@@ -51,6 +84,8 @@ def make_train_step(
             scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
+        if data_parallel is not None:
+            metrics = comm.reduce_dict(metrics)
         if not bool(torch.isfinite(metrics["total_loss"])):
             raise FloatingPointError(
                 f"Loss became infinite or NaN: { {k: float(v) for k, v in metrics.items()} }"
@@ -58,3 +93,20 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def make_data_parallel_train_step(
+    model, optimizer: torch.optim.Optimizer, scheduler, mixed_precision: bool = False
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step of this rank of the default process group: ``model``
+    under ``DistributedDataParallel`` (rank 0's parameters broadcast to the
+    others when it is wrapped), the batch this rank's share of the global
+    batch. The parameters stay ``model``'s, so the checkpointer and the
+    evaluation use ``model`` itself. The model has no BatchNorm statistics
+    (BN is not ported), so no buffer is broadcast per step. Every trainable
+    parameter gets a gradient in every step (frozen ones have
+    ``requires_grad`` off), so DDP does not search for unused ones."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_data_parallel_train_step needs torch.distributed initialised (engine/launch.py)")
+    ddp = DistributedDataParallel(model, broadcast_buffers=False)
+    return make_train_step(model, optimizer, scheduler, mixed_precision, data_parallel=ddp)

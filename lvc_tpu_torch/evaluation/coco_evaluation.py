@@ -9,8 +9,10 @@ computation on training sets (:318-320), and reports all/base/novel AP
 splits with b/n prefixes (:323-358) plus per-category tables.
 
 It takes the port's ``Detections`` (torch tensors, on the card or the CPU)
-through one ``.cpu()`` per batch. One process evaluates the whole dataset;
-there is no shard merge yet (data parallelism is ROADMAP.md queue 1, item 7).
+through one ``.cpu()`` per batch. In a data-parallel run each rank holds the
+rows of its shard; ``evaluate`` gathers them to the main rank in rank order
+(the whole dataset's order, as the test shards are contiguous) and returns
+an empty dict on the others (``lvc_tpu/evaluation/coco_evaluation.py:143-151``).
 The mask branch is not ported (item 10): the port's detections carry boxes
 only, so only the ``bbox`` task is evaluated.
 """
@@ -31,6 +33,7 @@ from lvc_tpu_torch.data.coco_api import COCO
 from lvc_tpu_torch.evaluation.coco_eval import COCOeval
 from lvc_tpu_torch.evaluation.fast_eval_api import COCOeval_opt
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import index_detections
+from lvc_tpu_torch.utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -123,6 +126,11 @@ class COCOEvaluator:
             )
 
     def evaluate(self) -> "OrderedDict":
+        if comm.get_world_size() > 1:
+            shards = comm.gather_objects(self._predictions)
+            if not comm.is_main_process():
+                return OrderedDict()
+            self._predictions = [r for shard in shards for r in shard]
         # predictions already carry dataset category ids (mapped at
         # process time, matching the reference)
         coco_results = copy.deepcopy(self._predictions)

@@ -21,6 +21,7 @@ import numpy as np
 from lvc_tpu_torch.data.catalog import MetadataCatalog
 from lvc_tpu_torch.data.coco_api import COCO
 from lvc_tpu_torch.evaluation.coco_evaluation import BASE_CLASS_IDS, NOVEL_CLASS_IDS
+from lvc_tpu_torch.utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +103,16 @@ class RPNEvaluator:
             self._logits[int(meta["image_id"])] = s[order]
 
     def evaluate(self) -> OrderedDict:
+        """The main rank merges every rank's proposals (in rank order) and
+        writes the pickle; the others return an empty dict
+        (``lvc_tpu/evaluation/rpn_evaluation.py:107-111``)."""
+        if comm.get_world_size() > 1:
+            shards = comm.gather_objects((self._props, self._logits))
+            if not comm.is_main_process():
+                return OrderedDict()
+            for props, logits in shards[1:]:
+                self._props.update(props)
+                self._logits.update(logits)
         save_dict = {
             "ids": list(self._props.keys()),
             "boxes": [self._props[i] for i in self._props],

@@ -6,6 +6,9 @@ UBBRSaver:500-563, instances_to_coco_json_ubbr:606-642).
 candidate to ``<dataset json path with .json -> _ubbr.json>``: the corrected
 box (XYWH, in the original image's pixels) as ``bbox``, the candidate as
 ``bbox_orig``, the preserved annotation ``id`` and the dataset category id.
+In a data-parallel run the main rank gathers every rank's rows (in rank
+order) and writes the file alone; JAX's saver has no merge, as its one
+process per host holds every row.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 
 from lvc_tpu_torch.data.catalog import MetadataCatalog
+from lvc_tpu_torch.utils import comm
 
 logger = logging.getLogger(__name__)
 
@@ -61,6 +65,11 @@ class UBBRSaver:
 
     def evaluate(self) -> OrderedDict:
         results = list(self._results)
+        if comm.get_world_size() > 1:
+            shards = comm.gather_objects(results)
+            if not comm.is_main_process():
+                return OrderedDict()
+            results = [r for shard in shards for r in shard]
         id_map = self._metadata.get("thing_dataset_id_to_contiguous_id")
         if id_map:
             reverse = {v: k for k, v in id_map.items()}

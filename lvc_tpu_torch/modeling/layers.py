@@ -111,8 +111,8 @@ class GroupNorm(nn.Module):
 
 def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
     """Norm factory by detectron2 name (``layers.py:131``): ``FrozenBN`` and
-    ``GN`` (32 groups). ``BN``/``SyncBN`` need batch statistics across the
-    replicas of a data-parallel step, which is not ported yet."""
+    ``GN`` (32 groups). ``BN``/``SyncBN`` raise: they wait for a JAX
+    reference that trains them (ROADMAP.md queue 1, item 12)."""
     if not norm:
         return None
     if norm == "FrozenBN":
@@ -121,7 +121,7 @@ def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
         return GroupNorm(32, num_features)
     if norm in ("BN", "SyncBN", "naiveSyncBN"):
         raise NotImplementedError(
-            f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, item 7: data parallel)"
+            f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, item 12: BatchNorm)"
         )
     raise ValueError(f"Unknown norm: {norm}")
 

@@ -30,6 +30,7 @@ from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
+from lvc_tpu_torch.modeling.sampling import Generators
 
 
 _PROPOSAL_KEYS = ("proposal_boxes", "proposal_logits", "proposal_valid")
@@ -95,9 +96,11 @@ class GeneralizedRCNN(nn.Module):
         features = self.backbone(self.model_images(batch))
         return self.proposal_generator(features, self._as_tensor(batch["image_size"]))[:3]
 
-    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None):
+    def forward(self, batch: Dict, generator: Generators = None):
         """Detections, or the loss dict in training mode with gt in the batch.
-        ``generator`` draws the RPN's and ROI heads' sampling priorities."""
+        ``generator`` draws the RPN's and ROI heads' sampling priorities: a
+        list of one generator per image (``sampling.per_image_generators``),
+        or one that every image draws from in turn."""
         if self.training and "gt_boxes" in batch:
             return self._losses(batch, generator)
         with torch.no_grad():
@@ -153,7 +156,7 @@ class GeneralizedRCNNRegOnly(GeneralizedRCNN):
 
     train_ignores = False
 
-    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None):
+    def forward(self, batch: Dict, generator: Generators = None):
         if self.training and "gt_boxes" in batch:
             return self._losses(batch, generator)
         with torch.no_grad():
@@ -173,7 +176,7 @@ class ProposalNetwork(GeneralizedRCNN):
     def __init__(self, backbone: FPN, proposal_generator: RPN, **kwargs):
         super().__init__(backbone, proposal_generator, None, **kwargs)
 
-    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None):
+    def forward(self, batch: Dict, generator: Generators = None):
         if self.training and "gt_boxes" in batch:
             features = self.backbone(self.model_images(batch))
             gt = self._gt(batch, ignores=False)

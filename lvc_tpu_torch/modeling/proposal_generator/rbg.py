@@ -9,9 +9,9 @@ log(1 + beta)], is clipped to the image and kept where its IoU with some
 valid gt is > t (an image with no gt keeps nothing). Precomputed proposals,
 when given, come first and are kept by the same IoU rule.
 
-The draws come from the caller's ``torch.Generator``; ``jitter_boxes`` and
-``rbg_proposals`` are plain functions of the draws, so that tests can feed
-them JAX's.
+The draws come from the caller's generators, one (4, M) draw an image;
+``jitter_boxes`` and ``rbg_proposals`` are plain functions of the draws, so
+that tests can feed them JAX's.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lvc_tpu_torch.modeling.sampling import Generators, image_generator
 from lvc_tpu_torch.structures import boxes as box_ops
 
 
@@ -97,11 +98,17 @@ class RBG(nn.Module):
         self.t = t
         self.num_slots = 2 * int(batch_size_per_image * positive_fraction)
 
-    def draws(self, B: int, generator: Optional[torch.Generator], device):
-        """(tx, ty, tw, th), each (B, M), from ``generator`` (on its own
-        device), moved to ``device``."""
-        gen_device = generator.device if generator is not None else torch.device("cpu")
-        u = torch.rand((4, B, self.num_slots), generator=generator, device=gen_device).to(device)
+    def draws(self, B: int, generator: Generators, device):
+        """(tx, ty, tw, th), each (B, M): image b's (4, M) draw from its
+        generator (on the generator's own device), moved to ``device``. Per
+        image, so that an image's boxes do not depend on where it sits in a
+        split batch (JAX splits its key by the local B, ROADMAP.md queue 3)."""
+        u = []
+        for b in range(B):
+            g = image_generator(generator, b)
+            gen_device = g.device if g is not None else torch.device("cpu")
+            u.append(torch.rand((4, self.num_slots), generator=g, device=gen_device).to(device))
+        u = torch.stack(u, dim=1)
         lo, hi = math.log(1 - self.beta), math.log(1 + self.beta)
         shift = u[:2] * (2 * self.alpha) - self.alpha
         scale = u[2:] * (hi - lo) + lo
@@ -113,7 +120,7 @@ class RBG(nn.Module):
         image_sizes: torch.Tensor,
         gt_boxes: Optional[torch.Tensor] = None,
         gt_valid: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Generators = None,
         proposal_boxes: Optional[torch.Tensor] = None,
         proposal_logits: Optional[torch.Tensor] = None,
         proposal_valid: Optional[torch.Tensor] = None,

@@ -30,7 +30,7 @@ from lvc_tpu_torch.modeling.anchors import AnchorGenerator
 from lvc_tpu_torch.modeling.box_regression import Box2BoxTransform
 from lvc_tpu_torch.modeling.layers import Conv2d
 from lvc_tpu_torch.modeling.matcher import Matcher
-from lvc_tpu_torch.modeling.sampling import global_ratio, subsample_labels
+from lvc_tpu_torch.modeling.sampling import Generators, global_ratio, image_generator, subsample_labels
 from lvc_tpu_torch.ops.nms import NEG_INF, masked_topk, nms_mask
 from lvc_tpu_torch.structures import boxes as box_ops
 
@@ -120,7 +120,7 @@ class RPN(nn.Module):
         gt_boxes: Optional[torch.Tensor] = None,  # (B, G, 4)
         gt_valid: Optional[torch.Tensor] = None,  # (B, G)
         gt_ignores: Optional[torch.Tensor] = None,  # (B, G)
-        generator: Optional[torch.Generator] = None,
+        generator: Generators = None,
     ):
         feats = [features[f] for f in self.in_features]
         logits_lvl, deltas_lvl = self.rpn_head(feats)
@@ -148,7 +148,7 @@ class RPN(nn.Module):
         if not self.ignore_regions:
             gt_ignores = None  # JAX zeroes them: the labels are those with no ignore rows
         sampled = [self._label_one(anchors, gt_boxes[b], gt_valid[b],
-                                   None if gt_ignores is None else gt_ignores[b], generator)
+                                   None if gt_ignores is None else gt_ignores[b], image_generator(generator, b))
                    for b in range(B)]
         idxs, is_pos, slot_valid, s_anchors, s_gt = (torch.stack(t) for t in zip(*sampled))
 

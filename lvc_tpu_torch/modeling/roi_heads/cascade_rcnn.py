@@ -30,7 +30,7 @@ from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import (
     fast_rcnn_losses,
 )
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import SampledProposals, StandardROIHeads
-from lvc_tpu_torch.modeling.sampling import global_ratio
+from lvc_tpu_torch.modeling.sampling import Generators, global_ratio
 from lvc_tpu_torch.structures import boxes as box_ops
 
 
@@ -134,7 +134,7 @@ class CascadeROIHeads(StandardROIHeads):
         proposal_valid: torch.Tensor,
         image_sizes: torch.Tensor,
         gt: Optional[Dict[str, torch.Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Generators = None,
         candidates_as_proposals: bool = False,
     ):
         """The per-stage losses in training mode with ``gt``; otherwise

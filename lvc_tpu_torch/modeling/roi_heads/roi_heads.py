@@ -24,7 +24,7 @@ from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import (
     fast_rcnn_inference,
     fast_rcnn_losses,
 )
-from lvc_tpu_torch.modeling.sampling import subsample_labels
+from lvc_tpu_torch.modeling.sampling import Generators, image_generator, subsample_labels
 from lvc_tpu_torch.ops import roi_align
 from lvc_tpu_torch.structures import boxes as box_ops
 
@@ -136,7 +136,7 @@ class StandardROIHeads(nn.Module):
         gt_classes: torch.Tensor,  # (B, G)
         gt_valid: torch.Tensor,  # (B, G)
         gt_ignores: Optional[torch.Tensor] = None,  # (B, G)
-        generator: Optional[torch.Generator] = None,
+        generator: Generators = None,
     ) -> SampledProposals:
         """Append gt, match (ignore gt never matches; a proposal over an
         ignore region above the fg threshold, or in an invalid slot, is never
@@ -163,7 +163,7 @@ class StandardROIHeads(nn.Module):
         out = []
         for b in range(proposals.shape[0]):
             idxs, _, slot_valid = subsample_labels(
-                labels[b], self.batch_size_per_image, self.positive_fraction, generator
+                labels[b], self.batch_size_per_image, self.positive_fraction, image_generator(generator, b)
             )
             gt_idx = matched_idx[b][idxs]
             out.append((
@@ -225,7 +225,7 @@ class StandardROIHeads(nn.Module):
         proposal_valid: torch.Tensor,  # (B, R)
         image_sizes: torch.Tensor,  # (B, 2)
         gt: Optional[Dict[str, torch.Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
+        generator: Generators = None,
     ):
         """Detections, or in training mode with ``gt`` (boxes, classes, valid,
         optional ignores) the dict of ``loss_cls`` and ``loss_box_reg``."""

@@ -8,6 +8,7 @@ Hopper flash-attention kernel on the card (``ops/attention.py``).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -27,7 +28,7 @@ from lvc_tpu_torch.modeling.backbone.vit import (
     random_init,
 )
 from lvc_tpu_torch.modeling.meta_arch.build import resolve_device
-from lvc_tpu_torch.ops.knn import knn_vote
+from lvc_tpu_torch.ops.knn import knn_vote, sharded_knn_vote
 from lvc_tpu_torch.structures.boxes import BoxMode
 
 logger = logging.getLogger(__name__)
@@ -155,13 +156,17 @@ def verify_candidates(
     k: int = 10,
     cosine: bool = True,
     device=None,
+    group=None,
 ) -> np.ndarray:
     """Keep mask over queries: detector label == mode of the k nearest shot
     labels (get_nn_class_confirmatory, run_nearest_neighbours.py:214-227),
-    on one device (default ``cuda``)."""
+    on one device (default ``cuda``). With a process ``group``, every rank
+    of which passes the same shots and queries, the vote is
+    ``sharded_knn_vote`` over it (JAX's ``mesh=``, :145-175)."""
     device = resolve_device(device)
     num_classes = int(max(shots["classes"].max(initial=0), queries["classes"].max(initial=0))) + 1
-    _, mode = knn_vote(
+    vote = knn_vote if group is None else functools.partial(sharded_knn_vote, group=group)
+    _, mode = vote(
         torch.from_numpy(np.asarray(shots["descriptors"], np.float32)).to(device),
         torch.from_numpy(shots["classes"].astype(np.int64)).to(device),
         torch.from_numpy(np.asarray(queries["descriptors"], np.float32)).to(device),

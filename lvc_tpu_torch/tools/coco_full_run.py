@@ -16,6 +16,10 @@ The configs are those of ``configs/`` as they stand.
   config's own).
 - ``--weights``: the initial weights of steps 1 and 8, in place of the
   configs' ImageNet ``R-50.pkl``; ``--ubbr-weights`` those of step 8 alone.
+- ``--num-gpus``: the ranks of every step that takes the training CLI's
+  flags (the training, evaluation and verification tools), passed on as
+  their ``--num-gpus``; each such step runs through ``engine/launch.py``
+  (default 1: in this process).
 - Trailing ``KEY VALUE`` pairs are config overrides for every step that
   reads a config (the training, evaluation and verification tools).
 
@@ -35,6 +39,7 @@ from typing import List, NamedTuple, Optional, Sequence
 from lvc_tpu_torch.data.builtin import register_all_coco
 from lvc_tpu_torch.data.catalog import DatasetCatalog
 from lvc_tpu_torch.engine.defaults import default_argument_parser
+from lvc_tpu_torch.engine.launch import launch
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "configs")
 CKPT = "checkpoints/coco/faster_rcnn"
@@ -59,9 +64,14 @@ def _config(name: str) -> str:
     return os.path.join(CONFIGS, name)
 
 
+# the tools that take default_argument_parser's flags, --num-gpus among them
+LAUNCHED = ("train_net", "train_net_reg", "train_net_reg_qe", "run_nearest_neighbours", "train_net_qe_ig")
+
+
 def chain(datasets: str, iters: Optional[int] = None, weights: Optional[str] = None,
-          ubbr_weights: Optional[str] = None, opts: Sequence[str] = ()) -> List[Step]:
-    """The 18 steps of ``scripts/coco_full_run.sh`` in order."""
+          ubbr_weights: Optional[str] = None, opts: Sequence[str] = (), num_gpus: int = 1) -> List[Step]:
+    """The 18 steps of ``scripts/coco_full_run.sh`` in order, each step of a
+    ``LAUNCHED`` tool with ``--num-gpus num_gpus``."""
     opts = list(opts)
     train = opts + (["SOLVER.MAX_ITER", str(iters)] if iters else [])
     init = ["MODEL.WEIGHTS", weights] if weights else []
@@ -140,7 +150,8 @@ def chain(datasets: str, iters: Optional[int] = None, weights: Optional[str] = N
         f"('{inference.format('trainval')}{verified}_ubbr_id_ignore_wbase.json', "
         f"'{inference.format('unlabeled')}{verified}_ubbr_id_ignore_wbase_base_ig.json')",
         "QUERY_EXPAND.ENABLED", "True", "MODEL.BACKBONE.FREEZE", "False"], RETRAIN))
-    return steps
+    return [s._replace(argv=["--num-gpus", str(num_gpus)] + s.argv) if s.tool in LAUNCHED else s
+            for s in steps]
 
 
 def use_datasets(root: str) -> None:
@@ -166,13 +177,18 @@ def link_model_final(output_dir: str) -> str:
 
 
 def run_step(step: Step):
-    """Run one step in this process; returns what its tool's ``main``
-    returns."""
+    """Run one step as its tool's command line would: through ``launch``
+    for a ``LAUNCHED`` tool (in this process with one rank), else in this
+    process. Returns what the tool's ``main`` returns in this process (None
+    when it ran in spawned ranks)."""
     print(f"[coco_full_run] step {step.number}: python -m lvc_tpu_torch.tools.{step.tool} "
           f"{shlex.join(step.argv)}", flush=True)
     module = importlib.import_module(f"lvc_tpu_torch.tools.{step.tool}")
-    parser = getattr(module, "parser", None) or default_argument_parser()
-    result = module.main(parser.parse_args(step.argv))
+    if step.tool in LAUNCHED:
+        a = default_argument_parser().parse_args(step.argv)
+        result = launch(module.main, a.num_gpus, a.num_machines, a.machine_rank, a.dist_url, args=(a,))
+    else:
+        result = module.main(module.parser.parse_args(step.argv))
     if step.output_dir:
         link_model_final(step.output_dir)
     return result
@@ -185,10 +201,11 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=None, help="SOLVER.MAX_ITER of every training step")
     parser.add_argument("--weights", default=None, help="initial weights of steps 1 and 8")
     parser.add_argument("--ubbr-weights", default=None, help="initial weights of step 8")
+    parser.add_argument("--num-gpus", type=int, default=1, help="ranks of every launched step")
     parser.add_argument("opts", nargs=argparse.REMAINDER, help="config overrides for every config-driven step")
     args = parser.parse_args(argv)
     use_datasets(args.datasets)
-    for step in chain(args.datasets, args.iters, args.weights, args.ubbr_weights, args.opts):
+    for step in chain(args.datasets, args.iters, args.weights, args.ubbr_weights, args.opts, args.num_gpus):
         run_step(step)
 
 

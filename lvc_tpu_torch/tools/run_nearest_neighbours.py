@@ -10,7 +10,9 @@ vote over the shots, drop candidates overlapping seen-class gt, and write
 It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. The ViT runs in
 float32, as the JAX CLI's does (it never sets a compute dtype): ``main``
 turns TF32 off for the process, so the card's convolutions and matmuls are
-float32 too (cuDNN allows TF32 by default).
+float32 too (cuDNN allows TF32 by default). With ``--num-gpus N`` every rank
+embeds the crops (as JAX's one process does), the kNN vote is split over the
+ranks (``sharded_knn_vote``), and the main rank filters and writes the files.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
 
 from lvc_tpu_torch.config import get_cfg, set_global_cfg
 from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits)
@@ -25,7 +28,9 @@ from lvc_tpu_torch.data.catalog import MetadataCatalog
 from lvc_tpu_torch.data.coco_api import COCO
 from lvc_tpu_torch.data.utils import iou_check_gt, print_precision_per_class, register_results
 from lvc_tpu_torch.engine.defaults import default_argument_parser, default_setup
+from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.pipeline.verification import DescriptorExtractor, build_dino, verify_candidates
+from lvc_tpu_torch.utils import comm
 
 SEEN_NAMES = [
     "truck", "traffic light", "fire hydrant", "stop sign", "parking meter",
@@ -90,8 +95,10 @@ def main(args):
 
         keep = verify_candidates(
             shots, queries, k=cfg.QUERY_EXPAND.KNN, cosine=cfg.QUERY_EXPAND.COSINE_SIM,
-            device=device,
+            device=device, group=dist.group.WORLD if comm.get_world_size() > 1 else None,
         )
+        if not comm.is_main_process():
+            continue
         keep_ids = queries["ids"][keep].tolist()
         print(f"kNN-confirmed: {len(keep_ids)} / {len(keep)}")
 
@@ -112,4 +119,5 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args=(args,))

@@ -6,7 +6,10 @@ base training, fine-tuning stages and eval-only runs, with the same flags.
         MODEL.WEIGHTS model.pth OUTPUT_DIR out
     python -m lvc_tpu_torch.tools.train_net --eval-only --config-file ... MODEL.WEIGHTS out/model_final.pth
 
-It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. Datasets are the
+It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. ``--num-gpus N``
+runs N processes, one a card (``engine/launch.py``; with ``MODEL.DEVICE cpu``,
+N gloo ranks on the CPU), over which ``SOLVER.IMS_PER_BATCH`` and every test
+set are split; only the main rank writes files. Datasets are the
 COCO splits registered under ``$DETECTRON2_DATASETS``. With
 ``MODEL.META_ARCHITECTURE ProposalNetwork`` an ``--eval-only`` run extracts
 proposals (the ``RPNEvaluator`` writes ``coco_proposals_*_results.pkl`` into
@@ -21,9 +24,11 @@ from lvc_tpu_torch.config import get_cfg, set_global_cfg
 from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits)
 from lvc_tpu_torch.data.catalog import MetadataCatalog
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser, default_setup
+from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
 from lvc_tpu_torch.evaluation.rpn_evaluation import RPNEvaluator
 from lvc_tpu_torch.evaluation.testing import verify_results
+from lvc_tpu_torch.utils import comm
 
 
 class Trainer(DefaultTrainer):
@@ -61,7 +66,7 @@ def main(args):
         trainer = Trainer(cfg, eval_only=True)
         trainer.resume_or_load(resume=args.resume)
         res = Trainer.test(cfg, trainer.model)
-        if cfg.TEST.EXPECTED_RESULTS:
+        if cfg.TEST.EXPECTED_RESULTS and comm.is_main_process():
             verify_results(cfg, res)
         return res
 
@@ -71,4 +76,5 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args=(args,))

@@ -23,15 +23,18 @@ from lvc_tpu_torch.data.build import build_detection_train_loader
 from lvc_tpu_torch.data.dataset_mapper import DatasetMapper
 from lvc_tpu_torch.data.utils import register_results
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser
+from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.evaluation.testing import verify_results
 from lvc_tpu_torch.tools.train_net import setup
+from lvc_tpu_torch.utils import comm
 
 
 class TrainerQEIgnore(DefaultTrainer):
     @classmethod
     def build_train_loader(cls, cfg):
-        mapper = DatasetMapper(cfg, is_train=True, keep_ignore=True, seed=max(cfg.SEED, 0))
-        return build_detection_train_loader(cfg, mapper=mapper)
+        rank, world_size = comm.get_rank(), comm.get_world_size()
+        mapper = DatasetMapper(cfg, is_train=True, keep_ignore=True, seed=max(cfg.SEED, 0) + rank)
+        return build_detection_train_loader(cfg, mapper=mapper, rank=rank, world_size=world_size)
 
 
 def main(args):
@@ -43,7 +46,7 @@ def main(args):
         trainer = TrainerQEIgnore(cfg, eval_only=True)
         trainer.resume_or_load(resume=args.resume)
         res = TrainerQEIgnore.test(cfg, trainer.model)
-        if cfg.TEST.EXPECTED_RESULTS:
+        if cfg.TEST.EXPECTED_RESULTS and comm.is_main_process():
             verify_results(cfg, res)
         return res
 
@@ -53,4 +56,5 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args=(args,))

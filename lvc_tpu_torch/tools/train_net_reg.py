@@ -13,7 +13,10 @@ test image's gt boxes (``jitter_candidates``, one ``RandomState(0)`` over
 each padded (B, G) batch in turn, B = 1 image per batch here) and writes the
 per-class mean input and output IoU with the gt to
 ``inference/results_<dataset>.json``. It runs on the card; ``MODEL.DEVICE
-cpu`` asks for the CPU.
+cpu`` asks for the CPU. With ``--num-gpus N`` the ranks train together and
+the main rank alone runs the IoU test on the whole test set (its jitter is
+one random stream over the batches in turn); the others return an empty
+dict.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ import torch
 from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits)
 from lvc_tpu_torch.data.build import build_detection_test_loader
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser
+from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.modeling.meta_arch.build import build_model
 from lvc_tpu_torch.structures import boxes as box_ops
 from lvc_tpu_torch.tools.train_net import setup
+from lvc_tpu_torch.utils import comm
 
 
 def jitter_candidates(rng, gt_boxes, gt_valid, alpha=0.25, beta=0.3):
@@ -67,7 +72,10 @@ def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 class RegTrainer(DefaultTrainer):
     @classmethod
     def test(cls, cfg, model):
-        """Per-class mean input and output IoU of the corrector."""
+        """Per-class mean input and output IoU of the corrector (on the main
+        rank)."""
+        if not comm.is_main_process():
+            return {}
         reg = reg_only_model(cfg, model)
         rng = np.random.RandomState(0)
         all_results = {}
@@ -119,4 +127,5 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args=(args,))

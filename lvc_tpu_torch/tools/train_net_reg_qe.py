@@ -12,7 +12,8 @@ boxes go through the reg-only meta-architecture in the gt slots, with
 ``PAD.MAX_GT_PER_IMAGE`` widened to the file's densest image (rounded up to
 16) so that no candidate is dropped, and ``UBBRSaver`` writes
 ``<file>_ubbr.json``. It runs on the card; ``MODEL.DEVICE cpu`` asks for the
-CPU.
+CPU. With ``--num-gpus N`` each rank corrects its shard of every file and
+the main rank writes the merged rows.
 """
 from __future__ import annotations
 
@@ -24,9 +25,11 @@ from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits
 from lvc_tpu_torch.data.build import build_detection_test_loader
 from lvc_tpu_torch.data.utils import register_results
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser
+from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.evaluation.evaluator import inference_on_dataset
 from lvc_tpu_torch.evaluation.ubbr_saver import UBBRSaver
 from lvc_tpu_torch.tools.train_net import setup
+from lvc_tpu_torch.utils import comm
 
 
 def main(args):
@@ -53,9 +56,14 @@ def main(args):
         need = max(Counter(a["image_id"] for a in anns).values(), default=1)
         file_cfg = reg_cfg.clone().defrost()
         file_cfg.PAD.MAX_GT_PER_IMAGE = max(reg_cfg.PAD.MAX_GT_PER_IMAGE, -(-need // 16) * 16)
-        loader = build_detection_test_loader(file_cfg.freeze(), results_file, batch_size=1, with_gt=True)
+        loader = build_detection_test_loader(
+            file_cfg.freeze(), results_file, batch_size=1, rank=comm.get_rank(),
+            world_size=comm.get_world_size(), with_gt=True,
+        )
         inference_on_dataset(trainer.model, loader, UBBRSaver(results_file, reg_cfg))
+        comm.synchronize()
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url, args=(args,))

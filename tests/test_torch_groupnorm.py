@@ -77,7 +77,7 @@ def test_get_norm_builds_gn_and_refuses_batch_norm():
     gn = get_norm("GN", 64)
     assert isinstance(gn, GroupNorm) and gn.num_groups == 32
     for name in ("BN", "SyncBN"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             get_norm(name, 64)
 
 

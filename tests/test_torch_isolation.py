@@ -1,6 +1,7 @@
 """The port stands alone: importing it and building a model (the detector, the
 box corrector, the proposal network, the cosine fine-tune detector, the verifier
-ViT and the CLIs, the LVC chain's included) pulls in neither
+ViT and the CLIs, the LVC chain's included, and the data-parallel layer:
+``utils/comm.py``, ``engine/launch.py``, the DDP step) pulls in neither
 jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
 and without a GPU the entry points refuse to run unless asked for the CPU."""
 import ast
@@ -59,6 +60,10 @@ def test_import_and_build_leave_jax_out():
         "import lvc_tpu_torch.tools.create_coco_dataset_from_dets_all, lvc_tpu_torch.tools.train_net_qe_ig\n"
         "import lvc_tpu_torch.tools.combine_ubbr_with_qe, lvc_tpu_torch.tools.combine_pseudo_with_ignore\n"
         "import lvc_tpu_torch.tools.combine_qe_with_base\n"
+        "from lvc_tpu_torch.utils import comm\n"
+        "from lvc_tpu_torch.engine.launch import launch\n"
+        "from lvc_tpu_torch.engine.train_loop import make_data_parallel_train_step\n"
+        "from lvc_tpu_torch.ops.knn import sharded_knn_vote\n"
         "from lvc_tpu_torch.pipeline.verification import build_dino\n"
         "build_dino('dino_vits16', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"

@@ -305,7 +305,7 @@ def test_checkpointer_partial_load_and_refusals(runs, tmp_path, capsys):
 def test_trainer_refusals(tree, tmp_path):
     variables = _variables()
     T = _port_trainer(variables)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         T(_port_cfg(str(tmp_path), **{"TEST.PRECISE_BN.ENABLED": True}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):

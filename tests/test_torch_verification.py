@@ -65,10 +65,16 @@ def test_read_image_equals_jax(tmp_path):
         np.testing.assert_array_equal(read_image(path, fmt), jax_read_image(path, fmt))
 
 
+# what the port registers on import, taken at collection: tests that run a
+# tool in-process before this one (in the same worker) register its results
+# file under its path
+PORT_SPLITS_ON_IMPORT = frozenset(port_catalog.DatasetCatalog.list())
+
+
 def test_registration_matches_jax():
     """The port registers the JAX package's COCO splits under the same names
     and metadata (the VOC splits are not ported)."""
-    port = set(port_catalog.DatasetCatalog.list())
+    port = set(PORT_SPLITS_ON_IMPORT)
     assert len(port) == 128 and port <= set(jax_catalog.DatasetCatalog.list())
     for name in ("coco_test_novel", "coco_trainval_base", "coco_trainval_all_30shot_seed3"):
         want = jax_catalog.MetadataCatalog.get(name).as_dict()
