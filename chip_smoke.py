@@ -80,10 +80,13 @@ Phases, each of which raises (non-zero exit) on failure:
    100) and AP must be the final evaluation's; ms/iter over every step after
    warm-up and the `time` scalar's median, data_time, one profiled
    iteration, eval ms/img, peak memory, and whether the native image I/O and
-   COCOeval were built;
+   COCOeval were built; last, 10 float32 iterations with TF32 off and with
+   PyTorch's default TF32 convolutions, timed;
 18. the synthetic-AP gate (lvc_tpu_torch.tools.verify_synthetic_ap): a
    GroupNorm R-50-FPN trained from scratch for 600 iterations on drawn
-   shapes, float32 and AMP; each must pass verify_results (AP50 >= 60).
+   shapes, float32 and AMP; each must pass verify_results (AP50 >= 60); the
+   float32 model evaluated again with TF32 convolutions and without, its
+   result rows compared.
 19. corrector reference check: a narrow cascade UBBR model (3 stages,
    BoxOnlyLayersCascade, POOLER_IMPL pallas) at float32 on the card and on
    the CPU from the same weights: RBG from the same draws, one training
@@ -136,8 +139,33 @@ Phases, each of which raises (non-zero exit) on failure:
    AP equal to a 1-process --eval-only from the last checkpoint, K2/K3 1/1
    a rank an iteration; ms/iter, data_time and peak memory a rank (two
    ranks share one card: no scaling number); then sharded_knn_vote at
-   S=2,400, Q=50,000, D=384, k=10 over the 2 ranks against knn_vote.
-Phases 1-11 and 16-24 run with the fused path off, whatever the environment
+   S=2,400, Q=50,000, D=384, k=10 over the 2 ranks against knn_vote;
+25. extra heads reference check: narrow ParallelStandardROIHeads (80
+   classes), CascadeStandardROIHeads, StandardROIHeadsCascadeBBox and the
+   C4 Res5ROIHeads (res4, P=14; three batches) at float32, POOLER_IMPL
+   pallas_train, on the card and on the CPU from the same weights, both held
+   against a float64 witness on the CPU, the card within a limit set by the
+   CPU's own distance: one training step's losses and gradients (exhaustive
+   sampling), the eval forward's detections (StandardROIHeads with DEBUG:
+   DetectionsDebug), the C4 model also with pallas_fast (K1's band form);
+   K2/K3 launches per step and per forward; K1, K2 and K3 on the C4 runs'
+   own single-level P=14 tensors against their plain versions;
+26. the twin-head fine-tune at full width: ckpt_surgery --method
+   combine_parallel of phase 17's base checkpoint and the chain's ft_novel
+   checkpoint (phase 22), loaded strictly; train_net on
+   faster_rcnn_R_50_FPN_base.yaml with ParallelStandardROIHeads, 80
+   classes, the all-class splits of phase 17's tree, IMS_PER_BATCH 16 at
+   832x1344, AMP, 20 iterations and its evaluation: ms/iter, data_time,
+   peak memory, K2/K3 2/2 every iteration, 200 detection slots;
+27. R-50-C4 at full width (the defaults' C4 detector: res4 1024 wide,
+   Res5ROIHeads, P=14, RPN 6000/1000 at test), 2 images a card at
+   832x1344: bf16 serving forwards with pallas_fast (K1) and auto (K2) at
+   score threshold 0.001, each keeping detections, train_net with
+   pallas_train and AMP for 20 iterations on phase 17's tree
+   (K2/K3 1/1 every iteration) and its evaluation; K1, K2 and K3 on the
+   path's own tensors against their plain versions, with their times and
+   bounds.
+Phases 1-11 and 16-27 run with the fused path off, whatever the environment
 says (spawned ranks inherit it).
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -410,8 +438,8 @@ def calibrated_init(model, seed: int):
         for name, t in model.state_dict().items():
             if name.endswith(("bias", "running_mean")):
                 t.zero_()
-            elif name.endswith("running_var") or ".norm." in name:
-                t.fill_(1.0)
+            elif name.endswith(("running_var", ".scale")) or ".norm." in name:
+                t.fill_(1.0)  # the cosine head's learnable scale starts at 1, as he_init starts it
             else:
                 std = math.sqrt(2.0 / (t.shape[0] * t[0, 0].numel())) if t.dim() == 4 else math.sqrt(1.0 / t.shape[1])
                 f = next((v for k, v in scale.items() if name.startswith(k)), 1.0)
@@ -1839,7 +1867,82 @@ def trainer_reference_check(tag):
 
 
 TRAIN_NET_ITERS, TRAIN_NET_PERIOD, TRAIN_NET_RESUMED = 30, 15, 35
+TF32_ITERS = 10  # each of the float32 runs with TF32 off and on
 TRAIN_NET_TREE = (48, 16)  # train and test images
+
+
+def run_cli(module, argv, trainer="Trainer"):
+    """``module.main`` on ``argv`` in this process, every kernel count set to
+    0 just before and read just after. Unless ``trainer`` is None,
+    ``module.<trainer>`` is replaced for the call by a subclass that keeps,
+    on the instance, each step's wall seconds and K2/K3 launches
+    (``step_s``, ``step_launches``) and its last evaluation's wall seconds
+    and K2/K3 launches (``test_s``, ``test_launches``). Returns (results,
+    seconds, (K1, K2, K3) launches, the trainer or None)."""
+    import torch
+
+    from lvc_tpu_torch.engine.defaults import default_argument_parser
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd  # the wrappers that count (PoolRecorder stands in)
+    made = []
+    saved = getattr(module, trainer) if trainer else None
+    if trainer:
+        class Capture(saved):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+                self.step_s, self.step_launches = [], []
+                self.test_s = self.test_launches = None
+
+            def run_step(self):
+                n = k2.launches, k3.launches
+                t0 = time.perf_counter()
+                super().run_step()
+                self.step_s.append(time.perf_counter() - t0)
+                self.step_launches.append((k2.launches - n[0], k3.launches - n[1]))
+
+            @classmethod
+            def test(cls, cfg, model):
+                n = k2.launches, k3.launches
+                t0 = time.perf_counter()
+                res = super().test(cfg, model)
+                torch.cuda.synchronize()
+                made[-1].test_s = time.perf_counter() - t0
+                made[-1].test_launches = k2.launches - n[0], k3.launches - n[1]
+                return res
+
+        setattr(module, trainer, Capture)
+    ra.roi_align_band.launches = k2.launches = k3.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = module.main(default_argument_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        if trainer:
+            setattr(module, trainer, saved)
+    return res, secs, (ra.roi_align_band.launches, k2.launches, k3.launches), made[-1] if made else None
+
+
+def train_net_report(what, trainer, secs, peak, ims, tag):
+    """Prints a training run's line: ms/iter and img/s over the steps after
+    the first 3 (the IterationTimer's warm-up; loader waits included), the
+    ``time`` scalar's median, data_time, peak memory and K2/K3 per
+    iteration. Returns the ms/iter."""
+    import statistics
+
+    steps = trainer.step_s[3:]
+    hist = trainer.storage.histories()
+    times, data = hist["time"].values(), hist["data_time"].values()
+    ms = sum(steps) / len(steps) * 1e3
+    print(f"{what}: {len(trainer.step_s)} iterations in {secs:.1f} s with its evaluation; the {len(steps)} after the "
+          f"first 3 in {sum(steps):.3f} s, {ms:.2f} ms/iter, {ims * len(steps) / sum(steps):.2f} img/s end to end "
+          f"(loader waits and stalls included); `time` scalar median {statistics.median(times) * 1e3:.2f} ms over "
+          f"the last {len(times)}; data_time median {statistics.median(data) * 1e3:.2f} ms (max "
+          f"{max(data) * 1e3:.2f}); peak memory {peak:.2f} GiB; K2/K3 per iteration "
+          f"{sorted(set(trainer.step_launches))} {tag}")
+    return ms
 
 
 def train_net_path(tag, keep: str):
@@ -1852,12 +1955,13 @@ def train_net_path(tag, keep: str):
     each; the score threshold is 0.001, so that the random detector's rows
     reach the evaluator. Then ``--resume`` to 35 iterations and
     ``--eval-only`` from ``model_0000029.pth``, which is copied to ``keep``
-    (phase 22 starts from it). Kernel counts are set to 0 just before each
-    run and read just after."""
+    (phase 22 starts from it). Last, ``TF32_ITERS`` float32 iterations (AMP
+    off) with TF32 off and with PyTorch's default, TF32 convolutions (the
+    training CLIs leave it). Kernel counts are set to 0 just before each run
+    and read just after."""
     import json
     import math
     import os
-    import statistics
     import tempfile
 
     import torch
@@ -1865,48 +1969,10 @@ def train_net_path(tag, keep: str):
     from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
     from lvc_tpu_torch.config import get_cfg
     from lvc_tpu_torch.data import native_io
-    from lvc_tpu_torch.engine.defaults import default_argument_parser
     from lvc_tpu_torch.evaluation import fast_eval_api
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
-    from lvc_tpu_torch.ops import roi_align as ra
     from lvc_tpu_torch.tools import train_net
     from lvc_tpu_torch.utils.init import damped_init
-
-    class Capture(train_net.Trainer):
-        """The CLI's trainer, kept for reading after ``main`` returns, with the
-        wall time of its evaluation."""
-
-        last = None
-        test_s = None
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            Capture.last = self
-            self.step_s = []  # every step's wall seconds, loader wait included
-
-        def run_step(self):
-            t0 = time.perf_counter()
-            super().run_step()
-            self.step_s.append(time.perf_counter() - t0)
-
-        @classmethod
-        def test(cls, cfg, model):
-            t0 = time.perf_counter()
-            res = super().test(cfg, model)
-            torch.cuda.synchronize()
-            Capture.test_s = time.perf_counter() - t0
-            return res
-
-    def run(argv):
-        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-        saved, train_net.Trainer = train_net.Trainer, Capture
-        try:
-            t0 = time.perf_counter()
-            res = train_net.main(default_argument_parser().parse_args(argv))
-            secs = time.perf_counter() - t0
-        finally:
-            train_net.Trainer = saved
-        return res, secs, (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
 
     n_train, n_test = TRAIN_NET_TREE
     with tempfile.TemporaryDirectory() as tmp:
@@ -1928,9 +1994,8 @@ def train_net_path(tag, keep: str):
 
         # 1. training, checkpoints, the final evaluation
         torch.cuda.reset_peak_memory_stats()
-        res, secs, (k2, k3) = run(yaml + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_ITERS)])
+        res, secs, (_, k2, k3), trainer = run_cli(train_net, yaml + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_ITERS)])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        trainer = Capture.last
         if trainer.cfg.SOLVER.IMS_PER_BATCH != 16 or trainer.cfg.MODEL.ROI_HEADS.POOLER_IMPL != "auto":
             raise AssertionError("the phase must run the config's IMS_PER_BATCH 16 and POOLER_IMPL auto")
         with open(os.path.join(out, "metrics.json")) as f:
@@ -1952,31 +2017,21 @@ def train_net_path(tag, keep: str):
             raise AssertionError(f"res_final.json holds no finite bbox AP: {final}")
         if (k2, k3) != (TRAIN_NET_ITERS + n_test, TRAIN_NET_ITERS):
             raise AssertionError(f"K2/K3 launched {k2}/{k3} times; want {TRAIN_NET_ITERS + n_test}/{TRAIN_NET_ITERS}")
-        times = trainer.storage.histories()["time"].values()
-        data = trainer.storage.histories()["data_time"].values()
-        ms = statistics.median(times) * 1e3
-        steps = trainer.step_s[3:]  # the IterationTimer's warm-up left out
-        window_s = sum(steps)
-        print(f"train_net: R-50-FPN base (60 classes) AMP, IMS_PER_BATCH 16 at 832x1344, {TRAIN_NET_ITERS} "
-              f"iterations in {secs:.1f} s (tree written in {tree_s:.1f} s): all {len(steps)} steps after "
-              f"warm-up in {window_s:.3f} s, {window_s / len(steps) * 1e3:.2f} ms/iter and "
-              f"{16 * len(steps) / window_s:.2f} img/s end to end (loader waits and stalls included); per-step "
-              f"`time` scalar median {ms:.2f} ms over its window of the last {len(times)} (min "
-              f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); data_time median "
-              f"{statistics.median(data) * 1e3:.2f} ms (max {max(data) * 1e3:.2f}); peak memory {peak:.2f} GiB "
-              f"{tag}")
+        ms = train_net_report(f"train_net: R-50-FPN base (60 classes) AMP, IMS_PER_BATCH 16 at 832x1344 (tree "
+                              f"written in {tree_s:.1f} s)", trainer, secs, peak, 16, tag)
         print(f"train_net: final losses {rows[-1]['total_loss']:.4f} total; checkpoints {', '.join(saved)}, "
               f"last_checkpoint; res_final.json bbox {final['bbox']}; K2/K3 launches "
               f"{k2}/{k3} ({TRAIN_NET_ITERS} steps + {n_test} test images / {TRAIN_NET_ITERS} steps); final "
-              f"eval {Capture.test_s:.2f} s for {n_test} images {tag}")
+              f"eval {trainer.test_s:.2f} s for {n_test} images {tag}")
         print(f"train_net: native image I/O {'built' if native_io.available() else 'not built (PIL)'}, "
               f"native COCOeval {'built' if fast_eval_api._load_lib() else 'not built (python)'} {tag}")
         profile_call(trainer.run_step, ms, "train_net iteration (loader wait, B=16 AMP step)", tag,
                      stages=TRAIN_STAGES)
 
         # 2. resume
-        res2, secs2, (k2, k3) = run(yaml + ["--resume"] + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_RESUMED)])
-        start = Capture.last.start_iter
+        res2, secs2, (_, k2, k3), resumed = run_cli(
+            train_net, yaml + ["--resume"] + opts + ["SOLVER.MAX_ITER", str(TRAIN_NET_RESUMED)])
+        start = resumed.start_iter
         extra = TRAIN_NET_RESUMED - TRAIN_NET_ITERS
         if start != TRAIN_NET_ITERS or (k2, k3) != (extra + n_test, extra):
             raise AssertionError(f"--resume started at {start} with K2/K3 {k2}/{k3}")
@@ -1988,7 +2043,7 @@ def train_net_path(tag, keep: str):
         eval_out = os.path.join(tmp, "eval")
         eval_opts = opts[:opts.index("OUTPUT_DIR")] + ["OUTPUT_DIR", eval_out]
         eval_opts[1] = os.path.join(out, saved[1])
-        res3, secs3, (k2, k3) = run(yaml + ["--eval-only"] + eval_opts)
+        res3, secs3, (_, k2, k3), evaluator = run_cli(train_net, yaml + ["--eval-only"] + eval_opts)
         want = final_rows
         got = result_rows(os.path.join(eval_out, "inference", "coco_instances_test_results.json"))
         if len(want) != len(got) or len(want) < 100:
@@ -2006,9 +2061,39 @@ def train_net_path(tag, keep: str):
         shutil.copy(os.path.join(out, saved[1]), keep)
         print(f"train_net --eval-only {saved[1]}: {len(got)} result rows equal the final evaluation's "
               f"(box err {box_err:.1e} px, tol 1e-3; score err {score_err:.1e}, tol 1e-6), bbox {res3['bbox']} "
-              f"equals res_final.json (max diff {err:.1e}); {Capture.test_s / n_test * 1e3:.2f} ms/img end to "
+              f"equals res_final.json (max diff {err:.1e}); {evaluator.test_s / n_test * 1e3:.2f} ms/img end to "
               f"end at batch 1 (load, decode, resize, forward, COCO rows; {n_test} images), K2 launches {k2} "
               f"{tag}")
+
+        # 4. float32 training (AMP off) with TF32 off and with PyTorch's default, TF32 convolutions:
+        # default_setup wrapped to set cuDNN's TF32 for the run
+        setup, losses = train_net.default_setup, {}
+        for mode in ("TF32 off", "TF32 on"):
+            def tf32_setup(cfg, args, on=mode == "TF32 on"):
+                seed = setup(cfg, args)
+                torch.backends.cudnn.allow_tf32 = on
+                return seed
+
+            f32_out = os.path.join(tmp, mode.replace(" ", "_"))
+            train_net.default_setup = tf32_setup
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                _, secs, _, trainer = run_cli(train_net, yaml + opts + [
+                    "SOLVER.AMP.ENABLED", "False", "SOLVER.MAX_ITER", str(TF32_ITERS), "SOLVER.CHECKPOINT_PERIOD",
+                    "1000000", "OUTPUT_DIR", f32_out])
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            finally:
+                train_net.default_setup = setup
+                tf32_off()
+            if trainer.cfg.SOLVER.AMP.ENABLED:
+                raise AssertionError("the float32 runs must not run AMP")
+            with open(os.path.join(f32_out, "metrics.json")) as f:
+                losses[mode] = [json.loads(line) for line in f][-1]["total_loss"]
+            train_net_report(f"train_net float32 {mode}: R-50-FPN base, IMS_PER_BATCH 16 at 832x1344", trainer, secs,
+                             peak, 16, tag)
+            del trainer
+        print(f"train_net float32: total_loss after {TF32_ITERS} iterations {losses['TF32 off']:.6f} with TF32 off, "
+              f"{losses['TF32 on']:.6f} with TF32 convolutions {tag}")
 
 
 GATE_ITERS = 600
@@ -2019,7 +2104,9 @@ def synthetic_ap_gate(tag):
     iterations, float32 and AMP: R-50-FPN with GroupNorm trained from the
     damped x0.65 init on drawn shapes (256x256, batch 8), then evaluated on
     its held-out 60 images by the trainer's final evaluation hook. Fails
-    unless ``verify_results`` passes (AP50 in (60, 100)) in both modes."""
+    unless ``verify_results`` passes (AP50 in (60, 100)) in both modes. The
+    float32 model is then evaluated again with TF32 convolutions and matmuls
+    and without (``tf32_difference``)."""
     import tempfile
 
     from lvc_tpu_torch.ops import roi_align as ra
@@ -2030,7 +2117,7 @@ def synthetic_ap_gate(tag):
         gate.register(gate.build_dataset(tmp))
         for mode in ("f32", "amp"):
             ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-            bbox, ok, t_train, t_eval, ms_iter = gate.run_mode(mode, GATE_ITERS, tmp)
+            bbox, ok, t_train, t_eval, ms_iter, trainer = gate.run_mode(mode, GATE_ITERS, tmp)
             print(f"synthetic AP gate [{mode}]: AP {bbox['AP']:.2f} AP50 {bbox['AP50']:.2f} AP75 "
                   f"{bbox['AP75']:.2f}, {GATE_ITERS} iterations, train {t_train:.1f} s ({ms_iter:.1f} "
                   f"ms/iter, the median `time` scalar), eval {t_eval:.1f} s of 60 images, verify_results "
@@ -2038,8 +2125,60 @@ def synthetic_ap_gate(tag):
                   f"{ra.roi_align_paired_bwd.launches} {tag}")
             if not ok:
                 failures.append(mode)
+            if mode == "f32":
+                print(tf32_difference(trainer, tmp, tag))
+            del trainer
     if failures:
         raise AssertionError(f"synthetic AP gate failed in {failures}")
+
+
+def tf32_difference(trainer, tmp: str, tag):
+    """The trained float32 gate model evaluated by its trainer's ``test``
+    with PyTorch's default (TF32 convolutions, float32 matmuls) and with
+    TF32 off, in that order. The line compares the two evaluations'
+    result rows: each row without TF32 against the row of the same image and
+    class with the nearest box with TF32; rows whose nearest box is within
+    1 px count as the same detection, the rest as moved."""
+    import math
+    import os
+
+    import torch
+
+    evals = {}
+    for mode in ("TF32 on", "TF32 off"):
+        cfg = trainer.cfg.clone()
+        cfg.defrost()
+        cfg.OUTPUT_DIR = os.path.join(tmp, mode.replace(" ", "_"))
+        torch.backends.cudnn.allow_tf32 = mode == "TF32 on"
+        try:
+            t0 = time.perf_counter()
+            res = type(trainer).test(cfg, trainer.model)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            tf32_off()
+        evals[mode] = res, result_rows(os.path.join(cfg.OUTPUT_DIR, "inference",
+                                                    "coco_instances_test_results.json")), secs
+    (r_on, rows_on, s_on), (r_off, rows_off, s_off) = evals["TF32 on"], evals["TF32 off"]
+    groups = {}
+    for row in rows_on:
+        groups.setdefault((row["image_id"], row["category_id"]), []).append(row)
+    box_err, score_err, moved = 0.0, 0.0, 0
+    for row in rows_off:
+        near = min(groups.get((row["image_id"], row["category_id"]), []), default=None,
+                   key=lambda o: max(abs(x - y) for x, y in zip(o["bbox"], row["bbox"])))
+        d = math.inf if near is None else max(abs(x - y) for x, y in zip(near["bbox"], row["bbox"]))
+        if d > 1.0:
+            moved += 1
+            continue
+        box_err = max(box_err, d)
+        score_err = max(score_err, abs(near["score"] - row["score"]) / row["score"])
+    ap_err = max((abs(r_on["bbox"][k] - v) for k, v in r_off["bbox"].items() if math.isfinite(v)), default=math.nan)
+    return (f"synthetic AP gate [f32] model evaluated (60 images) with TF32 convolutions (PyTorch's default) {s_on:.2f} s, "
+            f"{len(rows_on)} rows, AP {r_on['bbox']['AP']:.4f} AP50 {r_on['bbox']['AP50']:.4f}; without TF32 "
+            f"{s_off:.2f} s, {len(rows_off)} rows, AP {r_off['bbox']['AP']:.4f} AP50 {r_off['bbox']['AP50']:.4f}; of "
+            f"the rows without TF32, {len(rows_off) - moved} have a row with TF32 within 1 px (max box diff "
+            f"{box_err:.3e} px, max score rel diff {score_err:.3e}) and {moved} do not; max AP diff {ap_err:.3e} {tag}")
 
 
 # ---------------------------------------------------------------------------
@@ -2198,15 +2337,19 @@ def corrector_reference_check(tag):
 
 
 class PoolRecorder:
-    """While in use, stands in for K2's and K3's wrappers in
+    """While in use, stands in for K1's, K2's and K3's wrappers in
     ``ops.roi_align``: keeps the arguments of every call the path makes (a
     copy of K3's gout) and passes the call on to the wrapper."""
 
     def __init__(self):
         from lvc_tpu_torch.ops import roi_align as ra
 
-        self.ra, self.fwd, self.bwd = ra, [], []
-        self.k2, self.k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
+        self.ra, self.band, self.fwd, self.bwd = ra, [], [], []
+        self.k1, self.k2, self.k3 = ra.roi_align_band, ra.roi_align_paired, ra.roi_align_paired_bwd
+
+    def band_forward(self, levels, taps):
+        self.band.append((list(levels), taps))
+        return self.k1(levels, taps)
 
     def forward(self, levels, taps):
         self.fwd.append((list(levels), taps))
@@ -2217,35 +2360,49 @@ class PoolRecorder:
         return self.k3(level_shapes, taps, gout)
 
     def __enter__(self):
+        self.ra.roi_align_band = self.band_forward
         self.ra.roi_align_paired, self.ra.roi_align_paired_bwd = self.forward, self.backward
         return self
 
     def __exit__(self, *exc):
-        self.ra.roi_align_paired, self.ra.roi_align_paired_bwd = self.k2, self.k3
+        self.ra.roi_align_band, self.ra.roi_align_paired, self.ra.roi_align_paired_bwd = self.k1, self.k2, self.k3
 
 
-def check_recorded_pool(what, rec, tag):
-    """K2 and K3 on the very tensors a run of the path gave them (recorded by
-    ``PoolRecorder``), against their plain versions on the same tensors on
-    the card, at the tolerances of the card tests: K2 bit for bit; K3 within
-    1e-5 * S of the plain float32 sums (S: the plain backward on |gout| and
-    |weights|; plus 1 bf16 ulp of the cast for bf16), two calls bit-equal.
-    Kernel counts are set to 0 just before and must read one launch per
-    call (two per K3 call) just after."""
+def check_recorded_pool(what, rec, tag, timed=False):
+    """K1, K2 and K3 on the very tensors a run of the path gave them
+    (recorded by ``PoolRecorder``), against their plain versions on the same
+    tensors on the card, at the tolerances of the card tests: K2 bit for
+    bit; K1 within 1e-5 * S of the plain sums (S: the plain pool of |levels|
+    with |weights|; plus 1 bf16 ulp for bf16: its band sums run in another
+    order); K3 within 1e-5 * S of the plain float32 sums (S: the plain
+    backward on |gout| and |weights|; plus 1 bf16 ulp of the cast for bf16),
+    two calls bit-equal. Kernel counts are set to 0 just before and must
+    read one launch per call (two per K3 call) just after. ``timed``: each
+    kernel's ms on its first recorded call, beside its plain version's ms
+    and its bound; returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
     import torch
 
     ra = rec.ra
-    k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
-    k2.launches = k3.launches = 0
-    fwd = []
-    for levels, taps in rec.fwd:
-        got = k2(levels, taps)
-        want = ra.roi_align_taps_plain(levels, taps, True)
-        if not torch.isfinite(got).all() or not torch.equal(got, want):
-            raise AssertionError(f"{what}: K2 differs from its plain version, max abs err "
-                                 f"{float((got.float() - want.float()).abs().max())}")
-        n, P, NR = taps.rows.shape
-        fwd.append(f"{n} boxes P={P} NR={NR} NT={taps.tcol.shape[-1]}")
+    k1, k2, k3 = ra.roi_align_band, ra.roi_align_paired, ra.roi_align_paired_bwd
+    k1.launches = k2.launches = k3.launches = 0
+    fwd, k1_ratio = [], 0.0
+    for kernel, calls in ((k1, rec.band), (k2, rec.fwd)):
+        for levels, taps in calls:
+            got = kernel(levels, taps)
+            want = ra.roi_align_taps_plain(levels, taps, kernel.paired)
+            if kernel is k2:
+                ok = torch.equal(got, want)
+            else:
+                S = ra.roi_align_taps_plain([f.abs() for f in levels], taps._replace(
+                    wy=taps.wy.abs(), wx=taps.wx.abs()), False).float()
+                err = (got.float() - want.float()).abs()
+                ok = bool((err <= 1e-5 * S + (bf16_ulp(want.float()) if got.dtype == torch.bfloat16 else 0.0)).all())
+                k1_ratio = max(k1_ratio, float((err / S.clamp(min=1e-30)).max()))
+            if not torch.isfinite(got).all() or not ok:
+                raise AssertionError(f"{what}: {'K2' if kernel is k2 else 'K1'} differs from its plain version, "
+                                     f"max abs err {float((got.float() - want.float()).abs().max())}")
+            n, P, NR = taps.rows.shape
+            fwd.append(f"{'K2' if kernel is k2 else 'K1'} {n} boxes P={P} NR={NR} NT={taps.tcol.shape[-1]}")
     max_ratio, max_err = 0.0, 0.0
     for level_shapes, taps, gout in rec.bwd:
         got, again = k3(level_shapes, taps, gout), k3(level_shapes, taps, gout)
@@ -2262,15 +2419,37 @@ def check_recorded_pool(what, rec, tag):
             max_err = max(max_err, float(err.max()))
             max_ratio = max(max_ratio, float((err / s.clamp(min=1e-30)).max()))
         del got, again, want, S
-    n = k2.launches, k3.launches
-    if n != (len(rec.fwd), 2 * len(rec.bwd)) or not rec.fwd:
-        raise AssertionError(f"{what}: K2/K3 launches {n} for {len(rec.fwd)}/{len(rec.bwd)} recorded calls")
-    levels = rec.fwd[0][0]
-    k3_part = (f"K3 on {len(rec.bwd)} calls max abs err {max_err:.3e} max err/S {max_ratio:.3e} (tol 1e-5 * S), "
+    n = k1.launches, k2.launches, k3.launches
+    if n != (len(rec.band), len(rec.fwd), 2 * len(rec.bwd)) or not (rec.fwd or rec.band):
+        raise AssertionError(f"{what}: K1/K2/K3 launches {n} for {len(rec.band)}/{len(rec.fwd)}/{len(rec.bwd)} "
+                             f"recorded calls")
+    levels = (rec.fwd or rec.band)[0][0]
+    k1_part = f"K1 max err/S {k1_ratio:.3e} (tol 1e-5 * S); " if rec.band else ""
+    ulp = " + 1 bf16 ulp" if rec.bwd and rec.bwd[0][2].dtype == torch.bfloat16 else ""
+    k3_part = (f"K3 on {len(rec.bwd)} calls max abs err {max_err:.3e} max err/S {max_ratio:.3e} (tol 1e-5 * S{ulp}), "
                f"two calls bit-equal; " if rec.bwd else "")
-    print(f"{what}: the path's own K2/K3 inputs (levels {[tuple(f.shape) for f in levels]} {levels[0].dtype}) "
-          f"against the plain versions on the card: K2 bit-equal on {len(fwd)} calls ({'; '.join(fwd)}); "
-          f"{k3_part}launches {n[0]}/{n[1]} {tag}")
+    print(f"{what}: the path's own kernel inputs (levels {[tuple(f.shape) for f in levels]} {levels[0].dtype}) "
+          f"against the plain versions on the card: {'; '.join(fwd)}; K2 bit-equal; {k1_part}{k3_part}"
+          f"launches K1/K2/K3 {n[0]}/{n[1]}/{n[2]} {tag}")
+    if not timed:
+        return {}
+    times = {}
+    for name, kernel, calls in (("K1", k1, rec.band), ("K2", k2, rec.fwd)):
+        if calls:
+            levels, taps = calls[0]
+            ms = cuda_ms(lambda: kernel(levels, taps), 20)
+            plain_ms = cuda_ms(lambda: ra.roi_align_taps_plain(levels, taps, kernel.paired), 2)
+            times[name] = (ms, plain_ms) + bound(levels, taps)[:2]
+    if rec.bwd:
+        level_shapes, taps, gout = rec.bwd[0]
+        ms = cuda_ms(lambda: k3(level_shapes, taps, gout), 20)
+        plain_ms = cuda_ms(lambda: ra.roi_align_taps_plain_backward(level_shapes, taps, gout), 1)
+        times["K3"] = (ms, plain_ms) + backward_bound(level_shapes, taps, gout)[:2]
+    k1.launches = k2.launches = k3.launches = 0
+    for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
+        print(f"{what}: {name} {ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"share {bound_ms / ms:.3f} {tag}")
+    return times
 
 
 def write_candidates(src_json: str, out_json: str, keep_ids, seed: int = 0) -> int:
@@ -2332,7 +2511,6 @@ def correct_path(tag, keep: str):
     import math
     import os
     import pickle
-    import statistics
     import tempfile
 
     import torch
@@ -2343,43 +2521,9 @@ def correct_path(tag, keep: str):
     from lvc_tpu_torch.config import get_cfg
     from lvc_tpu_torch.data.build import build_detection_test_loader
     from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
-    from lvc_tpu_torch.engine.defaults import default_argument_parser
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
-    from lvc_tpu_torch.ops import roi_align as ra
     from lvc_tpu_torch.tools import train_net, train_net_reg, train_net_reg_qe
     from lvc_tpu_torch.utils.init import damped_init
-
-    class RegCapture(train_net_reg.RegTrainer):
-        last = None
-        test_s = None
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            RegCapture.last = self
-            self.step_s = []
-
-        def run_step(self):
-            t0 = time.perf_counter()
-            super().run_step()
-            self.step_s.append(time.perf_counter() - t0)
-
-        @classmethod
-        def test(cls, cfg, model):
-            RegCapture.train_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
-            t0 = time.perf_counter()
-            ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-            res = super().test(cfg, model)
-            torch.cuda.synchronize()
-            RegCapture.test_s = time.perf_counter() - t0
-            RegCapture.test_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
-            return res
-
-    def run(module, argv):
-        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-        t0 = time.perf_counter()
-        res = module.main(default_argument_parser().parse_args(argv))
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
 
     n_train, n_test = TRAIN_NET_TREE
     with tempfile.TemporaryDirectory() as tmp:
@@ -2393,9 +2537,9 @@ def correct_path(tag, keep: str):
 
         # 1. proposal extraction
         det = os.path.join(tmp, "det")
-        res, secs, n = run(train_net, ["--eval-only", "--config-file", TRAIN_NET_YAML, "MODEL.WEIGHTS", weights,
-                                       "MODEL.META_ARCHITECTURE", "ProposalNetwork", "DATASETS.TEST",
-                                       "('coco_test_base', 'coco_trainval_base')", "OUTPUT_DIR", det])
+        res, secs, (_, k2, k3), _ = run_cli(train_net, [
+            "--eval-only", "--config-file", TRAIN_NET_YAML, "MODEL.WEIGHTS", weights, "MODEL.META_ARCHITECTURE",
+            "ProposalNetwork", "DATASETS.TEST", "('coco_test_base', 'coco_trainval_base')", "OUTPUT_DIR", det])
         pkls = {}
         for split, n_img in (("trainval", n_train), ("test", n_test)):
             with open(os.path.join(det, f"coco_proposals_{split}_results.pkl"), "rb") as f:
@@ -2404,8 +2548,8 @@ def correct_path(tag, keep: str):
             if len(p["ids"]) != n_img or any(len(b) == 0 or not (b == b).all() for b in p["boxes"]):
                 raise AssertionError(f"coco_proposals_{split}_results.pkl: {len(p['ids'])} images")
         ar = res["coco_test_base"]["bbox"]
-        if n != (0, 0) or not all(math.isfinite(v) and 0 <= v <= 100 for v in ar.values()):
-            raise AssertionError(f"ProposalNetwork: K2/K3 {n}, AR {ar}")
+        if (k2, k3) != (0, 0) or not all(math.isfinite(v) and 0 <= v <= 100 for v in ar.values()):
+            raise AssertionError(f"ProposalNetwork: K2/K3 {k2}/{k3}, AR {ar}")
         print(f"train_net ProposalNetwork --eval-only: R-50-FPN, {n_train + n_test} images in {secs:.1f} s, "
               f"{secs / (n_train + n_test) * 1e3:.2f} ms/img end to end at batch 1 (load, decode, resize, forward, "
               f"proposals to the host; model build and weight load included); proposals per image "
@@ -2419,14 +2563,9 @@ def correct_path(tag, keep: str):
                 "DATASETS.PROPOSAL_FILES_TEST", f"('{det}/coco_proposals_test_results.pkl',)",
                 "SOLVER.CHECKPOINT_PERIOD", str(TRAIN_NET_PERIOD), "SOLVER.MAX_ITER", str(TRAIN_NET_ITERS),
                 "OUTPUT_DIR", ub]
-        saved, train_net_reg.RegTrainer = train_net_reg.RegTrainer, RegCapture
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            res, secs, n = run(train_net_reg, opts)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        finally:
-            train_net_reg.RegTrainer = saved
-        trainer = RegCapture.last
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, _, trainer = run_cli(train_net_reg, opts, "RegTrainer")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         c = trainer.cfg
         if (c.SOLVER.IMS_PER_BATCH, c.MODEL.ROI_HEADS.POOLER_IMPL, c.SOLVER.AMP.ENABLED, c.MODEL.ROI_HEADS.NAME,
                 c.MODEL.ROI_HEADS.OUTPUT_LAYER, c.MODEL.PROPOSAL_GENERATOR.NAME) != (
@@ -2442,27 +2581,21 @@ def correct_path(tag, keep: str):
             if not os.path.exists(os.path.join(ub, name)):
                 raise AssertionError(f"{name} was not written")
         ubbr = res["ubbr"]
-        train_n, test_n = RegCapture.train_n, RegCapture.test_n
+        train_n, test_n = tuple(map(sum, zip(*trainer.step_launches))), trainer.test_launches
         if train_n != (3 * TRAIN_NET_ITERS, 3 * TRAIN_NET_ITERS) or test_n != (3 * n_test, 0):
             raise AssertionError(f"K2/K3 launches: training {train_n}, test {test_n}")
         if not ubbr["per_class"] or not all(0 <= v["iou_in"] <= 1 and 0 <= v["iou_out"] <= 1
                                             for v in ubbr["per_class"].values()):
             raise AssertionError(f"IoU test: {ubbr}")
-        data = trainer.storage.histories()["data_time"].values()
-        steps = trainer.step_s[3:]
-        window_s = sum(steps)
-        print(f"train_net_reg: cascade UBBR R-50-FPN base (60 classes, 3 stages, RBG 128 slots, 64 sampled per "
-              f"image), float32, IMS_PER_BATCH 16 at 832x1344, {TRAIN_NET_ITERS} iterations in {secs:.1f} s with "
-              f"the IoU test: all {len(steps)} steps after warm-up in {window_s:.3f} s, "
-              f"{window_s / len(steps) * 1e3:.2f} ms/iter and {16 * len(steps) / window_s:.2f} img/s end to end; "
-              f"data_time median {statistics.median(data) * 1e3:.2f} ms (max {max(data) * 1e3:.2f}); peak memory "
-              f"{peak:.2f} GiB; final losses { {k: round(rows[-1][k], 4) for k in sorted(losses)} } {tag}")
-        print(f"train_net_reg: K2/K3 launches {train_n[0] // TRAIN_NET_ITERS}/{train_n[1] // TRAIN_NET_ITERS} "
-              f"per training step, {test_n[0] // n_test}/{test_n[1]} per test batch of 1; IoU test on "
-              f"{sum(v['n'] for v in ubbr['per_class'].values())} jittered test gts in {RegCapture.test_s:.2f} s: "
+        ms = train_net_report("train_net_reg: cascade UBBR R-50-FPN base (60 classes, 3 stages, RBG 128 slots, 64 "
+                              "sampled per image), float32, IMS_PER_BATCH 16 at 832x1344", trainer, secs, peak, 16, tag)
+        print(f"train_net_reg: final losses { {k: round(rows[-1][k], 4) for k in sorted(losses)} }; K2/K3 launches "
+              f"{train_n[0] // TRAIN_NET_ITERS}/{train_n[1] // TRAIN_NET_ITERS} per training step, "
+              f"{test_n[0] // n_test}/{test_n[1]} per test batch of 1; IoU test on "
+              f"{sum(v['n'] for v in ubbr['per_class'].values())} jittered test gts in {trainer.test_s:.2f} s: "
               f"mean iou_in {ubbr['mean_iou_in']:.4f} iou_out {ubbr['mean_iou_out']:.4f} {tag}")
-        profile_call(trainer.run_step, window_s / len(steps) * 1e3,
-                     "train_net_reg iteration (loader wait, B=16 float32 step)", tag, stages=TRAIN_STAGES)
+        profile_call(trainer.run_step, ms, "train_net_reg iteration (loader wait, B=16 float32 step)", tag,
+                     stages=TRAIN_STAGES)
 
         # the kernels on one training step's and one reg-only batch's own
         # tensors: the three stages' boxes at 16 x 64 slots over the float32
@@ -2492,10 +2625,10 @@ def correct_path(tag, keep: str):
         covered = {k for k, v in meta["thing_dataset_id_to_contiguous_id"].items() if v < 60}
         cands = os.path.join(tmp, "candidates.json")
         n_cand = write_candidates(os.path.join(root, "cocosplit", "datasplit", "5k.json"), cands, covered)
-        res, secs, n = run(train_net_reg_qe, ["--resume", "--eval-only", "--config-file", UBBR_YAML, "OUTPUT_DIR", ub,
-                                              "DATASETS.TRAIN", "('coco_test_base',)", "DATASETS.DT_PATH",
-                                              f"('{cands}',)", "MODEL.LOAD_PROPOSALS", "False",
-                                              "QUERY_EXPAND.ENABLED", "True"])
+        res, secs, (_, *n), _ = run_cli(train_net_reg_qe, [
+            "--resume", "--eval-only", "--config-file", UBBR_YAML, "OUTPUT_DIR", ub, "DATASETS.TRAIN",
+            "('coco_test_base',)", "DATASETS.DT_PATH", f"('{cands}',)", "MODEL.LOAD_PROPOSALS", "False",
+            "QUERY_EXPAND.ENABLED", "True"], trainer=None)
         with open(cands) as f:
             src = json.load(f)
         with open(cands.replace(".json", "_ubbr.json")) as f:
@@ -2512,7 +2645,7 @@ def correct_path(tag, keep: str):
                     or y + h > H + 1e-3 or r["category_id"] != want[r["id"]]["category_id"]:
                 raise AssertionError(f"_ubbr.json row {r} (image {H}x{W})")
             moved = max(moved, max(abs(a - b) for a, b in zip(r["bbox"], want[r["id"]]["bbox"])))
-        if n != (3 * len(sizes), 0):
+        if n != [3 * len(sizes), 0]:
             raise AssertionError(f"train_net_reg_qe: K2/K3 launches {n}; want {3 * len(sizes)}/0")
         print(f"train_net_reg_qe --resume --eval-only: {n_cand} candidates of {len(sizes)} test images corrected "
               f"in {secs:.1f} s, {secs / len(sizes) * 1e3:.2f} ms/img end to end at batch 1 (model build, "
@@ -2806,12 +2939,13 @@ def finetune_reference_check(tag):
 
 
 CHAIN_TREE = (32, 8, 8)  # training, test and unlabeled images
+CHAIN_FT_NOVEL = "checkpoints/coco/faster_rcnn/faster_rcnn_R_50_FPN_ft_novel_30shot/model_final.pth"  # step 3's
 CHAIN_ITERS = 20
 # K2/K3 launches of every iteration of the chain's training runs
 CHAIN_LAUNCHES = {"1": (1, 1), "3": (1, 0), "5": (1, 0), "8": (3, 3), "9": (3, 0), "18": (1, 1)}
 
 
-def lvc_chain_path(tag, weights: str, ubbr_weights: str):
+def lvc_chain_path(tag, weights: str, ubbr_weights: str, keep_novel: str):
     """The LVC chain of scripts/coco_full_run.sh at full width through its
     twin (``drive_chain``): all 18 steps on the configs as they stand
     (R-50-FPN, IMS_PER_BATCH 16, 832x1344, float32), each from the files of
@@ -2828,7 +2962,8 @@ def lvc_chain_path(tag, weights: str, ubbr_weights: str):
     relations (``check_chain_files``); then K2 and K3 on one more step 18
     iteration's own tensors (16 x 512 slots, float32, C=256) against their
     plain versions. Kernel counts are set to 0 just before the chain and read
-    just after."""
+    just after. Step 3's 20-class ft_novel checkpoint is copied to
+    ``keep_novel`` (phase 26 starts from it)."""
     import os
     import statistics
     import tempfile
@@ -2904,6 +3039,7 @@ def lvc_chain_path(tag, weights: str, ubbr_weights: str):
         secs = time.perf_counter() - t0
         n = k2.launches, k3.launches
         counts = check_chain_files(work, cls, "dino_vits8")
+        shutil.copy(os.path.join(work, CHAIN_FT_NOVEL), keep_novel)
         print(f"coco_full_run: all 18 steps in {secs:.1f} s, each from the files of the steps before it; mined / "
               f"verified (class {cls}) / ignore regions: {counts}; K2/K3 launches over the chain {n[0]}/{n[1]} "
               f"{tag}")
@@ -3215,37 +3351,17 @@ def dp_train_main(argv, report_dir: str, knn: bool):
 
     import torch
 
-    from lvc_tpu_torch.engine.defaults import default_argument_parser
-    from lvc_tpu_torch.ops import roi_align as ra
     from lvc_tpu_torch.ops.knn import knn_vote, sharded_knn_vote, similarity
     from lvc_tpu_torch.tools import train_net
     from lvc_tpu_torch.utils import comm
 
-    class Capture(train_net.Trainer):
-        last = None
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            Capture.last = self
-            self.step_s = []
-
-        def run_step(self):
-            t0 = time.perf_counter()
-            super().run_step()
-            self.step_s.append(time.perf_counter() - t0)
-
-    train_net.Trainer = Capture
     tf32_off()
     torch.cuda.reset_peak_memory_stats()
-    ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-    t0 = time.perf_counter()
-    res = train_net.main(default_argument_parser().parse_args(argv))
-    secs = time.perf_counter() - t0
-    trainer = Capture.last
+    res, secs, (_, k2, k3), trainer = run_cli(train_net, argv)
     hist = trainer.storage.histories()
     report = {
         "rank": comm.get_rank(), "world": comm.get_world_size(), "secs": secs,
-        "launches": [ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches],
+        "launches": [k2, k3],
         "step_s": trainer.step_s, "time": hist["time"].values(), "data_time": hist["data_time"].values(),
         "losses": {k: h.values() for k, h in hist.items() if k.startswith(("loss", "total"))},
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "results": res,
@@ -3303,10 +3419,8 @@ def dp_train_net_path(tag, world: int = 2, devices=("cuda:0", "cuda:0")):
 
     from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
     from lvc_tpu_torch.config import get_cfg
-    from lvc_tpu_torch.engine.defaults import default_argument_parser
     from lvc_tpu_torch.engine.launch import launch
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
-    from lvc_tpu_torch.ops import roi_align as ra
     from lvc_tpu_torch.tools import train_net
     from lvc_tpu_torch.utils.init import damped_init
 
@@ -3365,10 +3479,7 @@ def dp_train_net_path(tag, world: int = 2, devices=("cuda:0", "cuda:0")):
         eval_out = os.path.join(tmp, "eval")
         eval_opts = list(opts)
         eval_opts[1] = os.path.join(out, saved[1])
-        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-        res = train_net.main(default_argument_parser().parse_args(
-            yaml + ["--eval-only"] + eval_opts + ["OUTPUT_DIR", eval_out]))
-        k2, k3 = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+        res, _, (_, k2, k3), _ = run_cli(train_net, yaml + ["--eval-only"] + eval_opts + ["OUTPUT_DIR", eval_out])
         got = result_rows(os.path.join(eval_out, "inference", "coco_instances_test_results.json"))
         if len(got) != len(merged) or len(merged) < 100:
             raise AssertionError(f"--eval-only: {len(got)} result rows; the merged evaluation wrote {len(merged)}")
@@ -3406,6 +3517,514 @@ def dp_train_net_path(tag, world: int = 2, devices=("cuda:0", "cuda:0")):
           f"knn_vote on {knn['clear']} of {knn['queries']} queries away from near-ties (gap > 1e-5; modes equal on "
           f"{knn['modes_equal_all']} of all), {knn['ms']:.3f} ms a call on rank 0 (the gather included; knn_vote "
           f"alone on all the queries {knn['knn_vote_ms']:.3f} ms in the same rank) {tag}")
+
+
+# ---------------------------------------------------------------------------
+# The extra ROI heads: ParallelStandardROIHeads, CascadeStandardROIHeads,
+# StandardROIHeadsCascadeBBox, the C4 Res5ROIHeads and the debug inference
+# ---------------------------------------------------------------------------
+
+# (K2/K3 launches of a training step, K1/K2 launches of an eval forward) of the narrow models of phase 25
+EXTRA_LAUNCHES = {
+    "ParallelStandardROIHeads": ((2, 2), (0, 2)), "CascadeStandardROIHeads": ((1, 1), (0, 2)),
+    "StandardROIHeadsCascadeBBox": ((1, 1), (0, 1)), "Res5ROIHeads": ((1, 1), (0, 1)),
+    "StandardROIHeads": (None, (0, 1)), "Res5ROIHeads pallas_fast": (None, (1, 0)),
+}
+
+
+def c4_cfg():
+    """``lvc_tpu/config/defaults.py``'s own C4 detector (detectron2's
+    Base-RCNN-C4: res4 features, ``Res5ROIHeads``, a 14 x 14 pool, RPN
+    6000/1000 at test) with the plain ResNet backbone, built in code."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.BACKBONE.NAME = "build_resnet_backbone"
+    return cfg
+
+
+def extra_heads_cfg(name: str, device: str):
+    """Phase 25's narrow models at float32 with exhaustive sampling and
+    POOLER_IMPL pallas_train (K2 and K3 on the card, their plain versions on
+    the CPU): phase 6's R-50-FPN with ``name``'s ROI heads (80 classes for
+    ``ParallelStandardROIHeads``; ``StandardROIHeads`` with ``DEBUG``), or
+    ``c4_cfg`` at the same widths (res4 256 wide) for ``Res5ROIHeads``."""
+    if name == "Res5ROIHeads":
+        cfg = c4_cfg()
+        cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64
+        cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 16
+        cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+        cfg.MODEL.ROI_HEADS.POOLER_IMPL = "pallas_train"
+    else:
+        cfg = narrow_cfg("pallas_train")
+        cfg.MODEL.ROI_HEADS.NAME = name
+        cfg.MODEL.ROI_HEADS.NUM_CLASSES = 80 if name == "ParallelStandardROIHeads" else 5
+    cfg.DEBUG = name == "StandardROIHeads"
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
+    cfg.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 8192
+    cfg.MODEL.RPN.POSITIVE_FRACTION = 0.999
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 128
+    cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.999
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 200
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 100
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.MODEL.DEVICE = device
+    return cfg
+
+
+def extra_heads_init(model, seed: int = 0):
+    """``calibrated_init``, plus its scaling where the names differ: the C4
+    backbone's convs (no ``bottom_up``) and the twin heads' predictors."""
+    import torch
+
+    calibrated_init(model, seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.startswith(("backbone.stem.", "backbone.res")) and t.dim() == 4:
+                t.mul_(0.8)
+            elif name.startswith("roi_heads.roi_heads.") and ".box_predictor.cls_score.weight" in name:
+                t.mul_(0.03)
+            elif name.startswith("roi_heads.roi_heads.") and ".box_predictor.bbox_pred.weight" in name:
+                t.mul_(0.3)
+    return model
+
+
+def float64_witness():
+    """A function mode under which a model converted to float64 on the CPU
+    (``.double()``, ``compute_dtype`` float64) runs the float32 model's code
+    in float64: a cast of a float64 tensor to float32 (``.float()``,
+    ``.to(torch.float32)``) keeps it float64. Anchors, gt boxes and
+    sampling draws stay float32, so the witness matches and samples as the
+    float32 runs do."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class KeepFloat64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in (torch.Tensor.float, torch.Tensor.to) and isinstance(args[0], torch.Tensor) \
+                    and args[0].dtype == torch.float64:
+                if func is torch.Tensor.float:
+                    return args[0]
+                args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+                kwargs = {k: torch.float64 if v is torch.float32 else v for k, v in kwargs.items()}
+            return func(*args, **kwargs)
+
+    return KeepFloat64()
+
+
+def detection_errors(what, c, g):
+    """Two runs' detections (any ``Detections`` type), ``g`` against the
+    reference ``c``: validity, classes, proposal slots and the debug top-2
+    classes must be equal. Returns the number of valid slots and the
+    largest box (px) and score (with the debug top-2 scores) errors."""
+    import torch
+
+    v = c.valid
+    if not torch.equal(v, g.valid) or int(v.sum()) < 10 or not torch.equal(c.classes[v], g.classes[v]) \
+            or not torch.equal(c.proposal_idx[v], g.proposal_idx[v]):
+        raise AssertionError(f"{what}: detections differ in validity, class or proposal")
+    box_err = float((c.boxes[v].double() - g.boxes[v].double()).abs().max())
+    score_err = float((c.scores[v].double() - g.scores[v].double()).abs().max())
+    if hasattr(c, "top2_inds"):
+        if not torch.equal(c.top2_inds[v], g.top2_inds[v]):
+            raise AssertionError(f"{what}: debug top-2 classes differ")
+        score_err = max(score_err, float((c.top2_scores[v].double() - g.top2_scores[v].double()).abs().max()))
+    return int(v.sum()), box_err, score_err
+
+
+# Phase 25 holds the card's float32 and the CPU's float32 against a float64
+# witness on the CPU. The card's distance may be WITNESS_FACTOR times the
+# CPU's, or the FLOOR of the quantity, whichever is larger: 10 where both
+# devices run the same kind of sums (losses, detections), 100 for the
+# gradients, whose convolution weight reductions cuDNN runs by other
+# algorithms than the CPU (tiled, split or transformed sums round more than
+# a direct one). A fault moves a result by far more.
+WITNESS_FACTOR = {"loss": 10, "grad": 100, "box": 10, "score": 10}
+WITNESS_FLOOR = {"loss": 1e-4, "grad": 1e-4, "box": 1e-3, "score": 1e-4}
+
+
+def witness_limit(kind, cpu_err):
+    return max(WITNESS_FLOOR[kind], WITNESS_FACTOR[kind] * cpu_err)
+
+
+def extra_heads_run(model, cfg, batch, train, recorder=None):
+    """One run of a phase 25 model: (losses, trainable gradients as float64,
+    eval detections on the CPU, (K2, K3) launches of the step, K1 and K2
+    launches of the eval forward). ``train``: a training step (generator
+    seed 0) first; the eval forward runs from the weights before it.
+    ``recorder`` records the step, or the eval forward where there is no
+    step. A model in float64 runs under ``float64_witness`` on the batch's
+    image in float64."""
+    import contextlib
+
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+
+    witness = next(model.parameters()).dtype == torch.float64
+    mode = float64_witness() if witness else contextlib.nullcontext()
+    if witness:
+        batch = dict(batch, image=torch.as_tensor(batch["image"]).double())
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    losses = grads = step_n = None
+    with mode:
+        if train:
+            model.train()
+            opt = build_optimizer(cfg, model)
+            step = make_train_step(model, opt, build_lr_schedule(cfg, opt))
+            ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+            with recorder or contextlib.nullcontext():
+                metrics = step(batch, torch.Generator().manual_seed(0))
+            step_n = ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+            losses = {k: float(v) for k, v in metrics.items()}
+            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.requires_grad}
+            model.load_state_dict(weights)
+        model.eval()
+        ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
+        with (recorder if not train else None) or contextlib.nullcontext():
+            dets = model(batch)
+        eval_n = ra.roi_align_band.launches, ra.roi_align_paired.launches
+    return losses, grads, type(dets)(*[t.cpu() for t in dets]), step_n, eval_n
+
+
+def extra_heads_reference_check(tag):
+    """Phase 25: each extra ROI head (``extra_heads_cfg``) at float32 on the
+    card and on the CPU, both held against a float64 witness of the same
+    weights (``extra_heads_init``) on the CPU (``float64_witness``), each
+    within ``witness_limit`` of the CPU's own distance: one training step
+    (exhaustive sampling, so every run samples the same sets) with its
+    losses and trainable gradients, then the eval forward's detections
+    (``detection_errors``). The C4 model runs on three batches, as its
+    float32 backbone gradients are the least well conditioned, and also
+    serves with POOLER_IMPL pallas_fast (K1's band form on one level).
+    CascadeStandard's inference pools twice, Parallel's twins pool once
+    each; the launch counts of each card run are ``EXTRA_LAUNCHES``. K1, K2
+    and K3 are then held to their plain versions on the last C4 batch's own
+    P=14 single-level tensors (``check_recorded_pool``)."""
+    import copy
+
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+
+    small = train_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 100))
+    large = train_batch(2, 256, 320, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 120))
+    large["gt_boxes"][:, 0] = torch.tensor([[20.0, 10.0, 260.0, 240.0], [40.0, 5.0, 300.0, 250.0]])  # > 200^2
+    parallel = dict(small, gt_classes=small["gt_classes"] * 16)  # seen and unseen ids of the 80
+    c4 = {f"seed {seed}, gt {lo}-{hi} px": train_batch(2, 128, 192, 4, seed=seed, device="cpu", num_classes=5,
+                                                       n_gt=(3, 3), size=(lo, hi))
+          for seed, lo, hi in ((3, 24, 100), (3, 40, 120), (8, 40, 120))}
+    last_c4 = list(c4)[-1]
+    runs = [("ParallelStandardROIHeads", "", parallel), ("CascadeStandardROIHeads", "", small),
+            ("StandardROIHeadsCascadeBBox", "", large)]
+    runs += [("Res5ROIHeads", label, batch) for label, batch in c4.items()] + [("StandardROIHeads", "", small)]
+    runs.append(("Res5ROIHeads pallas_fast", "", c4[last_c4]))
+    c4_rec = PoolRecorder()
+    lines = []
+    for name, label, batch in runs:
+        head = name.split()[0]
+        cfg = extra_heads_cfg(head, "cpu")
+        if name.endswith("pallas_fast"):
+            cfg.MODEL.ROI_HEADS.POOLER_IMPL = "pallas_fast"
+        cpu = extra_heads_init(build_model(cfg, device="cpu"))
+        witness = copy.deepcopy(cpu).double()
+        witness.compute_dtype = torch.float64
+        gpu_cfg = cfg.clone()
+        gpu_cfg.MODEL.DEVICE = "cuda"
+        gpu = build_model(gpu_cfg)
+        gpu.load_state_dict(cpu.state_dict())
+        want_train, want_eval = EXTRA_LAUNCHES[name]
+        # recorded on the card: the C4 step on the last batch and the pallas_fast forward
+        recorder = c4_rec if name.endswith("pallas_fast") or label == last_c4 else None
+        res = {key: extra_heads_run(model, cfg, batch, want_train is not None, recorder if key == "gpu" else None)
+               for key, model in (("cpu", cpu), ("f64", witness), ("gpu", gpu))}
+        if head == "Res5ROIHeads" and want_train is not None:
+            # what part of the card's distance cuDNN's algorithms make: PyTorch's own CUDA convolutions,
+            # whose NCHW outputs go back to channels_last for the pool
+            hook = gpu.backbone.register_forward_hook(
+                lambda module, args, out: {k: v.contiguous(memory_format=torch.channels_last) for k, v in out.items()})
+            try:
+                with torch.backends.cudnn.flags(enabled=False):
+                    _, n_grad, *_ = extra_heads_run(gpu, cfg, batch, True)
+            finally:
+                hook.remove()
+        (c_loss, c_grad, c_dets, _, _), (w_loss, w_grad, w_dets, _, _), (g_loss, g_grad, g_dets, g_step, g_eval) = (
+            res["cpu"], res["f64"], res["gpu"])
+        if (g_step, g_eval) != (want_train, want_eval):
+            raise AssertionError(f"{name}: card launches (K2/K3 a step, K1/K2 an eval) {(g_step, g_eval)}, "
+                                 f"want {(want_train, want_eval)}")
+        what = f"{name}{' (DEBUG)' if cfg.DEBUG else ''}{f' [{label}]' if label else ''}"
+        part = ""
+        if want_train is not None:
+            if not (set(c_loss) == set(g_loss) == set(w_loss)) or min(w_loss.values()) <= 0 \
+                    or not (set(c_grad) == set(g_grad) == set(w_grad)):
+                raise AssertionError(f"{what}: loss or gradient names differ, or a loss is not positive")
+            errs = {}
+            for kind, want, c, g in (("loss", w_loss, c_loss, g_loss), ("grad", w_grad, c_grad, g_grad)):
+                if kind == "loss":
+                    rel = lambda a, w: abs(a - w) / abs(w)  # noqa: E731
+                else:
+                    rel = lambda a, w: float((a - w).norm() / w.norm().clamp(min=1e-30))  # noqa: E731
+                c_err = {k: rel(c[k], w) for k, w in want.items()}
+                g_err = {k: rel(g[k], w) for k, w in want.items()}
+                over = [k for k in want if g_err[k] > witness_limit(kind, c_err[k])]
+                if over:
+                    k = over[0]
+                    raise AssertionError(f"{what}: card {kind} {k} {g_err[k]:.3e} from float64, the CPU's "
+                                         f"{c_err[k]:.3e} (limit {witness_limit(kind, c_err[k]):.3e})")
+                worst = max(g_err, key=g_err.get)
+                errs[kind] = (f"{len(want)} {kind}{'es' if kind == 'loss' else 's'} from float64: card max "
+                              f"{g_err[worst]:.3e} ({worst}; the CPU's {c_err[worst]:.3e} there, limit "
+                              f"{witness_limit(kind, c_err[worst]):.3e}), CPU max {max(c_err.values()):.3e}, "
+                              f"largest card/CPU ratio {max(g_err[k] / max(c_err[k], 1e-30) for k in want):.1f}")
+            part = f"{errs['loss']}; {errs['grad']}; K2/K3 a step {g_step[0]}/{g_step[1]}; "
+            if head == "Res5ROIHeads":
+                n_err = {k: float((n_grad[k] - w).norm() / w.norm().clamp(min=1e-30)) for k, w in w_grad.items()}
+                worst = max(n_err, key=n_err.get)
+                part += f"with cuDNN off the card's grads max {n_err[worst]:.3e} from float64 ({worst}); "
+        n, c_box, c_score = detection_errors(f"{what} CPU vs float64", w_dets, c_dets)
+        _, g_box, g_score = detection_errors(f"{what} card vs float64", w_dets, g_dets)
+        if g_box > witness_limit("box", c_box) or g_score > witness_limit("score", c_score):
+            raise AssertionError(f"{what}: card boxes {g_box:.3e} px and scores {g_score:.3e} from float64, the "
+                                 f"CPU's {c_box:.3e} and {c_score:.3e}")
+        lines.append(f"{what}: {part}eval {type(g_dets).__name__} {tuple(g_dets.boxes.shape)}, {n} valid, boxes from "
+                     f"float64 card {g_box:.3e} px CPU {c_box:.3e} (limit {witness_limit('box', c_box):.3e}), scores "
+                     f"card {g_score:.3e} CPU {c_score:.3e} (limit {witness_limit('score', c_score):.3e}), K1/K2 "
+                     f"{g_eval[0]}/{g_eval[1]}")
+    for line in lines:
+        print(f"extra heads reference (card and CPU float32 against CPU float64, narrow): {line} {tag}")
+    if len(c4_rec.band) != 1 or len(c4_rec.fwd) != 1 or len(c4_rec.bwd) != 1 \
+            or c4_rec.fwd[0][1].rows.shape[1] != 14 or len(c4_rec.fwd[0][0]) != 1:
+        raise AssertionError("the C4 runs did not record one single-level P=14 call of each kernel")
+    check_recorded_pool("extra heads reference C4 (P=14, res4)", c4_rec, tag)
+
+
+PARALLEL_ITERS = 20
+
+
+def parallel_finetune_path(tag, base_pth: str, novel_pth: str):
+    """Phase 26, the twin-head fine-tune at full width:
+    ``ckpt_surgery --method combine_parallel --coco`` of ``base_pth`` (phase
+    17's 60-class checkpoint) and ``novel_pth`` (the chain's 20-class
+    ft_novel checkpoint, phase 22), loaded strictly into the built
+    ``ParallelStandardROIHeads`` model; ``train_net`` on
+    faster_rcnn_R_50_FPN_base.yaml with ``MODEL.ROI_HEADS.NAME
+    ParallelStandardROIHeads``, 80 classes, the all-class splits of phase
+    17's seeded tree, IMS_PER_BATCH 16 at 832x1344, AMP, ``PARALLEL_ITERS``
+    iterations, then its evaluation (K2 twice an image); K2/K3 2/2 every
+    iteration; 2 x DETECTIONS_PER_IMAGE = 200 slots with classes in the
+    80-way space."""
+    import json
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.tools import ckpt_surgery, train_net
+
+    n_train, n_test = TRAIN_NET_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        use_coco_tree(root)
+        combined = ckpt_surgery.main(ckpt_surgery.parser.parse_args([
+            "--method", "combine_parallel", "--coco", "--src1", base_pth, "--src2", novel_pth, "--save-dir", tmp]))
+        opts = ["MODEL.ROI_HEADS.NAME", "ParallelStandardROIHeads", "MODEL.ROI_HEADS.NUM_CLASSES", "80",
+                "DATASETS.TRAIN", "('coco_trainval_all',)", "DATASETS.FS_TRAIN", "('coco_trainval_all',)",
+                "DATASETS.TEST", "('coco_test_all',)", "MODEL.WEIGHTS", combined, "SOLVER.BASE_LR", "1e-4", "SOLVER.CHECKPOINT_PERIOD", "1000000",
+                "SEED", "0", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001"]
+        cfg = get_cfg()
+        cfg.merge_from_file(TRAIN_NET_YAML)
+        cfg.merge_from_list(opts)
+        model = build_model(cfg)
+        missing, unexpected = model.load_state_dict(torch.load(combined, weights_only=False)["model"], strict=True)
+        twins = sum(1 for k in model.state_dict() if k.startswith("roi_heads.roi_heads."))
+        del model
+        torch.cuda.empty_cache()
+        out = os.path.join(tmp, "out")
+        yaml = ["--config-file", TRAIN_NET_YAML]
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, n, trainer = run_cli(
+            train_net, yaml + opts + ["SOLVER.AMP.ENABLED", "True", "SOLVER.MAX_ITER", str(PARALLEL_ITERS), "OUTPUT_DIR", out])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        c = trainer.cfg
+        if (c.SOLVER.IMS_PER_BATCH, c.MODEL.ROI_HEADS.POOLER_IMPL) != (16, "auto") or not c.SOLVER.AMP.ENABLED:
+            raise AssertionError("the phase must run the config's IMS_PER_BATCH 16, POOLER_IMPL auto and AMP")
+        if set(trainer.step_launches) != {(2, 2)} or n[1:] != (2 * PARALLEL_ITERS + 2 * n_test, 2 * PARALLEL_ITERS):
+            raise AssertionError(f"K2/K3 per iteration {sorted(set(trainer.step_launches))}, in all {n[1:]}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        keys = {k for r in rows for k in r if k.startswith(("base_", "novel_"))}
+        if keys != {f"{p}_loss_{k}" for p in ("base", "novel") for k in ("cls", "box_reg")} or not all(
+                math.isfinite(v) for r in rows for k, v in r.items() if k.startswith(("loss", "total", "base", "novel"))):
+            raise AssertionError(f"metrics.json: twin losses {sorted(keys)}, or not finite")
+        ap = res["bbox"]["AP"]
+        result = result_rows(os.path.join(out, "inference", "coco_instances_test_results.json"))
+        if not math.isfinite(ap) or ap < 0 or not result:
+            raise AssertionError(f"no finite bbox AP or no result rows: {res}, {len(result)} rows")
+        model = trainer.model
+        model.eval()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        probe = {"image": torch.rand(1, 832, 1344, 3, generator=g, device="cuda") * 255,
+                 "image_size": torch.tensor([[832, 1344]], dtype=torch.int32, device="cuda")}
+        dets = model(probe)
+        D = 2 * c.TEST.DETECTIONS_PER_IMAGE
+        if tuple(dets.boxes.shape) != (1, D, 4) or not dets.valid.any() or bool((dets.classes[dets.valid] >= 80).any()):
+            raise AssertionError(f"merged detections {tuple(dets.boxes.shape)}, {int(dets.valid.sum())} valid, "
+                                 f"want (1, {D}, 4) in 80 classes")
+        print(f"parallel fine-tune: combine_parallel of phase 17's base (60 classes) and the chain's ft_novel (20) "
+              f"loaded strictly (missing {len(missing)}, unexpected {len(unexpected)}, {twins} twin tensors); "
+              f"train_net ParallelStandardROIHeads, 80 classes, AMP, IMS_PER_BATCH 16 at 832x1344, bbox AP {ap:.4f} "
+              f"of {len(result)} result rows on {n_test} images ({len(rows)} metrics rows), merged detections "
+              f"{tuple(dets.boxes.shape)} with {int(dets.valid.sum())} valid {tag}")
+        train_net_report("parallel fine-tune train_net", trainer, secs, peak, 16, tag)
+
+
+C4_ITERS = 20
+
+
+def wide_box_distance(level, proposals):
+    """How far K2 (``pallas``) and K1's band form (``pallas_fast``) are from
+    the exact point gather on one stride-16 level at P=14: the largest
+    absolute difference over boxes whose sample columns span more than the
+    paired window's 46 (JAX's semantics collapse their far samples onto the
+    window's last column) and over the others, each over the largest
+    |exact| value."""
+    import torch
+
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    B, H, W = level.shape[0], level.shape[1] * 16, level.shape[2] * 16
+    wide = torch.tensor([[0, 0, W, H], [0, H / 2 - 80, W, H / 2 + 80], [40, 0, W - 40, 120], [0, H - 100, W, H],
+                         [100, 200, 900, 500], [300, 0, 1200, H], [0, 0, 800, H], [W - 820, 10, W, 300]],
+                        dtype=torch.float32, device=level.device)
+    boxes = torch.cat([proposals.float(), wide[None].expand(B, -1, -1)], 1)
+    kw = dict(output_size=14, sampling_ratio=0, max_grid=2, min_level=4)
+    exact = ra.batched_multilevel_roi_align([level], boxes, (16,), **kw)
+    span = (boxes[..., 2] - boxes[..., 0]) / 16 > 45
+    scale = float(exact.abs().max())
+    parts = [f"{int(span.sum())} wide and {int((~span).sum())} other boxes"]
+    for name, got in (("K2", ra.pool_paired([level], boxes, (16,), **kw)),
+                      ("K1 band", ra.pool_band([level], boxes, (16,), **kw))):
+        err = (got - exact).abs().amax(dim=(2, 3, 4)) / scale
+        parts.append(f"{name} max |diff| / max |exact| {float(err[span].max()):.3e} on the wide, "
+                     f"{float(err[~span].max()):.3e} on the others")
+    return "; ".join(parts)
+
+
+def c4_path(tag):
+    """Phase 27, R-50-C4 at full width (``c4_cfg``: res4 1024 wide, P=14,
+    80 classes), 2 images a card at 832x1344 (Base-RCNN-C4's IMS_PER_BATCH 16
+    over 8 cards), seeded damped weights: a bf16 serving forward with
+    POOLER_IMPL pallas_fast (K1's band form: one level) and one with auto
+    (K2), 1 warm-up and 3 timed each, every kernel count set to 0 just
+    before and read just after; the score threshold is 0.001, so that the
+    random detector's candidates reach the per-class NMS and every timed
+    forward keeps detections; ``train_net`` with POOLER_IMPL pallas_train
+    and AMP for ``C4_ITERS`` iterations on phase 17's seeded tree (K2/K3
+    1/1 every iteration), then its evaluation; K1, K2 and K3 on the path's
+    own tensors (one forward of each pool, one more training iteration)
+    against their plain versions, with their times and bounds."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils.init import damped_init
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, W = 2, 832, 1344
+    batch = {"image": torch.rand(B, H, W, 3, generator=g, device="cuda") * 255,
+             "image_size": torch.tensor([[H, W]] * B, dtype=torch.int32, device="cuda")}
+    rec = PoolRecorder()
+    serving = []
+    for impl, kernel in (("pallas_fast", ra.roi_align_band), ("auto", ra.roi_align_paired)):
+        cfg = c4_cfg()
+        cfg.MODEL.DTYPE = "bfloat16"
+        cfg.MODEL.ROI_HEADS.POOLER_IMPL = impl
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+        model = damped_init(build_model(cfg), seed=0)
+        model(batch)  # warm-up
+        torch.cuda.synchronize()
+        ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dets = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        n = ra.roi_align_band.launches, ra.roi_align_paired.launches
+        if n != ((iters, 0) if impl == "pallas_fast" else (0, iters)):
+            raise AssertionError(f"C4 serving {impl}: K1/K2 launches {n} over {iters} forwards")
+        check_detections(dets, B)
+        if not dets.valid.any(dim=1).all():
+            raise AssertionError(f"C4 serving {impl}: an image kept no detection ({dets.valid.sum(dim=1).tolist()})")
+        with rec:
+            model(batch)
+        if impl == "auto":
+            with torch.no_grad():
+                res4 = model.backbone(model.model_images(batch))["res4"].float().permute(0, 2, 3, 1)
+                semantics = wide_box_distance(res4, model.proposals(batch)[0])
+        serving.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), K1/K2 {n[0]}/{n[1]}, "
+                       f"valid detections {dets.valid.sum(dim=1).tolist()} of {dets.valid.shape[1]} slots an image")
+        del model
+        torch.cuda.empty_cache()
+    print(f"C4 serving: R-50-C4 bf16 B={B} at {H}x{W}: " + "; ".join(serving) + f" {tag}")
+    print(f"C4 pools against the exact gather (float32 res4 of the auto forward, its proposals plus 8 boxes an "
+          f"image wider than the paired window, P=14, grid <= 2): {semantics} {tag}")
+
+    n_train, n_test = TRAIN_NET_TREE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        use_coco_tree(root)
+        model = damped_init(build_model(c4_cfg()), seed=0)
+        weights = DetectionCheckpointer(model, os.path.join(tmp, "weights")).save("damped_init", iteration=0)
+        del model
+        opts = ["MODEL.BACKBONE.NAME", "build_resnet_backbone", "MODEL.WEIGHTS", weights,
+                "MODEL.ROI_HEADS.POOLER_IMPL", "pallas_train", "SOLVER.AMP.ENABLED", "True",
+                "SOLVER.IMS_PER_BATCH", str(B), "SOLVER.BASE_LR", "1e-4", "SOLVER.MAX_ITER", str(C4_ITERS),
+                "SOLVER.CHECKPOINT_PERIOD", "1000000", "DATASETS.TRAIN", "('coco_trainval_all',)",
+                "DATASETS.FS_TRAIN", "('coco_trainval_all',)", "DATASETS.TEST", "('coco_test_all',)",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001", "SEED", "0",
+                "OUTPUT_DIR", os.path.join(tmp, "out")]
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, n, trainer = run_cli(train_net, opts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        c = trainer.cfg
+        if (c.MODEL.ROI_HEADS.NAME, c.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION, tuple(c.MODEL.ROI_HEADS.IN_FEATURES),
+                c.MODEL.RPN.PRE_NMS_TOPK_TEST, c.MODEL.RPN.POST_NMS_TOPK_TEST) != ("Res5ROIHeads", 14, ("res4",),
+                                                                                   6000, 1000):
+            raise AssertionError("the phase must run the C4 defaults")
+        if set(trainer.step_launches) != {(1, 1)} or n[1:] != (C4_ITERS + n_test, C4_ITERS):
+            raise AssertionError(f"C4 train_net: K2/K3 per iteration {sorted(set(trainer.step_launches))}, all {n}")
+        result = result_rows(os.path.join(tmp, "out", "inference", "coco_instances_test_results.json"))
+        if not (res["bbox"]["AP"] >= 0) or not result:
+            raise AssertionError(f"C4 train_net: no bbox AP or no result rows: {res}, {len(result)} rows")
+        print(f"C4 train_net: R-50-C4 (Res5ROIHeads, P=14, res4 1024 wide) AMP POOLER_IMPL pallas_train, "
+              f"IMS_PER_BATCH {B} at 832x1344, bbox AP {res['bbox']['AP']:.4f} of {len(result)} result rows on "
+              f"{n_test} images {tag}")
+        train_net_report("C4 train_net", trainer, secs, peak, B, tag)
+        with rec:
+            trainer.run_step()
+        del trainer
+    if [len(rec.band), len(rec.fwd), len(rec.bwd)] != [1, 2, 1] or any(
+            len(levels) != 1 or taps.rows.shape[1] != 14 or levels[0].shape[-1] != 1024
+            for levels, taps in rec.band + rec.fwd):
+        raise AssertionError(f"C4: recorded K1/K2/K3 calls {len(rec.band)}/{len(rec.fwd)}/{len(rec.bwd)}")
+    return check_recorded_pool("C4 path (P=14, one level, C=1024)", rec, tag, timed=True)
 
 
 def tf32_off():
@@ -3467,9 +4086,13 @@ def main() -> int:
         corrector_reference_check(tag)
         correct_path(tag, os.path.join(keep, "ubbr.pth"))
         finetune_reference_check(tag)
-        lvc_chain_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ubbr.pth"))
+        lvc_chain_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ubbr.pth"),
+                       os.path.join(keep, "ft_novel.pth"))
         dp_reference_check(tag)
         dp_train_net_path(tag)
+        extra_heads_reference_check(tag)
+        parallel_finetune_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ft_novel.pth"))
+        c4_path(tag)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

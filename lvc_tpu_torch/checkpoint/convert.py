@@ -11,7 +11,12 @@ at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
 ``CosineSimOutputLayers`` keeps a bare ``cls_score_weight`` (in, K+1) in
 flax and ``cls_score.weight`` (K+1, in) with no bias here; its learnable
 ``scale`` has one name in both (``convert.py:80, 109, 136``).
-``vit_from_flax`` and ``vit_to_flax`` do the
+``ParallelStandardROIHeads``' twins are ``roi_heads/{base,novel}_head`` in
+flax and ``roi_heads.roi_heads.{base,novel}`` here, the keys
+``ckpt_surgery --method combine_parallel`` writes (JAX's ``torch_to_flax``
+keeps that doubled prefix, so its flax tree cannot take such a file). The
+C4 head's blocks are ``res5.{0,1,2}`` in both, its extra regressor
+``bbox_branch``. ``vit_from_flax`` and ``vit_to_flax`` do the
 same for the DINO verifier ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
 """
@@ -27,6 +32,14 @@ _RES_BLOCK = re.compile(r"res\d\.\d+")
 _RES_STAGE = re.compile(r"res\d")
 _CASCADE = re.compile(r"^(box_head|box_predictor)_(\d+)$")
 _CASCADE_MODULES = ("box_head", "box_predictor")
+_TWINS = {"base_head": "base", "novel_head": "novel"}  # flax name -> ParallelStandardROIHeads key
+
+
+def _twin_to_torch(path):
+    """``roi_heads/base_head/...`` -> ``roi_heads.roi_heads.base...``."""
+    if len(path) > 2 and path[0] == "roi_heads" and path[1] in _TWINS:
+        return ("roi_heads", "roi_heads", _TWINS[path[1]]) + tuple(path[2:])
+    return tuple(path)
 
 
 def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -53,7 +66,7 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(variables.get("params", {})).items():
-        parts = [_CASCADE.sub(r"\1.\2", p) for p in path]
+        parts = [_CASCADE.sub(r"\1.\2", p) for p in _twin_to_torch(path)]
         if parts[-1] == "kernel" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "bias" and parts[-2] == "conv":
@@ -69,6 +82,7 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         else:
             out[".".join(parts)] = v
     for path, v in _flatten(variables.get("batch_stats", {})).items():
+        path = _twin_to_torch(path)
         if path[-2] != "FrozenBatchNorm_0":
             raise KeyError(f"unexpected batch_stats entry {'/'.join(path)}")
         out[".".join(path[:-2]) + ".norm." + path[-1]] = v
@@ -94,6 +108,8 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 parts[-1] = parts[-1] + "_" + p  # a cascade stage
             else:
                 parts.append(p)
+        if parts[:2] == ["roi_heads", "roi_heads"] and parts[2] in _TWINS.values():
+            parts[1:3] = [parts[2] + "_head"]  # a ParallelStandardROIHeads twin
         name, mod = parts[-1], parts[:-1]
         if mod and mod[-1] == "norm" and key.rsplit(".", 1)[0] + ".running_var" not in state_dict:
             if name not in ("weight", "bias"):

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lvc_tpu_torch.modeling.backbone.resnet import ResNet, build_resnet
+from lvc_tpu_torch.modeling.backbone.resnet import ResNet, build_resnet, resnet_out_channels
 from lvc_tpu_torch.modeling.layers import Conv2d
 
 
@@ -73,12 +73,9 @@ def fpn_strides(in_features: Sequence[str]) -> Dict[str, int]:
 
 
 def build_resnet_fpn_backbone(cfg) -> FPN:
-    bottom_up = build_resnet(cfg)
-    res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
-    in_channels = {f"res{i}": res2 * 2 ** (i - 2) for i in range(2, 6)}
     return FPN(
-        bottom_up=bottom_up,
-        in_channels=in_channels,
+        bottom_up=build_resnet(cfg),
+        in_channels=resnet_out_channels(cfg),
         in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
         norm=cfg.MODEL.FPN.NORM,

@@ -1,9 +1,10 @@
 """ResNet backbone (PyTorch).
 
 Counterpart of ``lvc_tpu/modeling/backbone/resnet.py`` (BasicStem:24,
-BottleneckBlock:52, ResNet:208, build_resnet:319): same topology, stride
-placement (STRIDE_IN_1X1) and FrozenBN default, with detectron2's module
-names (``stem.conv1``, ``res{2..5}.{i}.conv{1..3}``, ``shortcut``). Only the
+BottleneckBlock:52, ResNet:208, RESNET_STAGE_STRIDES:307,
+resnet_out_channels:310, build_resnet:319): same topology, stride placement (STRIDE_IN_1X1) and
+FrozenBN default, with detectron2's module names (``stem.conv1``,
+``res{2..5}.{i}.conv{1..3}``, ``shortcut``). Only the
 bottleneck depths 50/101/152 exist; the deformable and CLIP blocks are not
 ported yet. ``remat`` (``MODEL.BACKBONE.REMAT``, default True) recomputes each
 bottleneck block in the backward pass instead of keeping its activations, in
@@ -146,6 +147,15 @@ class ResNet(nn.Module):
             if name in self.out_features:
                 out[name] = x
         return out
+
+
+RESNET_STAGE_STRIDES = {"stem": 4, "res2": 4, "res3": 8, "res4": 16, "res5": 32}
+
+
+def resnet_out_channels(cfg) -> Dict[str, int]:
+    """Each stage's output channels (``resnet_out_channels``, resnet.py:310)."""
+    res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    return {f"res{i}": res2 * 2 ** (i - 2) for i in range(2, 6)}
 
 
 def build_resnet(cfg) -> ResNet:

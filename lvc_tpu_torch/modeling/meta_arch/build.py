@@ -2,18 +2,24 @@
 ``lvc_tpu/modeling/meta_arch/build.py``: build_roi_heads:63-85,
 build_rpn:34, _roi_heads_kwargs:125, build_proposal_generator:170-191,
 _build_generalized_rcnn:195, _build_generalized_rcnn_reg_only:208-221,
-_build_proposal_network:352-361, build_model:366). Ported: a ResNet-FPN
-backbone; ``GeneralizedRCNN``, ``GeneralizedRCNNRegOnly`` and
+_build_proposal_network:352-361, build_model:366). Ported: the ResNet-FPN
+backbone and the plain ResNet (``build_resnet_backbone``, the C4 models:
+res4 features); ``GeneralizedRCNN``, ``GeneralizedRCNNRegOnly`` and
 ``ProposalNetwork``; the RPN (or ``RPN_Ignore``) and ``RBG`` proposal
-generators; ``StandardROIHeads`` (with ``FastRCNNOutputLayers`` or
-``CosineSimOutputLayers``), ``CascadeROIHeads``, ``CascadeUBBRROIHeads`` and
-``UBBRROIHeads``, with their training keys.
+generators; every ROI head JAX's ``build_roi_heads`` builds:
+``StandardROIHeads`` (with ``FastRCNNOutputLayers`` or
+``CosineSimOutputLayers``, and the debug inference under ``cfg.DEBUG``),
+``CascadeROIHeads``, ``CascadeUBBRROIHeads``, ``UBBRROIHeads``,
+``Res5ROIHeads``, ``StandardROIHeadsCascadeBBox``, ``CascadeStandardROIHeads``
+and ``ParallelStandardROIHeads``, with their training keys. The RPN and the
+ROI heads take the channel count of the backbone's output feature.
 """
 from __future__ import annotations
 
 import torch
 
 from lvc_tpu_torch.modeling.backbone.fpn import build_resnet_fpn_backbone, fpn_strides
+from lvc_tpu_torch.modeling.backbone.resnet import RESNET_STAGE_STRIDES, build_resnet, resnet_out_channels
 from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, GeneralizedRCNNRegOnly, ProposalNetwork
 from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
@@ -21,6 +27,12 @@ from lvc_tpu_torch.modeling.roi_heads.cascade_rcnn import (
     CascadeROIHeads,
     CascadeUBBRROIHeads,
     UBBRROIHeads,
+)
+from lvc_tpu_torch.modeling.roi_heads.extra_heads import (
+    CascadeStandardROIHeads,
+    ParallelStandardROIHeads,
+    Res5ROIHeads,
+    StandardROIHeadsCascadeBBox,
 )
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
 
@@ -48,15 +60,31 @@ _META_ARCHS = {
     "GeneralizedRCNNRegOnly": GeneralizedRCNNRegOnly,
     "ProposalNetwork": ProposalNetwork,
 }
-_ROI_HEADS = ("StandardROIHeads", "CascadeROIHeads", "CascadeUBBRROIHeads", "UBBRROIHeads")
+_ROI_HEADS = {  # the heads built from the common options alone
+    "StandardROIHeads": StandardROIHeads,
+    "UBBRROIHeads": UBBRROIHeads,
+    "StandardROIHeadsCascadeBBox": StandardROIHeadsCascadeBBox,
+    "CascadeStandardROIHeads": CascadeStandardROIHeads,
+}
 
 
-def build_rpn(cfg, strides) -> RPN:
+def build_backbone(cfg):
+    """(backbone, the stride of each output feature, the channels of each)."""
+    m = cfg.MODEL
+    if m.BACKBONE.NAME == "build_resnet_backbone":
+        return build_resnet(cfg), dict(RESNET_STAGE_STRIDES), resnet_out_channels(cfg)
+    if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
+        _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
+    strides = fpn_strides(m.FPN.IN_FEATURES)
+    return build_resnet_fpn_backbone(cfg), strides, {f: m.FPN.OUT_CHANNELS for f in strides}
+
+
+def build_rpn(cfg, strides, in_channels: int) -> RPN:
     m = cfg.MODEL
     return RPN(
         in_features=tuple(m.RPN.IN_FEATURES),
         strides=strides,
-        in_channels=m.FPN.OUT_CHANNELS,
+        in_channels=in_channels,
         anchor_sizes=tuple(tuple(s) for s in m.ANCHOR_GENERATOR.SIZES),
         anchor_aspect_ratios=tuple(tuple(a) for a in m.ANCHOR_GENERATOR.ASPECT_RATIOS),
         anchor_offset=m.ANCHOR_GENERATOR.OFFSET,
@@ -77,7 +105,7 @@ def build_rpn(cfg, strides) -> RPN:
     )
 
 
-def build_proposal_generator(cfg, strides):
+def build_proposal_generator(cfg, strides, in_channels: int):
     m = cfg.MODEL
     if m.PROPOSAL_GENERATOR.NAME == "RBG":
         return RBG(
@@ -89,16 +117,16 @@ def build_proposal_generator(cfg, strides):
         )
     if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "RPN_Ignore"):
         _unported(f"proposal generator {m.PROPOSAL_GENERATOR.NAME!r}", "queue 1, item 9")
-    return build_rpn(cfg, strides)
+    return build_rpn(cfg, strides, in_channels)
 
 
-def build_roi_heads(cfg, strides):
+def build_roi_heads(cfg, strides, in_channels: int):
     m = cfg.MODEL
     h = m.ROI_BOX_HEAD
     common = dict(
         in_features=tuple(m.ROI_HEADS.IN_FEATURES),
         strides=strides,
-        in_channels=m.FPN.OUT_CHANNELS,
+        in_channels=in_channels,
         num_classes=m.ROI_HEADS.NUM_CLASSES,
         pooler_resolution=h.POOLER_RESOLUTION,
         pooler_sampling_ratio=h.POOLER_SAMPLING_RATIO,
@@ -123,6 +151,7 @@ def build_roi_heads(cfg, strides):
         smooth_l1_beta=h.SMOOTH_L1_BETA,
         box_reg_loss_type=h.BBOX_REG_LOSS_TYPE,
         reg_off=m.ROI_HEADS.REG_OFF,
+        debug=cfg.DEBUG,
     )
     name = m.ROI_HEADS.NAME
     if name == "CascadeROIHeads":
@@ -136,9 +165,23 @@ def build_roi_heads(cfg, strides):
         )
     if name == "CascadeUBBRROIHeads":
         return CascadeUBBRROIHeads(cascade_steps=m.UBBR.CASCADE_STEPS, ubbr_lambda=m.UBBR.LAMBDA, **common)
-    return (UBBRROIHeads if name == "UBBRROIHeads" else StandardROIHeads)(
-        output_layer=m.ROI_HEADS.OUTPUT_LAYER, cosine_scale=m.ROI_HEADS.COSINE_SCALE, **common
-    )
+    common.update(output_layer=m.ROI_HEADS.OUTPUT_LAYER, cosine_scale=m.ROI_HEADS.COSINE_SCALE)
+    if name == "Res5ROIHeads":
+        r = m.RESNETS
+        return Res5ROIHeads(
+            num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP, res2_out_channels=r.RES2_OUT_CHANNELS,
+            stride_in_1x1=r.STRIDE_IN_1X1, resnet_norm=r.NORM, **common,
+        )
+    if name == "ParallelStandardROIHeads":
+        seen, unseen = cfg.DATASETS.SEEN_IDS, cfg.DATASETS.UNSEEN_IDS
+        return ParallelStandardROIHeads(
+            StandardROIHeads(**dict(common, num_classes=len(seen))),
+            StandardROIHeads(**dict(common, num_classes=len(unseen))),
+            seen, unseen, cfg.DATASETS.SPLIT_IDS,
+        )
+    if name not in _ROI_HEADS:
+        raise ValueError(f"unknown ROI heads {name!r}")
+    return _ROI_HEADS[name](**common)
 
 
 def build_model(cfg, device=None) -> GeneralizedRCNN:
@@ -150,22 +193,19 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
     m = cfg.MODEL
     if m.META_ARCHITECTURE not in _META_ARCHS:
         _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, items 9-10")
-    if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
-        _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
-    if m.ROI_HEADS.NAME not in _ROI_HEADS:
-        _unported(f"ROI heads {m.ROI_HEADS.NAME!r}", "queue 1, item 9")
     if m.MASK_ON or m.KEYPOINT_ON:
         _unported("mask and keypoint heads", "queue 1, item 10")
     if m.DTYPE not in _DTYPES:
         raise ValueError(f"MODEL.DTYPE {m.DTYPE!r}")
 
-    backbone = build_resnet_fpn_backbone(cfg)
-    strides = fpn_strides(m.FPN.IN_FEATURES)
+    backbone, strides, channels = build_backbone(cfg)
     kwargs = dict(pixel_mean=tuple(m.PIXEL_MEAN), pixel_std=tuple(m.PIXEL_STD), compute_dtype=_DTYPES[m.DTYPE])
+    rpn_channels = channels[m.RPN.IN_FEATURES[0]]
     if m.META_ARCHITECTURE == "ProposalNetwork":
-        model = ProposalNetwork(backbone, build_rpn(cfg, strides), **kwargs)
+        model = ProposalNetwork(backbone, build_rpn(cfg, strides, rpn_channels), **kwargs)
     else:
         model = _META_ARCHS[m.META_ARCHITECTURE](
-            backbone, build_proposal_generator(cfg, strides), build_roi_heads(cfg, strides), **kwargs
+            backbone, build_proposal_generator(cfg, strides, rpn_channels),
+            build_roi_heads(cfg, strides, channels[m.ROI_HEADS.IN_FEATURES[0]]), **kwargs
         )
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -24,6 +24,7 @@ from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import (
     fast_rcnn_inference,
     fast_rcnn_losses,
 )
+from lvc_tpu_torch.modeling.roi_heads.fast_rcnn_debug import fast_rcnn_inference_debug
 from lvc_tpu_torch.modeling.sampling import Generators, image_generator, subsample_labels
 from lvc_tpu_torch.ops import roi_align
 from lvc_tpu_torch.structures import boxes as box_ops
@@ -75,10 +76,12 @@ class StandardROIHeads(nn.Module):
         smooth_l1_beta: float = 0.0,
         box_reg_loss_type: str = "smooth_l1",
         reg_off: bool = False,
+        debug: bool = False,
         **head_options,
     ):
         """``head_options`` go to ``_build_box_heads`` (the cascade heads'
-        stage options)."""
+        stage options, the C4 head's res5 options). ``debug`` (``cfg.DEBUG``)
+        makes inference return ``DetectionsDebug``."""
         super().__init__()
         if pooler_impl == "tiled":
             raise NotImplementedError(
@@ -108,6 +111,7 @@ class StandardROIHeads(nn.Module):
         self.smooth_l1_beta = smooth_l1_beta
         self.box_reg_loss_type = box_reg_loss_type
         self.reg_off = reg_off
+        self.debug = debug
         self.score_thresh = score_thresh_test
         self.nms_thresh = nms_thresh_test
         self.detections_per_image = detections_per_image
@@ -120,6 +124,9 @@ class StandardROIHeads(nn.Module):
         chooses. Subclasses build their own heads here from their own
         options."""
         self.box_head = FastRCNNConvFCHead(*self.head_args)
+        self._build_predictor(cls_agnostic_bbox_reg, output_layer, cosine_scale)
+
+    def _build_predictor(self, cls_agnostic_bbox_reg: bool, output_layer: str, cosine_scale: float) -> None:
         if output_layer == "CosineSimOutputLayers":
             self.box_predictor = CosineSimOutputLayers(
                 self.head_dim, self.num_classes, cosine_scale, cls_agnostic_bbox_reg
@@ -231,31 +238,46 @@ class StandardROIHeads(nn.Module):
         optional ignores) the dict of ``loss_cls`` and ``loss_box_reg``."""
         if self.training and gt is not None:
             return self._losses(features, proposals, proposal_valid, gt, generator)
-        B, R = proposals.shape[:2]
-        pooled = self.pool(features, proposals)
-        x = self.box_head(pooled.reshape(B * R, *pooled.shape[2:]))
-        scores, deltas = self.box_predictor(x)
-        probs = torch.softmax(scores, dim=-1).reshape(B, R, -1)
-        boxes = self.box2box.apply_deltas(deltas.reshape(B, R, -1), proposals)
-        return fast_rcnn_inference(
+        probs, boxes = self._predict(features, proposals)
+        infer = fast_rcnn_inference_debug if self.debug else fast_rcnn_inference
+        return infer(
             boxes, probs, image_sizes, proposal_valid, self.score_thresh,
             self.nms_thresh, self.detections_per_image, self.pre_nms_candidates,
         )
 
-    def _losses(self, features, proposals, proposal_valid, gt, generator):
+    def _box_features(self, features, boxes: torch.Tensor) -> torch.Tensor:
+        """(B, R, 4) boxes -> the (B * R, D) features the predictor takes."""
+        pooled = self.pool(features, boxes)  # (B, R, P, P, C)
+        return self.box_head(pooled.reshape(-1, *pooled.shape[2:]))
+
+    def _predict(self, features, boxes: torch.Tensor):
+        """Softmax probabilities (B, R, K+1) and per-class decoded boxes."""
+        B, R = boxes.shape[:2]
+        scores, deltas = self.box_predictor(self._box_features(features, boxes))
+        probs = torch.softmax(scores, dim=-1).reshape(B, R, -1)
+        return probs, self.box2box.apply_deltas(deltas.reshape(B, R, -1), boxes)
+
+    def _sample_and_predict(self, features, proposals, proposal_valid, gt, generator):
+        """The sampled slots, their head features and the predictor's
+        (scores, deltas)."""
         sampled = self.label_and_sample_proposals(
             proposals, proposal_valid, gt["boxes"], gt["classes"], gt["valid"],
             gt.get("ignores"), generator,
         )
+        x = self._box_features(features, sampled.boxes)
+        return (sampled, x) + tuple(self.box_predictor(x))
+
+    def _fast_rcnn_losses(self, sampled: SampledProposals, scores, deltas):
         B, S = sampled.gt_classes.shape
-        pooled = self.pool(features, sampled.boxes)  # (B, S, P, P, C)
-        x = self.box_head(pooled.reshape(B * S, *pooled.shape[2:]))
-        scores, deltas = self.box_predictor(x)
-        if self.reg_off:
-            # REG_OFF (roi_heads.py:397-400): the regression branch is off
-            deltas = deltas * 0.0
         return fast_rcnn_losses(
             scores, deltas, sampled.boxes.reshape(B * S, 4), sampled.gt_boxes.reshape(B * S, 4),
             sampled.gt_classes.reshape(B * S), sampled.valid.reshape(B * S), self.box2box,
             self.smooth_l1_beta, self.box_reg_loss_type,
         )
+
+    def _losses(self, features, proposals, proposal_valid, gt, generator):
+        sampled, _, scores, deltas = self._sample_and_predict(features, proposals, proposal_valid, gt, generator)
+        if self.reg_off:
+            # REG_OFF (roi_heads.py:397-400): the regression branch is off
+            deltas = deltas * 0.0
+        return self._fast_rcnn_losses(sampled, scores, deltas)

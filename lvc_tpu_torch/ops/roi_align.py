@@ -527,6 +527,18 @@ def paired_taps(prep: PairedPrep, level_shapes, tile: int) -> RoiTaps:
 # ---------------------------------------------------------------------------
 
 
+def _sum_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions sum in float32, or in float64 for float64 input."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _plain_float64(t: torch.Tensor, taps: "RoiTaps") -> bool:
+    """Float64 is taken on the CPU alone, where the plain version runs, with
+    float64 tap weights (a float64 witness of a float32 model); the kernels
+    take float32 and bf16 with float32 tap weights."""
+    return t.dtype == torch.float64 and t.device.type == "cpu" and taps.wy.dtype == torch.float64
+
+
 def roi_align_taps_plain(
     levels: Sequence[torch.Tensor], taps: RoiTaps, paired: bool, chunk: int = 128
 ) -> torch.Tensor:
@@ -549,7 +561,7 @@ def roi_align_taps_plain(
             cols = taps.xs[ci].long()[:, None, None] + taps.tcol[ci].long()  # (m, P, NT)
             ok = (rows >= 0)[:, :, :, None, None] & (cols < W)[:, None, None, :, :]
             v = flat[rows.clamp(min=0)[:, :, :, None, None], cols.clamp(max=W - 1)[:, None, None]]
-            v = torch.where(ok[..., None], v.float(), torch.zeros((), device=v.device))
+            v = torch.where(ok[..., None], v.to(_sum_dtype(v)), torch.zeros((), device=v.device))
             t = v * taps.wy[ci][:, :, :, None, None, None]  # (m, Py, NR, Px, NT, C)
             if paired:
                 y = t[:, :, 0] + t[:, :, 1]
@@ -626,7 +638,8 @@ class RoiAlignKernel:
         if not 1 <= len(levels) <= _MAX_LEVELS:
             raise ValueError(f"RoIAlign kernel takes 1..{_MAX_LEVELS} levels, got {len(levels)}")
         feat = levels[0]
-        if feat.dtype not in (torch.float32, torch.bfloat16):
+        witness = _plain_float64(feat, taps)
+        if feat.dtype not in (torch.float32, torch.bfloat16) and not witness:
             raise TypeError(f"RoIAlign kernel: feature dtype {feat.dtype}")
         B, _, _, C = feat.shape
         vec = 16 // feat.element_size()
@@ -639,18 +652,18 @@ class RoiAlignKernel:
                 raise ValueError("levels must be contiguous (B, H, W, C)")
             if feat.device.type == "cuda" and (C % vec or f.data_ptr() % 16):
                 raise ValueError(f"kernel needs C % {vec} == 0 and 16-byte aligned levels")
-        RoiAlignKernel._check_taps(taps, feat.device)
+        RoiAlignKernel._check_taps(taps, feat.device, torch.float64 if witness else torch.float32)
 
     @staticmethod
-    def _check_taps(taps: RoiTaps, device) -> None:
+    def _check_taps(taps: RoiTaps, device, weights=torch.float32) -> None:
         n, P, NR = taps.rows.shape
         NT = taps.tcol.shape[-1]
         if P > _MAX_P or NR > _MAX_TAPS or NT > _MAX_TAPS:
             raise ValueError(f"P={P}, NR={NR}, NT={NT} over the kernel's limits")
         expect = {
-            "lvl": ((n,), torch.int32), "xs": ((n,), torch.int32), "inv": ((n,), torch.float32),
-            "rows": ((n, P, NR), torch.int32), "wy": ((n, P, NR), torch.float32),
-            "tcol": ((n, P, NT), torch.int32), "wx": ((n, P, NT), torch.float32),
+            "lvl": ((n,), torch.int32), "xs": ((n,), torch.int32), "inv": ((n,), weights),
+            "rows": ((n, P, NR), torch.int32), "wy": ((n, P, NR), weights),
+            "tcol": ((n, P, NT), torch.int32), "wx": ((n, P, NT), weights),
         }
         for name, (shape, dtype) in expect.items():
             t = getattr(taps, name)
@@ -714,18 +727,19 @@ def roi_align_taps_plain_backward(
     chunk: int = 128,
 ) -> List[torch.Tensor]:
     """The exact transpose of ``roi_align_taps_plain`` (paired taps): d out ->
-    d levels, summed in float32 with ``index_add_``. ``level_shapes`` are the
-    levels' (B, H, W, C); ``gout`` is (n, P, P, C). Each term is
-    ``(wy * wx) * (inv * gout)``, K3's product. Returns float32 (B, H, W, C)
+    d levels, summed in float32 (float64 for float64 ``gout``) with
+    ``index_add_``. ``level_shapes`` are the levels' (B, H, W, C); ``gout``
+    is (n, P, P, C). Each term is
+    ``(wy * wx) * (inv * gout)``, K3's product. Returns the sums (B, H, W, C)
     per level."""
     n, P, NR = taps.rows.shape
     NT = taps.tcol.shape[-1]
     device = gout.device
     lvl = taps.lvl.long()
-    g = gout.float() * taps.inv[:, None, None, None]  # (n, Py, Px, C)
+    g = gout.to(_sum_dtype(gout)) * taps.inv[:, None, None, None]  # (n, Py, Px, C)
     grads = []
     for l, (B, H, W, C) in enumerate(level_shapes):
-        acc = torch.zeros(B * H * W, C, dtype=torch.float32, device=device)
+        acc = torch.zeros(B * H * W, C, dtype=g.dtype, device=device)
         idx = (lvl == l).nonzero().squeeze(1)
         for s in range(0, idx.numel(), chunk):
             ci = idx[s : s + chunk]
@@ -796,7 +810,8 @@ class RoiAlignBackwardKernel:
     def _check(level_shapes, taps: RoiTaps, gout: torch.Tensor) -> None:
         if not 1 <= len(level_shapes) <= _MAX_LEVELS:
             raise ValueError(f"RoIAlign backward takes 1..{_MAX_LEVELS} levels, got {len(level_shapes)}")
-        if gout.dtype not in (torch.float32, torch.bfloat16):
+        witness = _plain_float64(gout, taps)
+        if gout.dtype not in (torch.float32, torch.bfloat16) and not witness:
             raise TypeError(f"RoIAlign backward kernel: gout dtype {gout.dtype}")
         C = gout.shape[-1]
         if any(len(s) != 4 or s[3] != C or s[0] != level_shapes[0][0] for s in level_shapes):
@@ -808,7 +823,7 @@ class RoiAlignBackwardKernel:
             raise ValueError(f"gout must be contiguous ({n}, {P}, {P}, {C}), got {tuple(gout.shape)}")
         if gout.device.type == "cuda" and (C % (16 // gout.element_size()) or gout.data_ptr() % 16):
             raise ValueError("kernel needs 16-byte vectors of gout channels")
-        RoiAlignKernel._check_taps(taps, gout.device)
+        RoiAlignKernel._check_taps(taps, gout.device, torch.float64 if witness else torch.float32)
 
 
 roi_align_paired_bwd = RoiAlignBackwardKernel()

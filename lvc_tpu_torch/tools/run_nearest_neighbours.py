@@ -8,7 +8,7 @@ vote over the shots, drop candidates overlapping seen-class gt, and write
         DATASETS.DT_PATH "('candidates.json',)" DATASETS.TRAIN "('coco_trainval_all',)"
 
 It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. The ViT runs in
-float32, as the JAX CLI's does (it never sets a compute dtype): ``main``
+float32, as the JAX CLI's does (it never sets a compute dtype): ``setup``
 turns TF32 off for the process, so the card's convolutions and matmuls are
 float32 too (cuDNN allows TF32 by default). With ``--num-gpus N`` every rank
 embeds the crops (as JAX's one process does), the kNN vote is split over the
@@ -68,7 +68,9 @@ def save_coco(cfg, keep_ids, qe_dset: str) -> str:
     return filename
 
 
-def main(args):
+def setup(args):
+    """The config, ``default_setup``, and float32 without TF32 (the ViT's
+    convolution and matmuls; the training CLIs keep PyTorch's default)."""
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
@@ -76,10 +78,14 @@ def main(args):
     cfg.freeze()
     set_global_cfg(cfg)
     default_setup(cfg, args)
-    register_results(cfg)
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return cfg
+
+
+def main(args):
+    cfg = setup(args)
+    register_results(cfg)
     device = cfg.MODEL.DEVICE
     gt_path = MetadataCatalog.get("coco_trainval_all").json_file
     model = build_dino(cfg.QUERY_EXPAND.NN_MODEL or "dino_vits8", device=device)

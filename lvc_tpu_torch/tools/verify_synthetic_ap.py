@@ -217,7 +217,7 @@ def run_mode(mode: str, iters: int, data_root: str, device: str = "cuda"):
     """Train one mode; the trainer's final evaluation hook gives the results.
     Returns (the bbox results, whether ``verify_results`` passed, train
     seconds (the final evaluation excluded), eval seconds, the median of the
-    trainer's ``time`` scalar in ms)."""
+    trainer's ``time`` scalar in ms, the trainer)."""
     import statistics
 
     from lvc_tpu_torch.evaluation.testing import verify_results
@@ -239,7 +239,7 @@ def run_mode(mode: str, iters: int, data_root: str, device: str = "cuda"):
         f"eval {t_eval:.0f}s, verify_results={'PASS' if ok else 'FAIL'})",
         flush=True,
     )
-    return bbox, ok, t_train, t_eval, ms_iter
+    return bbox, ok, t_train, t_eval, ms_iter, trainer
 
 
 def main(argv=None) -> int:
