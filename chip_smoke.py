@@ -120,8 +120,9 @@ Phases, each of which raises (non-zero exit) on failure:
    3/3, 3/0, 1/1), extraction ms/img, the relations between the files the
    steps wrote; then K2 and K3 on one more step 18 iteration's own tensors
    (16 x 512 slots, float32, C=256) against their plain versions;
-23. data-parallel reference check: one step of phase 19's narrow corrector
-   and of a narrow R-50-FPN (float32, POOLER_IMPL pallas_train, sampling
+23. data-parallel reference check: one step of phase 19's narrow corrector,
+   of a narrow R-50-FPN and of that R-50-FPN as GeneralizedRCNN_Context,
+   with and without IMAGES_ONLY (float32, POOLER_IMPL pallas_train, sampling
    not exhaustive, so the per-image generators decide the slots) on a
    global batch of 4, by 2 ranks placed on the one card with
    launch(..., devices=["cuda:0", "cuda:0"]) (gloo: NCCL refuses two ranks
@@ -164,13 +165,44 @@ Phases, each of which raises (non-zero exit) on failure:
    pallas_train and AMP for 20 iterations on phase 17's tree
    (K2/K3 1/1 every iteration) and its evaluation; K1, K2 and K3 on the
    path's own tensors against their plain versions, with their times and
-   bounds.
-Phases 1-11 and 16-27 run with the fused path off, whatever the environment
+   bounds;
+28. VOC evaluation of the trained gate model: phase 18's float32 model over
+   its 60 held-out images written as a VOC 2007 tree (JPEGs, XML,
+   ImageSets/Main/test.txt), the same detections fed to
+   PascalVOCDetectionEvaluator, COCOEvaluator and LVISEvaluator: the VOC
+   AP50 must pass the gate's verify_results (in (60, 100)), the LVIS AP
+   must equal COCO's within 1e-6; both AP50s and their difference;
+29. PASCAL VOC at full width, TFA split 1 (ucbdrive/few-shot-object-detection
+   configs/PascalVOC-detection/split1/faster_rcnn_R_101_FPN_base1.yaml and
+   _ft_all1_1shot.yaml, built on Base-RCNN-FPN.yaml in code: R-101-FPN,
+   TFA's train sizes, MIN_SIZE_TEST 800, IMS_PER_BATCH 16, AMP,
+   POOLER_IMPL pallas_train) on a seeded VOC tree (VOC2007 and VOC2012 at
+   VOC's 500x375 and 375x500, difficult objects, 1-shot lists), run from
+   the tree's directory: train_net on the 07+12 base1 splits, --eval-only
+   on voc_2007_test_base1, ckpt_surgery --method randinit to 20 classes,
+   the 1-shot ft_all1 fine-tune (FREEZE_FEAT) and --eval-only on
+   voc_2007_test_all1 (bAP50, nAP50): ms/iter, data_time, idle share, peak
+   memory, K2/K3 per iteration, eval ms/img; K2 and K3 on a base step's own
+   tensors against their plain versions;
+30. LVIS: phase 17's test split rewritten as an LVIS json (every absent
+   category negative), train_net --eval-only from phase 17's checkpoint
+   with LVISEvaluator and with COCOEvaluator on coco_test_all: equal rows,
+   LVIS AP..APl equal to COCO's within 1e-6; APr/APc/APf;
+31. the context detector (GeneralizedRCNN_Context through train_net at
+   phase 17's width, its evaluation and image_scores; a narrow card-vs-CPU
+   step; K2/K3 on the steps' own tensors), PrecomputedProposals (phase 4's
+   R-101 model's proposals fed back: equal detections), DefaultPredictor
+   (R-101 bf16 on a 500x375 JPEG: equal to the test loader's batch),
+   build_crop_exem_loader over RPNEvaluator's pickle into RPNComp (R-50,
+   res5, avg; card vs CPU) and the clustering (PCA 384 -> 256 and k-means
+   at N = 50,000; card vs CPU assignments away from near-ties).
+Phases 1-11 and 16-31 run with the fused path off, whatever the environment
 says (spawned ranks inherit it).
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
 """
+import contextlib
 import json
 import math
 import os
@@ -1350,6 +1382,85 @@ def register_mini_coco(root: str, catalog, register_meta_coco, metadata) -> None
                            os.path.join(root, annofile))
 
 
+VOC_SIZES = ((375, 500), (500, 375))  # VOC's (h, w)
+
+
+def voc_xml(path: str, h: int, w: int, objects) -> None:
+    """One VOC annotation file: ``objects`` are (class name, x0, y0, x1, y1,
+    difficult) in 0-indexed pixels, written as VOC's 1-indexed corners."""
+    import os
+
+    lines = ["<annotation>", f"  <size><width>{w}</width><height>{h}</height><depth>3</depth></size>"]
+    for name, x0, y0, x1, y1, difficult in objects:
+        lines.append(f"  <object><name>{name}</name><pose>Unspecified</pose><truncated>0</truncated>"
+                     f"<difficult>{int(difficult)}</difficult><bndbox><xmin>{int(x0) + 1}</xmin>"
+                     f"<ymin>{int(y0) + 1}</ymin><xmax>{int(x1)}</xmax><ymax>{int(y1)}</ymax></bndbox></object>")
+    lines.append("</annotation>")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_voc_tree(root: str, n_trainval: int, n_test: int, n_2012: int, sizes=VOC_SIZES, seed: int = 0,
+                   max_boxes: int = 4, difficult: float = 0.2, shot_seeds=()) -> None:
+    """A seeded PASCAL VOC tree in the layout the VOC registration reads
+    (``root`` is the ``datasets`` directory): ``VOC2007`` with ``trainval``
+    and ``test`` ids (``000001``...), ``VOC2012`` with ``trainval`` ids that
+    hold an underscore (``2008_000001``...), JPEGs whose (h, w) cycle through
+    ``sizes``, and ``Annotations/*.xml`` with 1 to ``max_boxes`` objects, each
+    ``<difficult>1</difficult>`` with probability ``difficult`` and drawn as
+    a filled rectangle of its class's colour on blocky noise; the first
+    object of the i-th trainval image is of the i-th class (mod 20), so
+    every class has images. ``vocsplit/box_1shot_<cls>_train.txt`` lists
+    the first two trainval images holding ``cls`` (a class with two records
+    or more is subsampled to its one shot), and ``vocsplit/seed<k>/`` the
+    next two, for each k of ``shot_seeds``."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from lvc_tpu_torch.data.builtin_meta import PASCAL_VOC_ALL_CATEGORIES
+
+    classes = sorted(PASCAL_VOC_ALL_CATEGORIES[1])
+    rng = np.random.RandomState(seed)
+    holders = {c: [] for c in classes}  # trainval ids holding each class, in writing order
+    splits = (("VOC2007", "trainval", [f"{i:06d}" for i in range(1, n_trainval + 1)]),
+              ("VOC2007", "test", [f"{i:06d}" for i in range(n_trainval + 1, n_trainval + n_test + 1)]),
+              ("VOC2012", "trainval", [f"2008_{i:06d}" for i in range(1, n_2012 + 1)]))
+    k = 0
+    for year_dir, split, ids in splits:
+        base = os.path.join(root, year_dir)
+        os.makedirs(os.path.join(base, "JPEGImages"), exist_ok=True)
+        os.makedirs(os.path.join(base, "ImageSets", "Main"), exist_ok=True)
+        for fid in ids:
+            H, W = sizes[k % len(sizes)]
+            low = rng.randint(0, 200, (H // 16 + 1, W // 16 + 1, 3)).astype(np.uint8)
+            img = np.kron(low, np.ones((16, 16, 1), np.uint8))[:H, :W].copy()
+            objects = []
+            for j in range(rng.randint(1, max_boxes + 1)):
+                w, h = rng.randint(W // 10, W // 2), rng.randint(H // 10, H // 2)
+                x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+                c = k % 20 if j == 0 and split == "trainval" else rng.randint(20)
+                img[y:y + h, x:x + w] = ((c * 37) % 256, (c * 91) % 256, (c * 151) % 256)
+                objects.append((classes[c], x, y, x + w, y + h, rng.rand() < difficult))
+                if split == "trainval" and fid not in holders[classes[c]]:
+                    holders[classes[c]].append(fid)
+            Image.fromarray(img).save(os.path.join(base, "JPEGImages", fid + ".jpg"), quality=90)
+            voc_xml(os.path.join(base, "Annotations", fid + ".xml"), H, W, objects)
+            k += 1
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    for j, sub in enumerate([""] + [f"seed{s}" for s in shot_seeds]):
+        d = os.path.join(root, "vocsplit", sub)
+        os.makedirs(d, exist_ok=True)
+        for c in classes:
+            picks = holders[c][2 * j:2 * j + 2] or holders[c][:1]
+            with open(os.path.join(d, f"box_1shot_{c}_train.txt"), "w") as f:
+                f.write("\n".join(f"datasets/VOC{'2012' if '_' in p else '2007'}/JPEGImages/{p}.jpg"
+                                  for p in picks) + "\n")
+
+
 def cli_args(root: str, candidates: str, out_dir: str):
     """The verification CLI's arguments on the mini tree: ViT-S/16, k=3,
     cosine, seed 0 (the K-shot subsample draws from numpy's seeded state)."""
@@ -2099,14 +2210,15 @@ def train_net_path(tag, keep: str):
 GATE_ITERS = 600
 
 
-def synthetic_ap_gate(tag):
+def synthetic_ap_gate(tag, keep=None):
     """``lvc_tpu_torch.tools.verify_synthetic_ap`` at the JAX gate's 600
     iterations, float32 and AMP: R-50-FPN with GroupNorm trained from the
     damped x0.65 init on drawn shapes (256x256, batch 8), then evaluated on
     its held-out 60 images by the trainer's final evaluation hook. Fails
     unless ``verify_results`` passes (AP50 in (60, 100)) in both modes. The
     float32 model is then evaluated again with TF32 convolutions and matmuls
-    and without (``tf32_difference``)."""
+    and without (``tf32_difference``), and its weights saved to ``keep``
+    (phase 28 evaluates it on a VOC tree)."""
     import tempfile
 
     from lvc_tpu_torch.ops import roi_align as ra
@@ -2127,6 +2239,10 @@ def synthetic_ap_gate(tag):
                 failures.append(mode)
             if mode == "f32":
                 print(tf32_difference(trainer, tmp, tag))
+                if keep:
+                    import torch
+
+                    torch.save(trainer.model.state_dict(), keep)
             del trainer
     if failures:
         raise AssertionError(f"synthetic AP gate failed in {failures}")
@@ -3063,13 +3179,20 @@ def dp_cfg(kind: str, device: str, impl: str = "pallas_train"):
     ``detector`` is ``narrow_cfg`` (the RPN samples 256 of its 6,138
     anchors, the ROI heads 64 of up to 104 boxes, a quarter positive);
     ``cascade`` is ``corrector_cfg`` (RBG, 3 stages, each sampling 64 of
-    its 128 jittered boxes). ``impl`` pallas_train: K2 forward and K3
-    backward on the card, their plain versions on the CPU."""
-    if kind == "detector":
+    its 128 jittered boxes); ``context`` is the detector as
+    ``GeneralizedRCNN_Context`` (``cont_conv`` gets no gradient) and
+    ``context_images_only`` that with ``MODEL.IMAGES_ONLY`` (the RPN, the
+    ROI heads and the FPN levels below p5 get none). ``impl`` pallas_train:
+    K2 forward and K3 backward on the card, their plain versions on the
+    CPU."""
+    if kind in ("detector", "context", "context_images_only"):
         cfg = narrow_cfg(impl)
         cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
         cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
         cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+        if kind != "detector":
+            cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN_Context"
+            cfg.MODEL.IMAGES_ONLY = kind == "context_images_only"
     else:
         cfg = corrector_cfg(device)
         cfg.MODEL.ROI_HEADS.POOLER_IMPL = impl
@@ -3301,7 +3424,8 @@ def dp_reference_check(tag):
     with two cards or more, also 2 NCCL ranks on cuda:0 and cuda:1. Held by
     ``dp_compare`` (the ranks' losses, gradients, updated parameters and
     sampled slots) and the toy ``global_ratio`` gradient; K2/K3 1/1 a rank
-    for the detector, 3/3 for the cascade."""
+    for the detector and the context detector, 3/3 for the cascade, 0/0
+    for the context detector with ``IMAGES_ONLY``."""
     import os
     import tempfile
 
@@ -3309,9 +3433,9 @@ def dp_reference_check(tag):
 
     from lvc_tpu_torch.engine.launch import launch
 
-    want_launches = {"detector": (1, 1), "cascade": (3, 3)}
+    want_launches = {"detector": (1, 1), "cascade": (3, 3), "context": (1, 1), "context_images_only": (0, 0)}
     jobs, refs = [], {}
-    for kind in ("detector", "cascade"):
+    for kind in want_launches:
         cfg = dp_cfg(kind, "cuda")
         weights, batch = dp_inputs(kind, cfg)
         jobs.append((kind, cfg, weights, batch, DP_SEED))
@@ -4027,6 +4151,730 @@ def c4_path(tag):
     return check_recorded_pool("C4 path (P=14, one level, C=1024)", rec, tag, timed=True)
 
 
+# ---------------------------------------------------------------------------
+# PASCAL VOC and LVIS data and evaluation, the context detector,
+# PrecomputedProposals, DefaultPredictor, the crop loaders, RPNComp and the
+# clustering (phases 28-31)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BASE_YAML = os.path.join(REPO, "configs", "Base-RCNN-FPN.yaml")
+VOC_TREE = (40, 12, 24)  # VOC2007 trainval, VOC2007 test and VOC2012 trainval images
+VOC_ITERS = 8  # each VOC training run: 3 warm-up iterations and 5 timed
+CONTEXT_ITERS = 8
+VOC_MIN_SIZES = "(480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800)"  # TFA's PascalVOC-detection configs
+KMEANS = dict(n=50000, dim=384, pca=256, k=100, iters=20)  # the verifier's descriptor scale
+
+
+class FanOut:
+    """Several evaluators fed the same model outputs; ``evaluate`` returns
+    each one's results, in order."""
+
+    def __init__(self, *evaluators):
+        self.evaluators = evaluators
+
+    def reset(self):
+        for e in self.evaluators:
+            e.reset()
+
+    def process_detections(self, out, metas):
+        for e in self.evaluators:
+            e.process_detections(out, metas)
+
+    def evaluate(self):
+        return [e.evaluate() for e in self.evaluators]
+
+
+def lvis_json_from_coco(coco_json: str, out: str) -> str:
+    """A COCO json rewritten as an LVIS json: the same images, boxes and
+    categories; ``frequency`` r, c, f in turn over the categories in id
+    order; ``neg_category_ids`` every category absent from the image and
+    ``not_exhaustive_category_ids`` empty, so that the LVIS ignore rule
+    changes nothing."""
+    with open(coco_json) as f:
+        data = json.load(f)
+    cats = sorted(data["categories"], key=lambda c: c["id"])
+    present = {}
+    for a in data["annotations"]:
+        present.setdefault(a["image_id"], set()).add(a["category_id"])
+    data["categories"] = [dict(c, frequency="rcf"[k % 3]) for k, c in enumerate(cats)]
+    data["images"] = [dict(img, neg_category_ids=[c["id"] for c in cats if c["id"] not in present.get(img["id"], ())],
+                           not_exhaustive_category_ids=[]) for img in data["images"]]
+    with open(out, "w") as f:
+        json.dump(data, f)
+    return out
+
+
+def replace_dataset(name: str, register, *args) -> None:
+    """(Re)register ``name`` in the port's catalog."""
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+    register(name, *args)
+
+
+def gate_voc_tree(paths, root: str):
+    """Phase 18's 60 held-out drawn images as a VOC 2007 test tree under
+    ``root`` (JPEGs, XML, ``ImageSets/Main/test.txt``; disc is the base
+    class, slab the novel one), plus a COCO json and an LVIS json of the same
+    JPEGs and boxes; each registered in the port's catalog. Returns the
+    three dataset names."""
+    from PIL import Image
+
+    from lvc_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from lvc_tpu_torch.data.meta_coco import load_coco_json
+    from lvc_tpu_torch.data.meta_lvis import register_meta_lvis
+    from lvc_tpu_torch.data.meta_pascal_voc import register_meta_pascal_voc
+    from lvc_tpu_torch.tools import verify_synthetic_ap as gate
+
+    with open(paths["val"]["json"]) as f:
+        gt = json.load(f)
+    base = os.path.join(root, "VOC2007")
+    img_dir = os.path.join(base, "JPEGImages")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(base, "ImageSets", "Main"), exist_ok=True)
+    anns = {}
+    for a in gt["annotations"]:
+        anns.setdefault(a["image_id"], []).append(a)
+    ids = []
+    for img in gt["images"]:
+        fid = f"{img['id']:06d}"
+        ids.append(fid)
+        Image.open(os.path.join(paths["val"]["images"], img["file_name"])).convert("RGB").save(
+            os.path.join(img_dir, fid + ".jpg"), quality=95)
+        voc_xml(os.path.join(base, "Annotations", fid + ".xml"), img["height"], img["width"],
+                [(gate.CLASSES[a["category_id"] - 1], a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                  a["bbox"][1] + a["bbox"][3], False) for a in anns.get(img["id"], [])])
+        img["file_name"] = fid + ".jpg"
+    with open(os.path.join(base, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    coco_json = os.path.join(root, "coco_test.json")
+    with open(coco_json, "w") as f:
+        json.dump(gt, f)
+    classes = list(gate.CLASSES)
+    voc = "synth_voc_2007_test"
+    replace_dataset(voc, register_meta_pascal_voc, {"thing_classes": {1: classes}, "base_classes": {1: classes[:1]},
+                                                   "novel_classes": {1: classes[1:]}}, base, "test", 2007,
+                    "base_novel_1", 1)
+    coco = "synth_voc_coco_test"
+    meta = {"thing_classes": classes, "thing_dataset_id_to_contiguous_id": {1: 0, 2: 1}}
+    replace_dataset(coco, DatasetCatalog.register, lambda: load_coco_json(coco_json, img_dir, meta, coco))
+    MetadataCatalog.get(coco).set(json_file=coco_json, image_root=img_dir, evaluator_type="coco", **meta)
+    lvis = "synth_voc_lvis_test"
+    replace_dataset(lvis, register_meta_lvis, {}, lvis_json_from_coco(coco_json, os.path.join(root, "lvis.json")),
+                    img_dir)
+    return voc, coco, lvis
+
+
+def voc_gate_check(tag, gate_pth: str):
+    """Phase 28, the VOC evaluator's accuracy check: phase 18's trained
+    float32 gate model (``gate_pth``) over its 60 held-out images written as
+    a VOC 2007 tree, one forward an image (K2 once each), the same detections
+    fed to ``PascalVOCDetectionEvaluator``, ``COCOEvaluator`` and
+    ``LVISEvaluator``. The VOC AP50 must pass the gate's ``verify_results``
+    (in (60, 100)); the LVIS AP must equal the COCO AP within 1e-6 (no image
+    has more than 100 detections and every absent category is listed as
+    negative, so neither maxDets 300 nor the ignore rule changes a row)."""
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.data.build import build_detection_test_loader
+    from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
+    from lvc_tpu_torch.evaluation.evaluator import inference_on_dataset
+    from lvc_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
+    from lvc_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
+    from lvc_tpu_torch.evaluation.testing import verify_results
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.tools import verify_synthetic_ap as gate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        voc, coco, lvis = gate_voc_tree(gate.build_dataset(os.path.join(tmp, "synth")), os.path.join(tmp, "voc"))
+        tree_s = time.perf_counter() - t0
+        cfg = gate.make_cfg(False, GATE_ITERS, os.path.join(tmp, "out"))
+        cfg.DATASETS.TEST = (voc,)
+        model = build_model(cfg)
+        model.load_state_dict(torch.load(gate_pth, map_location="cuda"))
+        loader = build_detection_test_loader(cfg, voc, batch_size=1)
+        evaluators = FanOut(PascalVOCDetectionEvaluator(voc), COCOEvaluator(coco, cfg, os.path.join(tmp, "coco")),
+                            LVISEvaluator(lvis, cfg, os.path.join(tmp, "lvis")))
+        ra.roi_align_paired.launches = 0
+        t0 = time.perf_counter()
+        res_voc, res_coco, res_lvis = inference_on_dataset(model, loader, evaluators)
+        secs = time.perf_counter() - t0
+        launches = ra.roi_align_paired.launches
+    v, c, lv = res_voc["bbox"], res_coco["bbox"], res_lvis["bbox"]
+    ok = verify_results(cfg, {"bbox": v})
+    lvis_err = max(abs(lv[k] - c[k]) for k in ("AP", "AP50", "AP75", "APs", "APm", "APl"))
+    print(f"VOC evaluation of the trained float32 gate model (60 held-out images as a VOC 2007 tree, written in "
+          f"{tree_s:.1f} s; {secs:.2f} s for the forwards and three evaluators, K2 launches {launches}): VOC AP50 "
+          f"{v['AP50']:.4f} (11-point, +1-pixel IoU), COCO AP50 {c['AP50']:.4f}, VOC - COCO {v['AP50'] - c['AP50']:+.4f}; "
+          f"VOC AP {v['AP']:.4f} AP75 {v['AP75']:.4f} bAP50 (disc) {v['bAP50']:.4f} nAP50 (slab) {v['nAP50']:.4f}; "
+          f"COCO AP {c['AP']:.4f}; LVIS AP {lv['AP']:.4f} APr {lv['APr']:.4f} APc {lv['APc']:.4f}, largest "
+          f"|LVIS - COCO| over AP..APl {lvis_err:.3e} (tol 1e-6); verify_results {'PASS' if ok else 'FAIL'} {tag}")
+    if not ok or not 60 < v["AP50"] < 100:
+        raise AssertionError(f"VOC AP50 {v['AP50']} is not in (60, 100)")
+    if lvis_err > 1e-6 or launches != 60:
+        raise AssertionError(f"LVIS against COCO {lvis_err} on the gate model, K2 launches {launches}")
+
+
+def use_voc_tree(root: str) -> None:
+    """Register every VOC name on the tree at ``root`` (the ``datasets``
+    directory), as ``register_all_pascal_voc(root)`` registers them at import
+    under ``$DETECTRON2_DATASETS``."""
+    from lvc_tpu_torch.data import builtin
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+
+    for name in [n for n in DatasetCatalog.list() if n.startswith("voc_")]:
+        DatasetCatalog.remove(name)
+    builtin.register_all_pascal_voc(root)
+
+
+def voc_opts(weights: str, out: str):
+    """ucbdrive/few-shot-object-detection's
+    ``configs/PascalVOC-detection/split1/faster_rcnn_R_101_FPN_base1.yaml``
+    on ``Base-RCNN-FPN.yaml``: R-101, 15 classes, TFA's train sizes, the
+    07+12 base1 splits, IMS_PER_BATCH 16, steps (12000, 16000), warm-up 100;
+    with AMP and POOLER_IMPL pallas_train; cut to ``VOC_ITERS`` iterations,
+    BASE_LR 1e-4 (phase 17's, for a random init) and the score threshold
+    0.001, so that the random detector's rows reach the evaluator."""
+    return ["--config-file", BASE_YAML, "MODEL.RESNETS.DEPTH", "101", "MODEL.ROI_HEADS.NUM_CLASSES", "15",
+            "INPUT.MIN_SIZE_TRAIN", VOC_MIN_SIZES, "INPUT.MAX_SIZE_TRAIN", "1333", "INPUT.MIN_SIZE_TEST", "800",
+            "DATASETS.TRAIN", "('voc_2007_trainval_base1', 'voc_2012_trainval_base1')",
+            "DATASETS.TEST", "('voc_2007_test_base1',)", "SOLVER.IMS_PER_BATCH", "16",
+            "SOLVER.STEPS", "(12000, 16000)", "SOLVER.WARMUP_ITERS", "100", "SOLVER.BASE_LR", "1e-4",
+            "SOLVER.MAX_ITER", str(VOC_ITERS), "SOLVER.CHECKPOINT_PERIOD", "1000000", "SOLVER.AMP.ENABLED", "True",
+            "MODEL.ROI_HEADS.POOLER_IMPL", "pallas_train", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001",
+            "MODEL.WEIGHTS", weights, "SEED", "0", "OUTPUT_DIR", out]
+
+
+def ft_opts(weights: str, out: str):
+    """``faster_rcnn_R_101_FPN_ft_all1_1shot.yaml`` on top of ``voc_opts``:
+    20 classes from the randinit surgery, the 1-shot all1 split, backbone and
+    RPN frozen and ``FREEZE_FEAT`` (only the box predictor trains), BASE_LR
+    0.001, steps (3000,), no warm-up; cut to ``VOC_ITERS`` iterations. The
+    LVC training-set merge filters an "all" split of ``UNSEEN_CLASSES`` and
+    adds ``FS_TRAIN`` filtered of ``SEEN_CLASSES`` (both packages'
+    ``get_dataset_dicts_all``): given split 1's classes and the same 1-shot
+    set, it trains on that set, as TFA does."""
+    from lvc_tpu_torch.data.builtin_meta import PASCAL_VOC_BASE_CATEGORIES, PASCAL_VOC_NOVEL_CATEGORIES
+
+    opts = voc_opts(weights, out)
+    for key, value in (("MODEL.ROI_HEADS.NUM_CLASSES", "20"), ("DATASETS.TRAIN", "('voc_2007_trainval_all1_1shot',)"),
+                       ("DATASETS.TEST", "('voc_2007_test_all1',)"), ("SOLVER.BASE_LR", "0.001"),
+                       ("SOLVER.STEPS", "(3000,)"), ("SOLVER.WARMUP_ITERS", "0")):
+        opts[opts.index(key) + 1] = value
+    return opts + ["MODEL.BACKBONE.FREEZE", "True", "MODEL.PROPOSAL_GENERATOR.FREEZE", "True",
+                   "MODEL.ROI_HEADS.FREEZE_FEAT", "True", "DATASETS.FS_TRAIN", "('voc_2007_trainval_all1_1shot',)",
+                   "DATASETS.SEEN_CLASSES", repr(PASCAL_VOC_BASE_CATEGORIES[1]),
+                   "DATASETS.UNSEEN_CLASSES", repr(PASCAL_VOC_NOVEL_CATEGORIES[1])]
+
+
+def last_checkpoint(out: str) -> str:
+    with open(os.path.join(out, "last_checkpoint")) as f:
+        return os.path.join(out, f.read().strip())
+
+
+def voc_path(tag):
+    """Phase 29, VOC at full width, TFA split 1, on a seeded VOC tree
+    (``VOC_TREE`` images at VOC's 500x375 and 375x500, some objects
+    difficult, 1-shot lists) written under ``<tmp>/datasets``, run from
+    ``<tmp>`` (the few-shot lists are read relative to the working
+    directory): ``train_net`` on the 07+12 base1 splits (15 classes,
+    ``voc_opts``) from a damped-init ``.pth``, ``--eval-only`` on
+    voc_2007_test_base1, ``ckpt_surgery --method randinit`` to 20 classes,
+    the 1-shot ``ft_all1`` fine-tune (``ft_opts``) and ``--eval-only`` on
+    voc_2007_test_all1, which must report bAP50 and nAP50. K2/K3 every
+    training step (K3 0 when nothing before the pool trains), held to their
+    plain versions on one more base step's own tensors."""
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.tools import ckpt_surgery, train_net
+    from lvc_tpu_torch.utils.init import damped_init
+
+    cwd = os.getcwd()
+    rec = PoolRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_voc_tree(os.path.join(tmp, "datasets"), *VOC_TREE, seed=0)
+        use_voc_tree(os.path.join(tmp, "datasets"))
+        tree_s = time.perf_counter() - t0
+        os.chdir(tmp)
+        try:
+            cfg = get_cfg()
+            cfg.merge_from_file(BASE_YAML)
+            cfg.merge_from_list(voc_opts("", "")[2:])
+            model = damped_init(build_model(cfg), seed=0)
+            weights = DetectionCheckpointer(model, os.path.join(tmp, "weights")).save("damped_init", iteration=0)
+            del model
+            runs = {}
+            for what, argv in (("base1 train_net", voc_opts(weights, "base")),):
+                torch.cuda.reset_peak_memory_stats()
+                res, secs, n, trainer = run_cli(train_net, argv)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                if set(trainer.step_launches) != {(1, 1)} or trainer.cfg.MODEL.RESNETS.DEPTH != 101:
+                    raise AssertionError(f"VOC base1: K2/K3 per iteration {sorted(set(trainer.step_launches))}")
+                ms = train_net_report(f"VOC {what}: R-101-FPN, 15 classes, AMP, pallas_train, IMS_PER_BATCH 16, "
+                                      f"VOC sizes (tree written in {tree_s:.1f} s)", trainer, secs, peak, 16, tag)
+                profile_call(trainer.run_step, ms, "VOC base1 iteration (loader wait, B=16 AMP step)", tag,
+                             stages=TRAIN_STAGES)
+                with rec:
+                    trainer.run_step()
+                runs[what] = res
+                del trainer
+            base_final = last_checkpoint("base")
+            res, secs, n, ev = run_cli(train_net, ["--eval-only"] + voc_opts(base_final, "base_eval"))
+            n_test = VOC_TREE[1]
+            final = runs["base1 train_net"]["bbox"]
+            err = max(abs(res["bbox"][k] - v) for k, v in final.items())
+            if err > 1e-9 or n[1] != n_test or "AP50-aeroplane" not in res["bbox"]:
+                raise AssertionError(f"VOC --eval-only {res} differs from the final evaluation, K2 {n[1]}")
+            print(f"VOC --eval-only voc_2007_test_base1: {ev.test_s / n_test * 1e3:.2f} ms/img end to end at batch 1 "
+                  f"({n_test} images at 800x1067 or 1067x800 on the 832x1344 canvases; K2 {n[1]}), AP {res['bbox']['AP']:.4f} "
+                  f"AP50 {res['bbox']['AP50']:.4f}, the training's final evaluation within {err:.1e} {tag}")
+            surgery = ckpt_surgery.main(ckpt_surgery.parser.parse_args(
+                ["--src1", base_final, "--method", "randinit", "--save-dir", "surgery"]))
+            torch.cuda.reset_peak_memory_stats()
+            res, secs, n, trainer = run_cli(train_net, ft_opts(surgery, "ft"))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trains_features = any(p.requires_grad for name, p in trainer.model.named_parameters()
+                                  if name.startswith("backbone."))
+            want = {(1, int(trains_features))}
+            if set(trainer.step_launches) != want or trainer.cfg.MODEL.ROI_HEADS.NUM_CLASSES != 20:
+                raise AssertionError(f"VOC ft_all1: K2/K3 per iteration {sorted(set(trainer.step_launches))}, want {want}")
+            train_net_report("VOC ft_all1 1-shot train_net: randinit surgery to 20 classes, FREEZE_FEAT (backbone and "
+                             f"RPN frozen: pool inputs {'train' if trains_features else 'frozen'})", trainer, secs, peak,
+                             16, tag)
+            del trainer
+            res, secs, n, ev = run_cli(train_net, ["--eval-only"] + ft_opts(last_checkpoint("ft"), "ft_eval"))
+            b = res["bbox"]
+            if not {"bAP50", "nAP50", "AP50-bird"} <= set(b) or n[1] != n_test:
+                raise AssertionError(f"VOC ft_all1 --eval-only: {res}, K2 {n[1]}")
+            print(f"VOC --eval-only voc_2007_test_all1 after the fine-tune: {ev.test_s / n_test * 1e3:.2f} ms/img, AP "
+                  f"{b['AP']:.4f} AP50 {b['AP50']:.4f} bAP50 {b['bAP50']:.4f} nAP50 {b['nAP50']:.4f} (a random "
+                  f"detector trained {VOC_ITERS} iterations) {tag}")
+        finally:
+            os.chdir(cwd)
+    return check_recorded_pool("VOC base1 step (R-101-FPN, AMP, 512 boxes an image)", rec, tag, timed=True)
+
+
+def coco_tree_for(root: str) -> None:
+    """Phase 17's seeded COCO tree again (``write_coco_tree`` with its
+    arguments writes the same files), registered in the port's catalog."""
+    n_train, n_test = TRAIN_NET_TREE
+    write_coco_tree(root, n_train, n_test, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+    use_coco_tree(root)
+
+
+def lvis_path(tag, root: str, base_pth: str):
+    """Phase 30: phase 17's test split rewritten as an LVIS json
+    (``lvis_json_from_coco``: the same images, boxes and 80 categories,
+    frequency r/c/f in turn, every absent category negative, none
+    not-exhaustive) and registered with ``register_meta_lvis``;
+    ``train_net --eval-only`` from phase 17's ``base.pth`` with the
+    ``LVISEvaluator`` on it, and with the ``COCOEvaluator`` on coco_test_all
+    (the same 80-category map). The two result files must hold the same
+    rows, and the LVIS AP..APl must equal COCO's all-split values within
+    1e-6: on this json the ignore rule and maxDets 300 change nothing."""
+    from lvc_tpu_torch.data.meta_lvis import register_meta_lvis
+    from lvc_tpu_torch.tools import train_net
+
+    lvis_json = lvis_json_from_coco(os.path.join(root, "cocosplit", "datasplit", "5k.json"),
+                                    os.path.join(root, "lvis_test.json"))
+    replace_dataset("lvis_coco_test", register_meta_lvis, {}, lvis_json, os.path.join(root, "coco", "val2014"))
+    out = {}
+    for name, results in (("lvis_coco_test", "lvis_instances_results.json"),
+                          ("coco_test_all", "coco_instances_test_results.json")):
+        work = os.path.join(os.path.dirname(root), name)
+        res, secs, n, ev = run_cli(train_net, [
+            "--config-file", TRAIN_NET_YAML, "--eval-only", "MODEL.WEIGHTS", base_pth,
+            "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001", "DATASETS.TEST", f"('{name}',)", "OUTPUT_DIR", work])
+        out[name] = res["bbox"], result_rows(os.path.join(work, "inference", results)), ev.test_s, n[1]
+    (lv, lv_rows, lv_s, k2), (co, co_rows, co_s, _) = out["lvis_coco_test"], out["coco_test_all"]
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl")
+    err = max(abs(lv[k] - co[k]) for k in keys)
+    n_test = TRAIN_NET_TREE[1]
+    print(f"LVIS --eval-only of phase 17's base.pth on its test split as an LVIS json: {len(lv_rows)} rows "
+          f"({'equal to' if lv_rows == co_rows else 'NOT equal to'} the COCO run's {len(co_rows)}), LVIS AP "
+          f"{lv['AP']:.6f} AP50 {lv['AP50']:.6f} APr {lv['APr']:.6f} APc {lv['APc']:.6f} APf {lv['APf']:.6f}; COCO "
+          f"all-split AP {co['AP']:.6f} AP50 {co['AP50']:.6f}; largest |LVIS - COCO| over AP..APl {err:.3e} (tol "
+          f"1e-6); {lv_s / n_test * 1e3:.2f} (LVIS) and {co_s / n_test * 1e3:.2f} (COCO) ms/img, K2 {k2} {tag}")
+    if lv_rows != co_rows or err > 1e-6 or k2 != n_test or not lv_rows:
+        raise AssertionError(f"LVIS against COCO: rows equal {lv_rows == co_rows}, AP diff {err}, K2 {k2}")
+
+
+def context_path(tag, base_pth: str):
+    """Phase 31a: ``GeneralizedRCNN_Context`` through ``train_net.main`` at
+    phase 17's width (faster_rcnn_R_50_FPN_base.yaml, AMP, IMS_PER_BATCH 16
+    at 832x1344, POOLER_IMPL auto: K2 and K3 in training) from phase 17's
+    ``base.pth`` (the context head starts from the trainer's He init), on
+    phase 17's tree for ``CONTEXT_ITERS`` iterations, then its evaluation
+    through the COCO evaluator (which reads the dict's detections); one more
+    test batch's eval output must hold finite ``image_scores`` in [0, 1];
+    K2/K3 on one more step's own tensors against their plain versions."""
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.tools import train_net
+
+    rec = PoolRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = ["--config-file", TRAIN_NET_YAML, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN_Context",
+                "MODEL.WEIGHTS", base_pth, "SOLVER.AMP.ENABLED", "True", "SOLVER.BASE_LR", "1e-4",
+                "SOLVER.MAX_ITER", str(CONTEXT_ITERS), "SOLVER.CHECKPOINT_PERIOD", "1000000", "SEED", "0",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.001", "OUTPUT_DIR", tmp]
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, n, trainer = run_cli(train_net, opts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            rows = [json.loads(line) for line in f]
+        loss = [r["loss_context"] for r in rows if "loss_context" in r]
+        if set(trainer.step_launches) != {(1, 1)} or not loss or not all(math.isfinite(v) for v in loss):
+            raise AssertionError(f"context train_net: K2/K3 {sorted(set(trainer.step_launches))}, loss_context {loss}")
+        train_net_report("context train_net: GeneralizedRCNN_Context R-50-FPN (60 classes) AMP, IMS_PER_BATCH 16 at "
+                         "832x1344", trainer, secs, peak, 16, tag)
+        model = trainer.model.eval()
+        batch, metas = next(iter(train_net.Trainer.build_test_loader(trainer.cfg, "coco_test_base")))
+        out = model(batch)
+        scores = out["image_scores"]
+        if (set(out) != {"detections", "image_scores"} or tuple(scores.shape) != (1, 60)
+                or not bool(((scores >= 0) & (scores <= 1)).all()) or "AP" not in res["bbox"]):
+            raise AssertionError(f"context eval output {set(out)}, image_scores {tuple(scores.shape)}, results {res}")
+        print(f"context train_net: loss_context {loss[-1]:.6f} in the last metrics.json row; its evaluation "
+              f"through the COCO evaluator bbox AP {res['bbox']['AP']:.4f} ({trainer.test_s:.2f} s, K2 "
+              f"{trainer.test_launches[0]}); image_scores of one test image: shape {tuple(scores.shape)}, mean "
+              f"{float(scores.mean()):.4f}, max {float(scores.max()):.4f} {tag}")
+        model.train()
+        with rec:
+            trainer.run_step()
+        del trainer
+    return check_recorded_pool("context step (R-50-FPN, AMP, 512 boxes an image)", rec, tag, timed=True)
+
+
+def context_reference_check(tag):
+    """Phase 31's narrow check: one train step of ``GeneralizedRCNN_Context``
+    at ``narrow_cfg``'s widths (float32, POOLER_IMPL pallas_train,
+    exhaustive sampling, phase 21's batch) on the card (K2 + K3) and on the
+    CPU (plain versions) from the same weights: every loss to rel 1e-4 and
+    every gradient to rel L2 1e-4 (phase 21's tolerances), K2/K3 1/1; the
+    eval output's ``image_scores`` to 1e-5 and its detections as phase 3's;
+    then K2 and K3 on the card step's own tensors against their plain
+    versions."""
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+
+    batch = train_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 100))
+    cfg = narrow_cfg("pallas_train")
+    cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN_Context"
+    for key, value in (("PRE_NMS_TOPK_TRAIN", 200), ("POST_NMS_TOPK_TRAIN", 100), ("BATCH_SIZE_PER_IMAGE", 8192),
+                       ("POSITIVE_FRACTION", 0.999), ("PRE_NMS_TOPK_TEST", 200), ("POST_NMS_TOPK_TEST", 100)):
+        setattr(cfg.MODEL.RPN, key, value)
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 128
+    cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.999
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cpu = build_model(cfg, device="cpu")
+    calibrated_init(cpu, seed=0)
+    gpu = build_model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    res, rec = {}, PoolRecorder()
+    for key, model in (("cpu", cpu), ("gpu", gpu)):
+        with torch.no_grad():
+            out = model.eval()({k: batch[k] for k in ("image", "image_size")})
+        model.train()
+        opt = build_optimizer(cfg, model)
+        step = make_train_step(model, opt, build_lr_schedule(cfg, opt))
+        ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        with rec if key == "gpu" else contextlib.nullcontext():
+            metrics = step(batch, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.grad is not None}
+        res[key] = ({k: float(v) for k, v in metrics.items()}, grads,
+                    (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches),
+                    out["image_scores"].cpu(), [t.cpu() for t in out["detections"]])
+    (c_loss, c_grad, c_n, c_s, c_d), (g_loss, g_grad, g_n, g_s, g_d) = res["cpu"], res["gpu"]
+    loss_err = max(abs(g_loss[k] - v) / max(abs(v), 1e-30) for k, v in c_loss.items())
+    if c_n != (0, 0) or g_n != (1, 1) or set(c_loss) != set(g_loss) or loss_err > 1e-4 or c_loss["loss_context"] <= 0:
+        raise AssertionError(f"context step: K2/K3 {g_n}, losses cpu {c_loss} card {g_loss}")
+    rel = {n: float((g_grad[n] - w).norm() / w.norm().clamp(min=1e-30)) for n, w in c_grad.items()}
+    worst = max(rel, key=rel.get)
+    score_err = float((g_s - c_s).abs().max())
+    dv = c_d[3]
+    if (rel[worst] > 1e-4 or set(c_grad) != set(g_grad) or "cont_cls.weight" not in c_grad or score_err > 1e-5
+            or not torch.equal(dv, g_d[3]) or not torch.equal(c_d[2][dv], g_d[2][dv])
+            or float((c_d[0][dv] - g_d[0][dv]).abs().max()) > 1e-3):
+        raise AssertionError(f"context: grads {worst} {rel[worst]}, image_scores {score_err}, detections differ")
+    print(f"context reference (GeneralizedRCNN_Context, narrow R-50-FPN, 5 classes): card vs CPU at float32, losses "
+          f"{ {k: round(v, 5) for k, v in c_loss.items()} } max rel err {loss_err:.2e} (tol 1e-4); {len(rel)} grads "
+          f"max rel L2 {rel[worst]:.2e} ({worst}; tol 1e-4); image_scores max err {score_err:.2e} (tol 1e-5); "
+          f"{int(dv.sum())} detections equal in class; K2/K3 launches {g_n[0]}/{g_n[1]} {tag}")
+    check_recorded_pool("context reference step (float32, C=64)", rec, tag)
+
+
+def voc_card_evaluation(tag):
+    """The VOC evaluator on detections made on the card: phase 3's narrow
+    model (``calibrated_init``, 5 classes, float32, POOLER_IMPL pallas: K2)
+    over a small seeded VOC tree's 2007 test split, registered as 5 classes
+    of split 1, on the card and, from the same weights, on the CPU (the
+    plain pool). Every batch's detections as phase 3 holds them (validity
+    and class equal, boxes 1e-3 px, scores 1e-4) and one K2 launch a batch;
+    ``PascalVOCDetectionEvaluator`` fed the card's tensors gives every
+    result of the CPU's within 0.1 AP points (near-tied scores may swap
+    places in the ranking)."""
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.data.build import build_detection_test_loader
+    from lvc_tpu_torch.data.meta_pascal_voc import register_meta_pascal_voc
+    from lvc_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    cfg = narrow_cfg("pallas")
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 96, 192
+    cfg.PAD.CANVAS_BUCKETS = [[128, 192], [192, 128]]
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+    cpu = build_model(cfg, device="cpu")
+    calibrated_init(cpu, seed=0)
+    gpu = build_model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        write_voc_tree(os.path.join(tmp, "datasets"), 4, 6, 0, sizes=((96, 128), (128, 96)))
+        classes = ["bird", "bus", "cow", "motorbike", "sofa"]
+        replace_dataset("voc_card_probe", register_meta_pascal_voc, {
+            "thing_classes": {1: classes}, "base_classes": {1: classes[:3]}, "novel_classes": {1: classes[3:]}},
+            os.path.join(tmp, "datasets", "VOC2007"), "test", 2007, "base_novel_1", 1)
+        card, host = PascalVOCDetectionEvaluator("voc_card_probe"), PascalVOCDetectionEvaluator("voc_card_probe")
+        ra.roi_align_paired.launches = n = 0
+        box_err = score_err = 0.0
+        for batch, metas in build_detection_test_loader(cfg, "voc_card_probe", batch_size=2):
+            g, c = gpu(batch), cpu(batch)
+            card.process_detections(g, metas)
+            host.process_detections(c, metas)
+            g = [t.cpu() for t in g]
+            dv = c.valid
+            if not torch.equal(dv, g[3]) or not torch.equal(c.classes[dv], g[2][dv]):
+                raise AssertionError("VOC on the card: detections differ from the CPU's in validity or class")
+            if dv.any():
+                box_err = max(box_err, float((c.boxes[dv] - g[0][dv]).abs().max()))
+                score_err = max(score_err, float((c.scores[dv] - g[1][dv]).abs().max()))
+            n += sum(not m["padding"] for m in metas)
+        want, got = host.evaluate()["bbox"], card.evaluate()["bbox"]
+    ap_err = max(abs(got[k] - v) for k, v in want.items())
+    if (set(got) != set(want) or ap_err > 0.1 or box_err > 1e-3 or score_err > 1e-4
+            or ra.roi_align_paired.launches != 3 or n != 6):
+        raise AssertionError(f"VOC on card detections: {got} vs the CPU's {want}, box err {box_err}, score err "
+                             f"{score_err}, K2 {ra.roi_align_paired.launches}")
+    print(f"VOC evaluator on card detections: {n} images, card vs CPU box err {box_err:.2e} (tol 1e-3) score err "
+          f"{score_err:.2e} (tol 1e-4); AP50 {got['AP50']:.4f} (CPU {want['AP50']:.4f}), {len(want)} results max "
+          f"diff {ap_err:.2e} points (tol 0.1); K2 launches {ra.roi_align_paired.launches} (batches of 2) {tag}")
+
+
+def precomputed_proposals_check(tag):
+    """Phase 31b: phase 4's R-101-FPN serving model (bf16, pallas_fast,
+    seeded damped weights) on a B=2 832x1344 batch at score threshold 0.001;
+    its RPN's proposals fed back through a ``PrecomputedProposals`` model
+    with the same weights (no proposal generator): the detections must be
+    equal slot for slot."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.utils.init import damped_init
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, H, W = 2, 832, 1344
+    batch = {"image": torch.rand(B, H, W, 3, generator=g, device="cuda") * 255,
+             "image_size": torch.tensor([[H, W], [800, 1200]], dtype=torch.int32, device="cuda")}
+    cfg = serving_cfg("pallas_fast")
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+    rpn_model = damped_init(build_model(cfg), seed=0)
+    boxes, logits, valid = rpn_model.proposals(batch)
+    want = rpn_model(batch)
+    cfg.MODEL.PROPOSAL_GENERATOR.NAME = "PrecomputedProposals"
+    model = build_model(cfg)
+    missing, unexpected = model.load_state_dict(rpn_model.state_dict(), strict=False)
+    if missing or not unexpected or not all(k.startswith("proposal_generator.") for k in unexpected):
+        raise AssertionError(f"PrecomputedProposals weights: missing {missing}, unexpected {unexpected}")
+    got = model(dict(batch, proposal_boxes=boxes, proposal_logits=logits, proposal_valid=valid))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"PrecomputedProposals: R-101-FPN bf16 pallas_fast B={B}, {int(valid.sum())} proposals fed back; "
+          f"{int(want.valid.sum())} detections, equal slot for slot: {same} {tag}")
+    if not same or not bool(want.valid.any()):
+        raise AssertionError("PrecomputedProposals: detections differ from the RPN model's")
+
+
+def predictor_check(tag):
+    """Phase 31c: ``DefaultPredictor`` (R-101-FPN, bf16, pallas_fast, on the
+    card; ``MODEL.WEIGHTS`` a seeded damped-init checkpoint, loaded over the
+    predictor's own He init, which keeps no detection at score threshold
+    0.001) on a 500x375 JPEG must keep detections and equal its model's
+    forward on the batch the test loader makes from the same file; ms per
+    image over 5 calls after a warm-up."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.data.build import build_detection_test_loader
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.dataset_mapper import read_image
+    from lvc_tpu_torch.engine.defaults import DefaultPredictor
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.utils.init import damped_init
+
+    cfg = serving_cfg("pallas_fast")
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.MODEL.WEIGHTS = DetectionCheckpointer(damped_init(build_model(cfg), seed=0), tmp).save("damped", 0)
+        rng = np.random.RandomState(2)
+        low = rng.randint(0, 256, (375 // 16 + 1, 500 // 16 + 1, 3)).astype(np.uint8)
+        path = os.path.join(tmp, "000001.jpg")
+        Image.fromarray(np.kron(low, np.ones((16, 16, 1), np.uint8))[:375, :500].copy()).save(path, quality=90)
+        record = {"file_name": path, "image_id": 1, "height": 375, "width": 500, "annotations": []}
+        replace_dataset("predictor_probe", DatasetCatalog.register, lambda: [record])
+        predictor = DefaultPredictor(cfg)
+        image = read_image(path, cfg.INPUT.FORMAT)
+        got = predictor(image)
+        batch, _ = next(iter(build_detection_test_loader(cfg, "predictor_probe")))
+        want = predictor.model(batch)
+        same = all(np.array_equal(a, b[0].cpu().numpy()) for a, b in zip(got, want))
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            predictor(image)
+            times.append(time.perf_counter() - t0)
+    print(f"DefaultPredictor: R-101-FPN bf16 on a 500x375 JPEG (800x1067 on the 832x1344 canvas), "
+          f"{int(got.valid.sum())} detections, equal to the model's forward on the test loader's batch: {same}; "
+          f"{sum(times) / len(times) * 1e3:.2f} ms/image (min {min(times) * 1e3:.2f}) over 5 calls, resize and copy "
+          f"included {tag}")
+    if not same or not got.valid.any():
+        raise AssertionError("DefaultPredictor differs from the model's forward on the loader's batch")
+
+
+def crops_path(tag, base_pth: str):
+    """Phase 31d: ``RPNEvaluator`` (``train_net --eval-only`` with
+    ProposalNetwork from phase 17's ``base.pth``) writes the proposal pickle
+    of phase 17's test split; ``build_crop_exem_loader`` over it (40
+    proposals an image before the filters, the shots from the train split)
+    gives batches of 64 proposal crops of 224 plus one shot, fed to RPNComp
+    (R-50, res5, avg pool, He init) on the card, and the first batch also on
+    the CPU (float32, TF32 off): within rel 1e-4 of the largest |value|;
+    crops/s with the loader and of the forwards alone."""
+    import tempfile
+
+    import torch
+
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.data.crop import build_crop_exem_loader
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils.init import he_init
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cli(train_net, ["--config-file", TRAIN_NET_YAML, "--eval-only", "MODEL.META_ARCHITECTURE",
+                            "ProposalNetwork", "MODEL.WEIGHTS", base_pth, "DATASETS.TEST", "('coco_test_all',)",
+                            "OUTPUT_DIR", tmp])
+        cfg = get_cfg()
+        cfg.merge_from_list(["DATASETS.FS_TRAIN", "('coco_trainval_all',)", "DATASETS.TEST", "('coco_test_all',)",
+                             "DATASETS.PROPOSAL_FILES_TEST", f"('{os.path.join(tmp, 'coco_proposals_test_results.pkl')}',)",
+                             "MODEL.LOAD_PROPOSALS", "True", "SOLVER.IMS_PER_BATCH", "65",
+                             "DATALOADER.PROPOSALS.TOPK", "40", "MODEL.META_ARCHITECTURE", "RPNComp",
+                             "MODEL.BACKBONE.NAME", "build_resnet_backbone", "MODEL.RESNETS.OUT_FEATURES", "['res5']",
+                             "MODEL.RPNCOMP.POOLER", "avg"])
+        cpu = build_model(cfg, device="cpu")
+        he_init(cpu, torch.Generator().manual_seed(0))
+        card = build_model(cfg)
+        card.load_state_dict(cpu.state_dict())
+        loader = build_crop_exem_loader(cfg, "coco_test_all")
+        n = fwd_s = 0
+        err = None
+        t0 = time.perf_counter()
+        for batch in loader:
+            t1 = time.perf_counter()
+            out = card(batch)
+            torch.cuda.synchronize()
+            fwd_s += time.perf_counter() - t1
+            n += len(batch["image"])
+            if err is None:
+                if tuple(out.shape) != (65, 2048) or batch["annotation"][-1] is None:
+                    raise AssertionError(f"RPNComp: {tuple(out.shape)} from a batch of {len(batch['image'])}")
+                want = cpu(batch)
+                err = float((out.cpu() - want).abs().max() / want.abs().max())
+        secs = time.perf_counter() - t0
+    print(f"crops and RPNComp: build_crop_exem_loader over RPNEvaluator's pickle, {len(loader)} batches of 64 "
+          f"proposal crops + 1 shot at 224x224, RPNComp R-50 res5 avg float32: card vs CPU on the first batch "
+          f"max |diff| / max |value| {err:.3e} (tol 1e-4); {n / secs:.1f} crops/s with the loader, "
+          f"{n / fwd_s:.1f} crops/s of the forwards alone {tag}")
+    if err is None or err > 1e-4:
+        raise AssertionError(f"RPNComp card vs CPU: {err}")
+
+
+def clustering_check(tag):
+    """Phase 31e: ``preprocess_features`` (PCA 384 -> 256 with whitening, L2)
+    and 20 k-means iterations (k=100) on 50,000 seeded descriptors (100
+    clusters, the kept 256 directions with distinct variances, the other 128
+    small), on the card and on the CPU from the same initial rows: the
+    assignments must be equal away from near-ties (the CPU's gap between the
+    two nearest centroids of its last iteration below 1e-3); ``Kmeans`` on
+    the card timed."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.data.cluster.clustering import Kmeans, init_indices, kmeans_run, preprocess_features
+
+    p = KMEANS
+    g = torch.Generator().manual_seed(0)
+    centers = torch.randn(p["k"], p["dim"], generator=g)
+    labels = torch.randint(p["k"], (p["n"],), generator=g)
+    scale = torch.cat([torch.linspace(3.0, 1.0, p["pca"]), torch.full((p["dim"] - p["pca"],), 0.05)])
+    x = (centers[labels] + 0.5 * torch.randn(p["n"], p["dim"], generator=g)) * scale
+    idx = init_indices(p["n"], p["k"], torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _ = preprocess_features(x.to(device), p["pca"])
+        cent, _, _ = kmeans_run(feats, feats[idx.to(device)], p["iters"] - 1)
+        d2 = (cent ** 2).sum(1)[None] - 2.0 * feats @ cent.T
+        torch.cuda.synchronize()
+        out[device] = d2.argmin(1).cpu(), d2.cpu(), (time.perf_counter() - t0) * 1e3
+    (a_card, _, card_ms), (a_cpu, d2, cpu_ms) = out["cuda"], out["cpu"]
+    top2 = d2.topk(2, dim=1, largest=False).values
+    tie = (top2[:, 1] - top2[:, 0]) < 1e-3
+    differ = a_card != a_cpu
+    km = Kmeans(p["k"], pca_dim=p["pca"], n_iter=p["iters"], seed=0)
+    xc = x.cuda()
+    km.cluster(xc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = km.cluster(xc)
+    torch.cuda.synchronize()
+    km_ms = (time.perf_counter() - t0) * 1e3
+    sizes = np.array([len(c) for c in km.images_lists])
+    print(f"clustering: N={p['n']}, D={p['dim']} -> PCA {p['pca']}, k={p['k']}, {p['iters']} iterations from the same "
+          f"rows: card {card_ms:.1f} ms, CPU {cpu_ms:.1f} ms; assignments differ on {int(differ.sum())} rows, all "
+          f"near-ties: {bool((~differ | tie).all())} ({int(tie.sum())} near-ties, gap < 1e-3); Kmeans.cluster on the "
+          f"card {km_ms:.1f} ms (loss {loss:.1f}, cluster sizes {sizes.min()}-{sizes.max()}) {tag}")
+    if not bool((~differ | tie).all()) or sizes.sum() != p["n"]:
+        raise AssertionError("k-means: card and CPU assignments differ away from near-ties")
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -4082,7 +4930,7 @@ def main() -> int:
     with fused_residual(False), tempfile.TemporaryDirectory() as keep:
         trainer_reference_check(tag)
         train_net_path(tag, os.path.join(keep, "base.pth"))
-        synthetic_ap_gate(tag)
+        synthetic_ap_gate(tag, os.path.join(keep, "gate.pth"))
         corrector_reference_check(tag)
         correct_path(tag, os.path.join(keep, "ubbr.pth"))
         finetune_reference_check(tag)
@@ -4093,6 +4941,20 @@ def main() -> int:
         extra_heads_reference_check(tag)
         parallel_finetune_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ft_novel.pth"))
         c4_path(tag)
+        t0 = time.perf_counter()
+        voc_gate_check(tag, os.path.join(keep, "gate.pth"))
+        voc_path(tag)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "datasets")
+            coco_tree_for(root)
+            lvis_path(tag, root, os.path.join(keep, "base.pth"))
+            context_path(tag, os.path.join(keep, "base.pth"))
+            crops_path(tag, os.path.join(keep, "base.pth"))
+        context_reference_check(tag)
+        precomputed_proposals_check(tag)
+        predictor_check(tag)
+        clustering_check(tag)
+        print(f"phases 28-31 took {time.perf_counter() - t0:.1f} s {tag}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,13 @@ flax and ``roi_heads.roi_heads.{base,novel}`` here, the keys
 ``ckpt_surgery --method combine_parallel`` writes (JAX's ``torch_to_flax``
 keeps that doubled prefix, so its flax tree cannot take such a file). The
 C4 head's blocks are ``res5.{0,1,2}`` in both, its extra regressor
-``bbox_branch``. ``vit_from_flax`` and ``vit_to_flax`` do the
-same for the DINO verifier ViT. All work on plain nested dicts of numpy
+``bbox_branch``. ``GeneralizedRCNN_Context``'s head is a bare flax
+``nn.Conv`` and ``nn.Dense``: ``cont_conv/{kernel,bias}`` and
+``cont_cls/kernel`` in flax, ``cont_conv.{weight,bias}`` and
+``cont_cls.weight`` here (JAX's ``torch_to_flax`` sends a reference
+``cont_conv`` to ``cont_conv/conv/*``, which its tree does not hold).
+``vit_from_flax`` and ``vit_to_flax`` do the same for the DINO verifier
+ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
 """
 from __future__ import annotations
@@ -71,6 +76,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "bias" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".bias"] = v
+        elif parts[-1] == "kernel" and v.ndim == 4:  # a bare nn.Conv (cont_conv)
+            out[".".join(parts[:-1]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "kernel":
             out[".".join(parts[:-1]) + ".weight"] = v.T
         elif parts[-1] == "cls_score_weight":
@@ -123,6 +130,10 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 stats[tuple(base + [name])] = v
             else:
                 raise KeyError(f"unrecognized norm key {key}")
+        elif mod == ["cont_conv"]:  # the context head's bare nn.Conv
+            params[("cont_conv", {"weight": "kernel"}.get(name, name))] = (
+                v.transpose(2, 3, 1, 0) if name == "weight" else v
+            )
         elif name == "weight" and v.ndim == 4:
             params[tuple(mod + ["conv", "kernel"])] = v.transpose(2, 3, 1, 0)
         elif name == "weight" and v.ndim == 2 and mod[-1] == "cls_score" and (

@@ -1,9 +1,10 @@
 """COCO category table and few-shot split metadata.
 
-A copy of the COCO part of ``lvc_tpu/data/builtin_meta.py`` and of its
-``LVIS_NOVEL_IDS`` (:133; the PASCAL VOC and the rest of the LVIS tables are
-not ported yet), kept so that the port never imports the
-JAX package. The novel (unseen) classes are the 20 PASCAL-VOC categories;
+A copy of the COCO and PASCAL VOC parts of ``lvc_tpu/data/builtin_meta.py``
+and of its ``LVIS_NOVEL_IDS`` (:133; the LVIS categories are read from the
+json itself, as in JAX), kept so that the port never imports the JAX
+package. The VOC tables keep the per-split order: base classes first, then
+novel. The novel (unseen) classes are the 20 PASCAL-VOC categories;
 base (seen) are the other 60, the standard FSOD split.
 """
 from __future__ import annotations
@@ -161,9 +162,41 @@ def _get_coco_fewshot_instances_meta():
     return ret
 
 
+# PASCAL VOC few-shot splits (3 canonical splits; lvc builtin_meta.py:254-383)
+PASCAL_VOC_NOVEL_CATEGORIES = {
+    1: ["bird", "bus", "cow", "motorbike", "sofa"],
+    2: ["aeroplane", "bottle", "cow", "horse", "sofa"],
+    3: ["boat", "cat", "motorbike", "sheep", "sofa"],
+}
+_VOC20 = [
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
+]
+PASCAL_VOC_BASE_CATEGORIES = {
+    sid: [c for c in _VOC20 if c not in set(novel)]
+    for sid, novel in PASCAL_VOC_NOVEL_CATEGORIES.items()
+}
+# per-split ordering: base classes first, then novel (reference convention)
+PASCAL_VOC_ALL_CATEGORIES = {
+    sid: PASCAL_VOC_BASE_CATEGORIES[sid] + PASCAL_VOC_NOVEL_CATEGORIES[sid]
+    for sid in PASCAL_VOC_NOVEL_CATEGORIES
+}
+
+
+def _get_pascal_voc_fewshot_instances_meta():
+    return {
+        "thing_classes": PASCAL_VOC_ALL_CATEGORIES,
+        "novel_classes": PASCAL_VOC_NOVEL_CATEGORIES,
+        "base_classes": PASCAL_VOC_BASE_CATEGORIES,
+    }
+
+
 def _get_builtin_metadata(dataset_name: str):
     if dataset_name == "coco":
         return _get_coco_instances_meta()
     if dataset_name == "coco_fewshot":
         return _get_coco_fewshot_instances_meta()
+    if dataset_name == "pascal_voc_fewshot":
+        return _get_pascal_voc_fewshot_instances_meta()
     raise KeyError(f"No built-in metadata for dataset {dataset_name}")

@@ -4,7 +4,8 @@ A copy of the parts of ``lvc_tpu/data/utils.py`` that the port's paths use,
 kept so that the port never imports the JAX package: the training-set merge
 of ``data/build.py::get_dataset_dicts_all`` (``remove_ignore_overlap``,
 ``filter_image_annotations``, ``combine_datasets``, ``unseen_sample``),
-result-JSON registration (``register_individual``, ``register_results``),
+the crop loaders' filters (``filter_annotations``, ``filter_proposal_boxes``,
+``remove_overlap_proposals``), result-JSON registration (``register_individual``, ``register_results``),
 the DINO crop helpers (``get_padding``, ``get_crops_qe``), the seen-gt
 overlap check (``iou_check_gt``) and the per-class precision report
 (``iou_check``, ``print_precision_per_class``).
@@ -99,6 +100,83 @@ def combine_datasets(list_of_dataset_dicts: List[List[dict]]) -> List[dict]:
             else:
                 base[img_id] = d
     return list(base.values())
+
+
+def filter_annotations(
+    dataset_dicts: List[dict],
+    area_rng=(0.0, 1.0e10),
+    rel_area_rng=(0.0, 1.0),
+    x_rng=(0.0, 1.0e10),
+    y_rng=(0.0, 1.0e10),
+    check_longest_side_only: bool = True,
+) -> List[dict]:
+    """Area/side-range annotation filter (lvc utils.py:86-130)."""
+    for d in dataset_dicts:
+        annos = d["annotations"]
+        if not annos:
+            continue
+        boxes = _anns_xyxy(annos)
+        areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        rel = areas / (d["width"] * d["height"])
+        ws = boxes[:, 2] - boxes[:, 0]
+        hs = boxes[:, 3] - boxes[:, 1]
+        ok = (areas > area_rng[0]) & (areas <= area_rng[1])
+        ok &= (rel > rel_area_rng[0]) & (rel <= rel_area_rng[1])
+        if check_longest_side_only:
+            longest = np.maximum(ws, hs)
+            ok &= (longest > x_rng[0]) & (longest <= x_rng[1])
+        else:
+            ok &= (ws > x_rng[0]) & (ws <= x_rng[1])
+            ok &= (hs > y_rng[0]) & (hs <= y_rng[1])
+        d["annotations"] = [a for a, k in zip(annos, ok) if k]
+    return dataset_dicts
+
+
+def filter_proposal_boxes(
+    dataset_dicts: List[dict],
+    area_rng=(0.0, 1.0e10),
+    rel_area_rng=(0.0, 2.0),
+    x_rng=(0.0, 1.0e10),
+    y_rng=(0.0, 1.0e10),
+    topk: int = int(1e10),
+) -> List[dict]:
+    """Geometric filter on loaded proposals (lvc utils.py:59-83): keep the
+    first ``topk`` per image, then gate by absolute/relative area and
+    width/height ranges."""
+    for d in dataset_dicts:
+        boxes = np.asarray(d.get("proposal_boxes", np.zeros((0, 4), np.float32)))
+        logits = np.asarray(d.get("proposal_objectness_logits", np.zeros((0,), np.float32)))
+        if not len(boxes):
+            continue
+        areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        rel = areas / float(d["height"] * d["width"])
+        ws = boxes[:, 2] - boxes[:, 0]
+        hs = boxes[:, 3] - boxes[:, 1]
+        keep = (areas > area_rng[0]) & (areas <= area_rng[1])
+        keep &= (rel > rel_area_rng[0]) & (rel <= rel_area_rng[1])
+        keep &= (ws > x_rng[0]) & (ws <= x_rng[1])
+        keep &= (hs > y_rng[0]) & (hs <= y_rng[1])
+        d["proposal_boxes"] = boxes[:topk][keep[:topk]]
+        d["proposal_objectness_logits"] = logits[:topk][keep[:topk]]
+    return dataset_dicts
+
+
+def remove_overlap_proposals(dataset_dicts: List[dict], iou_thresh: float) -> List[dict]:
+    """Drop proposals overlapping any gt annotation at IoU >= thresh
+    (lvc utils.py:125-143)."""
+    for d in dataset_dicts:
+        annos = d.get("annotations", [])
+        boxes = np.asarray(d.get("proposal_boxes", np.zeros((0, 4), np.float32)))
+        if not (len(annos) and len(boxes)):
+            continue
+        gt = _anns_xyxy(annos)
+        ious = _iou_xyxy(gt, boxes)
+        keep = ious.max(axis=0) < iou_thresh
+        d["proposal_boxes"] = boxes[keep]
+        d["proposal_objectness_logits"] = np.asarray(
+            d["proposal_objectness_logits"]
+        )[keep]
+    return dataset_dicts
 
 
 def unseen_sample(dataset_dicts: List[dict]) -> List[dict]:

@@ -21,8 +21,12 @@ seed from ``SEED`` and the iteration, from which the step seeds one generator
 per image at the image's global position (and dropout's from the rank): a
 resumed run samples as an uninterrupted one would, and an image samples the
 same slots whichever rank holds it (the JAX step folds the step and the
-image's position into its keys the same way). ``DefaultPredictor`` is not
-ported yet.
+image's position into its keys the same way).
+
+``DefaultPredictor`` (``lvc_tpu/engine/defaults.py:324-385``) runs one image
+through the test loader's ``DatasetMapper``: resized by ``MIN_SIZE_TEST``/
+``MAX_SIZE_TEST``, padded to ``pick_canvas``'s bucket, on ``cuda`` unless
+the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 
 from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
 from lvc_tpu_torch.data.build import build_detection_test_loader, build_detection_train_loader
+from lvc_tpu_torch.data.dataset_mapper import DatasetMapper
 from lvc_tpu_torch.engine import hooks as hooks_mod
 from lvc_tpu_torch.engine.train_loop import make_data_parallel_train_step, make_train_step
 from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
@@ -277,3 +282,46 @@ class DefaultTrainer:
         if len(results) == 1:
             results = list(results.values())[0]
         return results
+
+
+class DefaultPredictor:
+    """Single-image inference with the cfg's test transforms (the reference
+    defaults.py:206-266). ``model`` defaults to ``build_model(cfg)`` on
+    ``device`` (``cfg.MODEL.DEVICE`` unless given: ``cuda``, raising without
+    a GPU), whose weights are the ``"he"`` rule from seed 0, as JAX
+    materializes them, with ``MODEL.WEIGHTS`` loaded on top through
+    ``DetectionCheckpointer`` when set. ``INPUT.LOADER_S2D "on"`` raises, as
+    in the loader. A call takes one (H, W, 3) image in ``INPUT.FORMAT``
+    order and returns that image's slice of the model's output as numpy
+    arrays (``Detections`` in the canvas' coordinates, or the context
+    model's dict)."""
+
+    def __init__(self, cfg, model=None, device=None):
+        self.cfg = cfg.clone()
+        self.mapper = DatasetMapper(cfg, is_train=False)  # the test loader's transform and refusals
+        if model is None:
+            device = resolve_device(device if device is not None else cfg.MODEL.DEVICE)
+            model = build_model(cfg, device=device)
+            he_init(model, torch.Generator(device=device).manual_seed(0))
+            if cfg.MODEL.WEIGHTS:
+                DetectionCheckpointer(model).load(cfg.MODEL.WEIGHTS)
+        self.model = model.eval()
+
+    def batch(self, image: np.ndarray) -> dict:
+        """The one-image batch the test loader's mapper makes: the resized
+        image on its zero-padded canvas bucket, and its (h, w)."""
+        ex = self.mapper._map_loaded({}, image)
+        return {"image": ex["image"][None], "image_size": ex["image_size"][None]}
+
+    def __call__(self, image: np.ndarray):
+        with torch.no_grad():
+            return _first_image(self.model(self.batch(image)))
+
+
+def _first_image(out):
+    """Image 0 of a batched model output, as numpy arrays."""
+    if isinstance(out, torch.Tensor):
+        return out[0].cpu().numpy()
+    if isinstance(out, dict):
+        return {k: _first_image(v) for k, v in out.items()}
+    return type(out)(*[_first_image(f) for f in out])

@@ -103,10 +103,13 @@ def make_data_parallel_train_step(
     others when it is wrapped), the batch this rank's share of the global
     batch. The parameters stay ``model``'s, so the checkpointer and the
     evaluation use ``model`` itself. The model has no BatchNorm statistics
-    (BN is not ported), so no buffer is broadcast per step. Every trainable
-    parameter gets a gradient in every step (frozen ones have
-    ``requires_grad`` off), so DDP does not search for unused ones."""
+    (BN is not ported), so no buffer is broadcast per step. DDP searches the
+    graph for trainable parameters that get no gradient only where the
+    model says it has them (``unused_parameters``: the context detector);
+    elsewhere every trainable parameter gets one in every step (frozen ones
+    have ``requires_grad`` off)."""
     if not dist.is_initialized():
         raise RuntimeError("make_data_parallel_train_step needs torch.distributed initialised (engine/launch.py)")
-    ddp = DistributedDataParallel(model, broadcast_buffers=False)
+    ddp = DistributedDataParallel(model, broadcast_buffers=False,
+                                  find_unused_parameters=getattr(model, "unused_parameters", False))
     return make_train_step(model, optimizer, scheduler, mixed_precision, data_parallel=ddp)

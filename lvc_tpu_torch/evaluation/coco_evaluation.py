@@ -8,8 +8,10 @@ image size — the reference's detector_postprocess), writes
 computation on training sets (:318-320), and reports all/base/novel AP
 splits with b/n prefixes (:323-358) plus per-category tables.
 
-It takes the port's ``Detections`` (torch tensors, on the card or the CPU)
-through one ``.cpu()`` per batch. In a data-parallel run each rank holds the
+It takes the port's ``Detections`` (torch tensors, on the card or the CPU;
+or the context model's ``{"detections", "image_scores"}`` dict, whose
+detections it reads) through one copy to the host per batch
+(``host_detections``). In a data-parallel run each rank holds the
 rows of its shard; ``evaluate`` gathers them to the main rank in rank order
 (the whole dataset's order, as the test shards are contiguous) and returns
 an empty dict on the others (``lvc_tpu/evaluation/coco_evaluation.py:143-151``).
@@ -46,6 +48,15 @@ BASE_CLASS_IDS = [
     88, 89, 90,
 ]
 NOVEL_CLASS_IDS = [1, 2, 3, 4, 5, 6, 7, 9, 16, 17, 18, 19, 20, 21, 44, 62, 63, 64, 67, 72]
+
+
+def host_detections(out):
+    """The detections of a model output (``Detections`` or
+    ``DetectionsDebug``, or ``GeneralizedRCNN_Context``'s dict holding them
+    under ``"detections"``) as numpy arrays: one copy to the host."""
+    if isinstance(out, dict):
+        out = out["detections"]
+    return type(out)(*[f.cpu().numpy() if isinstance(f, torch.Tensor) else f for f in out])
 
 
 def detections_to_coco_json(dets, meta: dict, reverse_id_map=None) -> List[dict]:
@@ -113,10 +124,10 @@ class COCOEvaluator:
         self._predictions = []
 
     def process_detections(self, dets, metas: List[dict]):
-        """dets: batched ``Detections`` (torch, on any device), metas from
-        ``EvalLoader`` (entries with padding=True are skipped). One copy to
-        the host per batch."""
-        dets = type(dets)(*[f.cpu() if isinstance(f, torch.Tensor) else f for f in dets])
+        """dets: batched ``Detections`` (torch, on any device; or the context
+        model's dict), metas from ``EvalLoader`` (entries with padding=True
+        are skipped). One copy to the host per batch."""
+        dets = host_detections(dets)
         for i, meta in enumerate(metas):
             if meta.get("padding"):
                 continue
@@ -125,12 +136,19 @@ class COCOEvaluator:
                 detections_to_coco_json(one, meta, self._reverse_id_map)
             )
 
-    def evaluate(self) -> "OrderedDict":
+    def _gather(self) -> bool:
+        """In a data-parallel run, every rank's rows to the main rank; False
+        on the others."""
         if comm.get_world_size() > 1:
             shards = comm.gather_objects(self._predictions)
             if not comm.is_main_process():
-                return OrderedDict()
+                return False
             self._predictions = [r for shard in shards for r in shard]
+        return True
+
+    def evaluate(self) -> "OrderedDict":
+        if not self._gather():
+            return OrderedDict()
         # predictions already carry dataset category ids (mapped at
         # process time, matching the reference)
         coco_results = copy.deepcopy(self._predictions)

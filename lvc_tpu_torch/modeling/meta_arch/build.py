@@ -2,11 +2,14 @@
 ``lvc_tpu/modeling/meta_arch/build.py``: build_roi_heads:63-85,
 build_rpn:34, _roi_heads_kwargs:125, build_proposal_generator:170-191,
 _build_generalized_rcnn:195, _build_generalized_rcnn_reg_only:208-221,
+_build_generalized_rcnn_context:224-241, _build_rpn_comp:244-254,
 _build_proposal_network:352-361, build_model:366). Ported: the ResNet-FPN
 backbone and the plain ResNet (``build_resnet_backbone``, the C4 models:
-res4 features); ``GeneralizedRCNN``, ``GeneralizedRCNNRegOnly`` and
+res4 features, and RPNComp's res5); ``GeneralizedRCNN``,
+``GeneralizedRCNNRegOnly``, ``GeneralizedRCNN_Context``, ``RPNComp`` and
 ``ProposalNetwork``; the RPN (or ``RPN_Ignore``) and ``RBG`` proposal
-generators; every ROI head JAX's ``build_roi_heads`` builds:
+generators, and ``PrecomputedProposals`` (no generator: the batch carries
+the proposals); every ROI head JAX's ``build_roi_heads`` builds:
 ``StandardROIHeads`` (with ``FastRCNNOutputLayers`` or
 ``CosineSimOutputLayers``, and the debug inference under ``cfg.DEBUG``),
 ``CascadeROIHeads``, ``CascadeUBBRROIHeads``, ``UBBRROIHeads``,
@@ -20,7 +23,13 @@ import torch
 
 from lvc_tpu_torch.modeling.backbone.fpn import build_resnet_fpn_backbone, fpn_strides
 from lvc_tpu_torch.modeling.backbone.resnet import RESNET_STAGE_STRIDES, build_resnet, resnet_out_channels
-from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, GeneralizedRCNNRegOnly, ProposalNetwork
+from lvc_tpu_torch.modeling.meta_arch.rcnn import (
+    GeneralizedRCNN,
+    GeneralizedRCNN_Context,
+    GeneralizedRCNNRegOnly,
+    ProposalNetwork,
+)
+from lvc_tpu_torch.modeling.meta_arch.rpn_comp import RPNComp
 from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.cascade_rcnn import (
@@ -58,7 +67,9 @@ def _unported(what: str, item: str):
 _META_ARCHS = {
     "GeneralizedRCNN": GeneralizedRCNN,
     "GeneralizedRCNNRegOnly": GeneralizedRCNNRegOnly,
+    "GeneralizedRCNN_Context": GeneralizedRCNN_Context,
     "ProposalNetwork": ProposalNetwork,
+    "RPNComp": RPNComp,
 }
 _ROI_HEADS = {  # the heads built from the common options alone
     "StandardROIHeads": StandardROIHeads,
@@ -115,8 +126,10 @@ def build_proposal_generator(cfg, strides, in_channels: int):
             batch_size_per_image=m.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
             positive_fraction=m.ROI_HEADS.POSITIVE_FRACTION,
         )
+    if m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals":
+        return None
     if m.PROPOSAL_GENERATOR.NAME not in ("RPN", "RPN_Ignore"):
-        _unported(f"proposal generator {m.PROPOSAL_GENERATOR.NAME!r}", "queue 1, item 9")
+        raise ValueError(f"unknown proposal generator {m.PROPOSAL_GENERATOR.NAME!r}")
     return build_rpn(cfg, strides, in_channels)
 
 
@@ -192,7 +205,7 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
     device = resolve_device(device)
     m = cfg.MODEL
     if m.META_ARCHITECTURE not in _META_ARCHS:
-        _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, items 9-10")
+        _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, item 10")
     if m.MASK_ON or m.KEYPOINT_ON:
         _unported("mask and keypoint heads", "queue 1, item 10")
     if m.DTYPE not in _DTYPES:
@@ -203,6 +216,16 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
     rpn_channels = channels[m.RPN.IN_FEATURES[0]]
     if m.META_ARCHITECTURE == "ProposalNetwork":
         model = ProposalNetwork(backbone, build_rpn(cfg, strides, rpn_channels), **kwargs)
+    elif m.META_ARCHITECTURE == "RPNComp":
+        model = RPNComp(backbone, pooler=m.RPNCOMP.POOLER or "identity", **kwargs)
+    elif m.META_ARCHITECTURE == "GeneralizedRCNN_Context":
+        feature = m.ROI_HEADS.IN_FEATURES[-1]
+        model = GeneralizedRCNN_Context(
+            backbone, build_proposal_generator(cfg, strides, rpn_channels),
+            build_roi_heads(cfg, strides, channels[m.ROI_HEADS.IN_FEATURES[0]]),
+            num_classes=m.ROI_HEADS.NUM_CLASSES, in_channels=channels[feature],
+            context_channels=m.FPN.OUT_CHANNELS, context_in_feature=feature, images_only=m.IMAGES_ONLY, **kwargs,
+        )
     else:
         model = _META_ARCHS[m.META_ARCHITECTURE](
             backbone, build_proposal_generator(cfg, strides, rpn_channels),

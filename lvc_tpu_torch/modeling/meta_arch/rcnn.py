@@ -1,6 +1,6 @@
 """Generalized R-CNN (counterpart of ``lvc_tpu/modeling/meta_arch/rcnn.py``:
-model_images:25, GeneralizedRCNN:55-131, GeneralizedRCNNRegOnly:213,
-ProposalNetwork:279).
+model_images:25, GeneralizedRCNN:55-131, GeneralizedRCNN_Context:134-210,
+GeneralizedRCNNRegOnly:213, ProposalNetwork:279).
 
 The model takes the JAX package's batch dict, ``image`` (B, H, W, 3) raw
 pixels in cfg INPUT.FORMAT order and ``image_size`` (B, 2) true (h, w) inside
@@ -12,6 +12,12 @@ returns the JAX loss dict: ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
 moved there. With the ``RBG`` proposal generator the proposals are jittered
 gt boxes (plus ``proposal_boxes``/``proposal_logits``/``proposal_valid`` when
 the batch holds them, which the loader's batches do not, as in JAX).
+Without a proposal generator (``PROPOSAL_GENERATOR.NAME
+"PrecomputedProposals"``) the proposals are the batch's ``proposal_boxes``
+(B, R, 4), ``proposal_logits`` (B, R) and ``proposal_valid`` (B, R), in
+training and in eval mode.
+``GeneralizedRCNN_Context`` adds an image-level multi-label head (the loss
+``loss_context``; in eval mode the dict ``{"detections", "image_scores"}``).
 ``GeneralizedRCNNRegOnly`` trains the same way and in eval mode regresses the
 batch's gt slots as candidates (``RegOnlyOutput``); ``ProposalNetwork`` returns
 the RPN's proposals as a dict.
@@ -22,15 +28,17 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.backbone.fpn import FPN
+from lvc_tpu_torch.modeling.layers import Conv2d
 from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
-from lvc_tpu_torch.modeling.sampling import Generators
+from lvc_tpu_torch.modeling.sampling import Generators, global_ratio
 
 
 _PROPOSAL_KEYS = ("proposal_boxes", "proposal_logits", "proposal_valid")
@@ -40,6 +48,7 @@ class GeneralizedRCNN(nn.Module):
     """backbone -> RPN (or RBG) -> ROI heads."""
 
     train_ignores = True  # the gt ignore regions reach the ROI heads in training
+    unused_parameters = False  # every trainable parameter gets a gradient in every step
 
     def __init__(
         self,
@@ -124,6 +133,9 @@ class GeneralizedRCNN(nn.Module):
         RBG also takes the batch's precomputed proposals, the RPN the gt
         ignore regions."""
         gt = gt or {}
+        if self.proposal_generator is None:  # PrecomputedProposals
+            boxes, logits, valid = (self._as_tensor(batch[k]) for k in _PROPOSAL_KEYS)
+            return boxes.float(), logits.float(), valid.bool(), {}
         if isinstance(self.proposal_generator, RBG):
             given = {k: self._as_tensor(batch[k]) for k in _PROPOSAL_KEYS if k in batch}
             return self.proposal_generator(
@@ -144,6 +156,76 @@ class GeneralizedRCNN(nn.Module):
             proposals, _, prop_valid, rpn_losses = self._propose(batch, features, image_sizes, gt, generator)
         with record_function("roi_heads"):
             losses = dict(self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator))
+        losses.update(rpn_losses)
+        return losses
+
+
+class GeneralizedRCNN_Context(GeneralizedRCNN):
+    """``GeneralizedRCNN`` plus an image-level multi-label head (the reference
+    rcnn.py:491-756): the raw ``context_in_feature`` map max-pooled over
+    space, ReLU, then ``cont_cls`` (no bias), in float32 as flax promotes it.
+    ``cont_conv`` is computed and its output discarded, as the reference
+    does (rcnn.py:596-598), so its weights stay in the checkpoint. Training
+    adds ``loss_context``, the stable BCE against the gt presence mask,
+    normalised by ``global_ratio`` (its sum over the data-parallel group by
+    the group's element count); with ``images_only`` it is the only loss.
+    The RPN gets no ignore regions here, as in JAX. Eval mode returns
+    ``{"detections", "image_scores"}`` (sigmoid of the logits, (B, K)), or
+    ``{"image_scores"}`` alone with ``images_only``. ``cont_conv`` (and,
+    with ``images_only``, the RPN, the ROI heads and the FPN levels below
+    the context feature) gets no gradient; it stays trainable, so the
+    optimizer steps it with a zero one (its weight decay), as optax does,
+    and data-parallel training looks for the unused parameters."""
+
+    unused_parameters = True
+
+    def __init__(self, backbone, proposal_generator, roi_heads, num_classes: int, in_channels: int,
+                 context_channels: int = 256, context_in_feature: str = "p5", images_only: bool = False,
+                 **kwargs):
+        super().__init__(backbone, proposal_generator, roi_heads, **kwargs)
+        self.context_in_feature = context_in_feature
+        self.images_only = images_only
+        self.cont_conv = Conv2d(in_channels, context_channels, kernel_size=1)
+        self.cont_cls = nn.Linear(in_channels, num_classes, bias=False)
+
+    def context_logits(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        feat = features[self.context_in_feature]
+        self.cont_conv(feat)  # discarded, as in the reference
+        x = torch.relu(feat.amax(dim=(2, 3))).float()
+        return F.linear(x, self.cont_cls.weight)
+
+    def forward(self, batch: Dict, generator: Generators = None):
+        if self.training and "gt_boxes" in batch:
+            return self._context_losses(batch, generator)
+        with torch.no_grad():
+            features = self.backbone(self.model_images(batch))
+            image_scores = torch.sigmoid(self.context_logits(features))
+            if self.images_only:
+                return {"image_scores": image_scores}
+            image_sizes = self._as_tensor(batch["image_size"])
+            proposals, _, prop_valid, _ = self._propose(batch, features, image_sizes)
+            dets = self.roi_heads(features, proposals, prop_valid, image_sizes)
+        return {"detections": dets, "image_scores": image_scores}
+
+    def _context_losses(self, batch: Dict, generator) -> Dict[str, torch.Tensor]:
+        with record_function("backbone"):
+            features = self.backbone(self.model_images(batch))
+        gt = self._gt(batch)
+        logits = self.context_logits(features)
+        classes = torch.arange(logits.shape[1], device=logits.device)
+        present = (gt["classes"][..., None] == classes) & gt["valid"][..., None]
+        mask = present.any(dim=1).float()
+        bce = torch.relu(logits) - logits * mask + torch.log1p(torch.exp(-logits.abs()))
+        losses = {"loss_context": global_ratio(bce.sum(), float(bce.numel()))}
+        if self.images_only:
+            return losses
+        image_sizes = self._as_tensor(batch["image_size"])
+        with record_function("rpn"):
+            proposals, _, prop_valid, rpn_losses = self._propose(
+                batch, features, image_sizes, {"boxes": gt["boxes"], "valid": gt["valid"]}, generator
+            )
+        with record_function("roi_heads"):
+            losses.update(self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator))
         losses.update(rpn_losses)
         return losses
 

@@ -10,22 +10,28 @@ It runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU. ``--num-gpus N``
 runs N processes, one a card (``engine/launch.py``; with ``MODEL.DEVICE cpu``,
 N gloo ranks on the CPU), over which ``SOLVER.IMS_PER_BATCH`` and every test
 set are split; only the main rank writes files. Datasets are the
-COCO splits registered under ``$DETECTRON2_DATASETS``. With
+COCO and PASCAL VOC splits registered under ``$DETECTRON2_DATASETS`` (the VOC
+few-shot lists are read from ``datasets/vocsplit`` under the working
+directory, as in JAX), and any LVIS split registered with
+``data/meta_lvis.register_meta_lvis``. With
 ``MODEL.META_ARCHITECTURE ProposalNetwork`` an ``--eval-only`` run extracts
 proposals (the ``RPNEvaluator`` writes ``coco_proposals_*_results.pkl`` into
-``OUTPUT_DIR``); otherwise the ``coco`` evaluator runs. The ``pascal_voc``
-and ``lvis`` evaluators raise: they are not ported yet.
+``OUTPUT_DIR``); otherwise the split's ``evaluator_type`` picks the
+evaluator: ``coco`` (``COCOEvaluator``), ``pascal_voc``
+(``PascalVOCDetectionEvaluator``) or ``lvis`` (``LVISEvaluator``).
 """
 from __future__ import annotations
 
 import os
 
 from lvc_tpu_torch.config import get_cfg, set_global_cfg
-from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO splits)
+from lvc_tpu_torch.data import builtin  # noqa: F401  (registers the COCO and VOC splits)
 from lvc_tpu_torch.data.catalog import MetadataCatalog
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser, default_setup
 from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator
+from lvc_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
+from lvc_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
 from lvc_tpu_torch.evaluation.rpn_evaluation import RPNEvaluator
 from lvc_tpu_torch.evaluation.testing import verify_results
 from lvc_tpu_torch.utils import comm
@@ -41,9 +47,11 @@ class Trainer(DefaultTrainer):
             return COCOEvaluator(
                 dataset_name, cfg, output_dir=os.path.join(cfg.OUTPUT_DIR, "inference")
             )
-        if ev_type in ("pascal_voc", "lvis"):
-            raise NotImplementedError(
-                f"the {ev_type} evaluator is not ported yet (ROADMAP.md queue 1, items 8-9)"
+        if ev_type == "pascal_voc":
+            return PascalVOCDetectionEvaluator(dataset_name)
+        if ev_type == "lvis":
+            return LVISEvaluator(
+                dataset_name, cfg, output_dir=os.path.join(cfg.OUTPUT_DIR, "inference")
             )
         raise NotImplementedError(f"no evaluator for type {ev_type}")
 

@@ -11,7 +11,11 @@ through ``chip_smoke``'s phase-23 helpers with the CPU's plain pool
   2e-4 / abs 1e-5 (JAX's own data-parallel test), every trainable gradient
   rel L2 1e-5, the parameters after the step within 1e-5 of the update's
   norm plus one float32 rounding, and both ranks' parameters equal
-  (``chip_smoke.dp_compare``).
+  (``chip_smoke.dp_compare``). The same for the detector as
+  ``GeneralizedRCNN_Context`` (``cont_conv``'s output is discarded, so it
+  gets no gradient) and with ``MODEL.IMAGES_ONLY`` (only the backbone up to
+  p5 and ``cont_cls`` get one): DDP must all-reduce the gradients that
+  exist and leave the others to the optimizer's zeros, as in one process.
 - Every image samples the same slots on whichever rank holds it.
 - A toy loss through ``global_ratio`` on 2 ranks has its analytic gradient
   (not 2x too small or too large), within 1e-12 in float64.
@@ -25,7 +29,8 @@ import chip_smoke
 from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.modeling import sampling
 
-KINDS = ("detector", "cascade")
+KINDS = ("detector", "cascade", "context", "context_images_only")
+SLOTS = {"detector": 8, "cascade": 4, "context": 8, "context_images_only": 0}
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +53,8 @@ def test_two_ranks_equal_one_process(runs, kind):
     ranks = chip_smoke.dp_load(out, kind, 2)
     assert [r["batch"] for r in ranks] == [2, 2]
     err = chip_smoke.dp_compare(ref, ranks, weights)
-    assert err["slots"] == (8 if kind == "detector" else 4)  # one RPN and one ROI call an image; stage 0 alone samples
+    # one RPN and one ROI call an image; the cascade's stage 0 alone samples; images_only runs neither
+    assert err["slots"] == SLOTS[kind]
     assert ref["metrics"]["total_loss"] > 0
 
 
@@ -60,7 +66,7 @@ def test_image_samples_same_slots_on_either_rank(runs):
     """Image 2 sits on rank 1 (local 0) in the split batch and at local 2 of
     rank 0 in one process; it samples the same anchors and boxes."""
     out, refs = runs
-    for kind in KINDS:
+    for kind in ("detector", "cascade"):
         ref = refs[kind][0]["slots"]
         r1 = chip_smoke.dp_load(out, kind, 2)[1]["slots"]
         sites = [site for site in ref if ref[site]]  # the cascade has no RPN: RBG's boxes go to the ROI heads

@@ -152,6 +152,17 @@ def test_cli_refuses_unported_evaluators(tree):
     cfg.OUTPUT_DIR = os.path.join(root, "proposals")
     evaluator = train_net.Trainer.build_evaluator(cfg, "coco_test_base")
     assert isinstance(evaluator, RPNEvaluator) and evaluator._output_dir == cfg.OUTPUT_DIR
-    port_catalog.MetadataCatalog.get("cli_voc_probe").set(evaluator_type="pascal_voc")
-    with pytest.raises(NotImplementedError, match="items 8-9"):
-        train_net.Trainer.build_evaluator(get_cfg(), "cli_voc_probe")
+    # the VOC and LVIS types build JAX's evaluators (tools/train_net.py:34-44); an unknown type raises
+    from lvc_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
+    from lvc_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
+
+    port_catalog.MetadataCatalog.get("cli_voc_probe").set(evaluator_type="pascal_voc", thing_classes=["a", "b"])
+    assert isinstance(train_net.Trainer.build_evaluator(get_cfg(), "cli_voc_probe"), PascalVOCDetectionEvaluator)
+    port_catalog.MetadataCatalog.get("cli_lvis_probe").set(evaluator_type="lvis")
+    cfg = get_cfg()
+    cfg.OUTPUT_DIR = os.path.join(root, "lvis")
+    evaluator = train_net.Trainer.build_evaluator(cfg, "cli_lvis_probe")
+    assert isinstance(evaluator, LVISEvaluator) and evaluator._output_dir == os.path.join(root, "lvis", "inference")
+    port_catalog.MetadataCatalog.get("cli_unknown_probe").set(evaluator_type="cityscapes")
+    with pytest.raises(NotImplementedError, match="no evaluator for type cityscapes"):
+        train_net.Trainer.build_evaluator(get_cfg(), "cli_unknown_probe")

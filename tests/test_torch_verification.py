@@ -69,16 +69,20 @@ def test_read_image_equals_jax(tmp_path):
 # tool in-process before this one (in the same worker) register its results
 # file under its path
 PORT_SPLITS_ON_IMPORT = frozenset(port_catalog.DatasetCatalog.list())
+JAX_SPLITS_ON_IMPORT = frozenset(jax_catalog.DatasetCatalog.list())
 
 
 def test_registration_matches_jax():
-    """The port registers the JAX package's COCO splits under the same names
-    and metadata (the VOC splits are not ported)."""
+    """The port registers the JAX package's COCO and PASCAL VOC splits (6,149
+    names) under the same names and metadata."""
     port = set(PORT_SPLITS_ON_IMPORT)
-    assert len(port) == 128 and port <= set(jax_catalog.DatasetCatalog.list())
-    for name in ("coco_test_novel", "coco_trainval_base", "coco_trainval_all_30shot_seed3"):
+    assert len(port) == 6149 and port == JAX_SPLITS_ON_IMPORT
+    for name in ("coco_test_novel", "coco_trainval_base", "coco_trainval_all_30shot_seed3", "voc_2007_test_all1",
+                 "voc_2012_trainval_novel2_5shot_seed7", "voc_2007_trainval_base3", "voc_2012_trainval_all3_10shot"):
         want = jax_catalog.MetadataCatalog.get(name).as_dict()
         assert port_catalog.MetadataCatalog.get(name).as_dict() == want
+    voc = port_catalog.MetadataCatalog.get("voc_2012_trainval_novel2_5shot_seed7")
+    assert voc.evaluator_type == "pascal_voc" and voc.year == 2012 and len(voc.thing_classes) == 5
 
 
 def test_descriptors_and_keep_mask_match_jax():
