@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (lvc_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of the repository
+    python3 chip_smoke.py                  # from the root of the repository
+    python3 chip_smoke.py --phases 32-35   # the build and phases 32-35 only
+
+``--phases`` takes numbers, ranges or phase function names (comma
+separated); a phase that needs another's run (REQUIRES) brings it along, and
+a checkpoint an unselected phase would have written (HANDOFFS) is a
+damped-init stand-in. Each phase prints its seconds.
 
 Phases, each of which raises (non-zero exit) on failure:
 1. build every kernel source with nvcc for sm_90a, all in parallel;
@@ -114,7 +120,7 @@ Phases, each of which raises (non-zero exit) on failure:
    (lvc_tpu_torch.tools.coco_full_run): all 18 steps on the configs as they
    stand (float32, IMS_PER_BATCH 16 at 832x1344), each from the files of the
    steps before it, on a seeded tree of 80 classes with 30-shot files and an
-   unlabeled split, from phase 17's and phase 20's checkpoints, 20
+   unlabeled split, from phase 17's and phase 20's checkpoints, 10
    iterations a training run: ms/iter, data_time, peak memory and the K2/K3
    launches of every iteration of the six training runs (1/1, 1/0, 1/0,
    3/3, 3/0, 1/1), extraction ms/img, the relations between the files the
@@ -196,7 +202,31 @@ Phases, each of which raises (non-zero exit) on failure:
    build_crop_exem_loader over RPNEvaluator's pickle into RPNComp (R-50,
    res5, avg; card vs CPU) and the clustering (PCA 384 -> 256 and k-means
    at N = 50,000; card vs CPU assignments away from near-ties).
-Phases 1-11 and 16-31 run with the fused path off, whatever the environment
+32. Mask R-CNN serving (detectron2's mask_rcnn_R_50_FPN_1x.yaml on
+   Base-RCNN-FPN.yaml, built in code: R-50-FPN, 80 classes, the mask head
+   4 x 256 at P=14): bf16, B=8 at 832x1344, score threshold 0.001, 3 timed
+   forwards with pallas_fast (K1 twice a forward: boxes at P=7, masks at
+   P=14) and with auto (K2 twice); masks (8, 100, 28, 28) in [0, 1]; each
+   pool on the forward's own features and detection boxes against its plain
+   version, the P=14 one timed against its bound; the evaluator's
+   paste_masks_np and RLE on the detections, ms an image;
+33. the Mask R-CNN training step through make_train_step at IMS_PER_BATCH 16
+   (POOLER_IMPL pallas_train, seeded gt bitmasks at 1/4 of the canvas, up to
+   16 objects an image), float32 and AMP, 10 timed steps each (K2 and K3
+   twice a step), loss_mask ln 2 at the first step, peak memory; one AMP
+   step's pools against their plain versions, the P=14 pair timed;
+34. Keypoint R-CNN (keypoint_rcnn_R_50_FPN_1x.yaml: 1 class, smooth-L1 beta
+   0.5, 1500 training proposals, the keypoint head 8 x 512 at P=14): the
+   same serving and training checks at B=8 with seeded gt keypoints;
+   phases 32-34 run with TF32 convolutions (the training CLIs' setting;
+   the heads compute in float32);
+35. the narrow Mask R-CNN and Keypoint R-CNN on the card and the CPU against
+   a float64 witness (losses, gradients, detections, masks, keypoints), and
+   segm evaluation from the card's tensors: oracle masks cropped by
+   crop_gt_masks on a seeded tree of polygon, RLE and crowd ground truth
+   (an AP floor; moved 3 px, an AP range), the narrow model's card rows
+   against the CPU's (RLE IoU).
+Phases 1-11 and 16-35 run with the fused path off, whatever the environment
 says (spawned ranks inherit it).
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -518,7 +548,7 @@ def reference_check(tag):
         for key, model in (("cpu", cpu), ("gpu", gpu)):
             props = model.proposals(batch)
             dets = model(batch)
-            out[key] = [t.cpu() for t in props] + [t.cpu() for t in dets]
+            out[key] = [t.cpu() for t in props] + [t.cpu() for t in dets[:5]]
         c, g = out["cpu"], out["gpu"]
         if not torch.equal(c[2], g[2]) or int(c[2].sum()) < 50:
             raise AssertionError(f"{impl}: proposal validity differs or too few proposals")
@@ -788,6 +818,49 @@ def train_batch(B, H, W, G, seed, device, num_classes=80, n_gt=(10, 20), size=(1
         "gt_boxes": boxes, "gt_classes": classes, "gt_valid": valid,
     }
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def box_masks(gt_boxes, gt_valid, H: int, W: int, factor: int = 4):
+    """Seeded-batch gt bitmasks at 1/``factor`` of the (H, W) canvas, as JAX's
+    wiring test feeds them (``tests/test_mask_keypoint_wiring.py:35-67``),
+    each the ellipse inscribed in its box: (B, G, H/factor, W/factor) bool,
+    on the boxes' device."""
+    import torch
+
+    h, w = H // factor, W // factor
+    yy = (torch.arange(h, device=gt_boxes.device) + 0.5)[:, None]
+    xx = (torch.arange(w, device=gt_boxes.device) + 0.5)[None, :]
+    b = gt_boxes.double()[..., None, None] / factor  # (B, G, 4, 1, 1)
+    cy, cx = (b[..., 1, :, :] + b[..., 3, :, :]) / 2, (b[..., 0, :, :] + b[..., 2, :, :]) / 2
+    ry = ((b[..., 3, :, :] - b[..., 1, :, :]) / 2).clamp(min=0.5)
+    rx = ((b[..., 2, :, :] - b[..., 0, :, :]) / 2).clamp(min=0.5)
+    inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+    return inside & gt_valid.bool()[..., None, None]
+
+
+def box_keypoints(gt_boxes, gt_valid, K: int = 17, seed: int = 0):
+    """Seeded gt keypoints (B, G, K, 3): each uniform in its box with
+    visibility 0, 1 or 2 (0 for invalid gts), on the boxes' device."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    boxes = gt_boxes.cpu().numpy()
+    B, G = boxes.shape[:2]
+    kps = np.zeros((B, G, K, 3), np.float32)
+    kps[..., 0] = rng.uniform(boxes[..., 0:1], np.maximum(boxes[..., 2:3], boxes[..., 0:1]), (B, G, K))
+    kps[..., 1] = rng.uniform(boxes[..., 1:2], np.maximum(boxes[..., 3:4], boxes[..., 1:2]), (B, G, K))
+    kps[..., 2] = rng.choice([0, 1, 2], (B, G, K), p=[0.2, 0.3, 0.5]) * gt_valid.cpu().numpy()[..., None]
+    return torch.from_numpy(kps).to(gt_boxes.device)
+
+
+def narrow_task_heads(cfg, mask: bool = False, keypoint: bool = False):
+    """The mask and keypoint heads at the narrow models' widths: 2 convs 32
+    wide (the defaults are 4 x 256 and 8 x 512)."""
+    cfg.MODEL.MASK_ON, cfg.MODEL.KEYPOINT_ON = mask, keypoint
+    for head in (cfg.MODEL.ROI_MASK_HEAD, cfg.MODEL.ROI_KEYPOINT_HEAD):
+        head.NUM_CONV, head.CONV_DIM = 2, 32
+    return cfg
 
 
 def train_reference_check(tag):
@@ -2502,6 +2575,7 @@ def check_recorded_pool(what, rec, tag, timed=False):
     k1, k2, k3 = ra.roi_align_band, ra.roi_align_paired, ra.roi_align_paired_bwd
     k1.launches = k2.launches = k3.launches = 0
     fwd, k1_ratio = [], 0.0
+    rec.max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     for kernel, calls in ((k1, rec.band), (k2, rec.fwd)):
         for levels, taps in calls:
             got = kernel(levels, taps)
@@ -2517,6 +2591,8 @@ def check_recorded_pool(what, rec, tag, timed=False):
             if not torch.isfinite(got).all() or not ok:
                 raise AssertionError(f"{what}: {'K2' if kernel is k2 else 'K1'} differs from its plain version, "
                                      f"max abs err {float((got.float() - want.float()).abs().max())}")
+            key = "K2" if kernel is k2 else "K1"
+            rec.max_err[key] = max(rec.max_err[key], float((got.float() - want.float()).detach().abs().max()))
             n, P, NR = taps.rows.shape
             fwd.append(f"{'K2' if kernel is k2 else 'K1'} {n} boxes P={P} NR={NR} NT={taps.tcol.shape[-1]}")
     max_ratio, max_err = 0.0, 0.0
@@ -2533,6 +2609,7 @@ def check_recorded_pool(what, rec, tag, timed=False):
                     or not torch.equal(a, b):
                 raise AssertionError(f"{what}: K3 level {l} over 1e-5 * S or two calls differ")
             max_err = max(max_err, float(err.max()))
+            rec.max_err["K3"] = max_err
             max_ratio = max(max_ratio, float((err / s.clamp(min=1e-30)).max()))
         del got, again, want, S
     n = k1.launches, k2.launches, k3.launches
@@ -3056,7 +3133,7 @@ def finetune_reference_check(tag):
 
 CHAIN_TREE = (32, 8, 8)  # training, test and unlabeled images
 CHAIN_FT_NOVEL = "checkpoints/coco/faster_rcnn/faster_rcnn_R_50_FPN_ft_novel_30shot/model_final.pth"  # step 3's
-CHAIN_ITERS = 20
+CHAIN_ITERS = 10  # a training run of the chain: few, so that the whole script stays well inside its time limit
 # K2/K3 launches of every iteration of the chain's training runs
 CHAIN_LAUNCHES = {"1": (1, 1), "3": (1, 0), "5": (1, 0), "8": (3, 3), "9": (3, 0), "18": (1, 1)}
 
@@ -3182,17 +3259,21 @@ def dp_cfg(kind: str, device: str, impl: str = "pallas_train"):
     its 128 jittered boxes); ``context`` is the detector as
     ``GeneralizedRCNN_Context`` (``cont_conv`` gets no gradient) and
     ``context_images_only`` that with ``MODEL.IMAGES_ONLY`` (the RPN, the
-    ROI heads and the FPN levels below p5 get none). ``impl`` pallas_train:
+    ROI heads and the FPN levels below p5 get none); ``mask`` is the
+    detector with ``MASK_ON`` (``narrow_task_heads``: a second pool, at
+    P=14, and ``loss_mask``). ``impl`` pallas_train:
     K2 forward and K3 backward on the card, their plain versions on the
     CPU."""
-    if kind in ("detector", "context", "context_images_only"):
+    if kind in ("detector", "context", "context_images_only", "mask"):
         cfg = narrow_cfg(impl)
         cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 200
         cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 100
         cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
-        if kind != "detector":
+        if kind.startswith("context"):
             cfg.MODEL.META_ARCHITECTURE = "GeneralizedRCNN_Context"
             cfg.MODEL.IMAGES_ONLY = kind == "context_images_only"
+        if kind == "mask":
+            narrow_task_heads(cfg, mask=True)
     else:
         cfg = corrector_cfg(device)
         cfg.MODEL.ROI_HEADS.POOLER_IMPL = impl
@@ -3205,7 +3286,7 @@ def dp_inputs(kind: str, cfg):
     """(weights, global batch) of phase 23 on the CPU: ``calibrated_init``
     weights (the corrector's stage regressors scaled as in
     ``corrector_inputs``) and a seeded batch of ``DP_BATCH`` 128x192 images
-    with 2-5 valid gts each."""
+    with 2-5 valid gts each (and ``box_masks`` for ``mask``)."""
     import torch
 
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
@@ -3220,6 +3301,8 @@ def dp_inputs(kind: str, cfg):
                     t.mul_(0.02)
     batch = train_batch(DP_BATCH, 128, 192, 6, seed=5, device="cpu", num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
                         n_gt=(2, 5), size=(16, 90))
+    if kind == "mask":
+        batch["gt_masks"] = box_masks(batch["gt_boxes"], batch["gt_valid"], 128, 192)
     return weights, batch
 
 
@@ -3813,7 +3896,7 @@ def extra_heads_run(model, cfg, batch, train, recorder=None):
         with (recorder if not train else None) or contextlib.nullcontext():
             dets = model(batch)
         eval_n = ra.roi_align_band.launches, ra.roi_align_paired.launches
-    return losses, grads, type(dets)(*[t.cpu() for t in dets]), step_n, eval_n
+    return losses, grads, type(dets)(*[None if t is None else t.cpu() for t in dets]), step_n, eval_n
 
 
 def extra_heads_reference_check(tag):
@@ -4604,7 +4687,7 @@ def context_reference_check(tag):
         grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters() if p.grad is not None}
         res[key] = ({k: float(v) for k, v in metrics.items()}, grads,
                     (ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches),
-                    out["image_scores"].cpu(), [t.cpu() for t in out["detections"]])
+                    out["image_scores"].cpu(), [t.cpu() for t in out["detections"][:5]])
     (c_loss, c_grad, c_n, c_s, c_d), (g_loss, g_grad, g_n, g_s, g_d) = res["cpu"], res["gpu"]
     loss_err = max(abs(g_loss[k] - v) / max(abs(v), 1e-30) for k, v in c_loss.items())
     if c_n != (0, 0) or g_n != (1, 1) or set(c_loss) != set(g_loss) or loss_err > 1e-4 or c_loss["loss_context"] <= 0:
@@ -4665,7 +4748,7 @@ def voc_card_evaluation(tag):
             g, c = gpu(batch), cpu(batch)
             card.process_detections(g, metas)
             host.process_detections(c, metas)
-            g = [t.cpu() for t in g]
+            g = [t.cpu() for t in g[:5]]
             dv = c.valid
             if not torch.equal(dv, g[3]) or not torch.equal(c.classes[dv], g[2][dv]):
                 raise AssertionError("VOC on the card: detections differ from the CPU's in validity or class")
@@ -4710,7 +4793,7 @@ def precomputed_proposals_check(tag):
     if missing or not unexpected or not all(k.startswith("proposal_generator.") for k in unexpected):
         raise AssertionError(f"PrecomputedProposals weights: missing {missing}, unexpected {unexpected}")
     got = model(dict(batch, proposal_boxes=boxes, proposal_logits=logits, proposal_valid=valid))
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    same = all(a is b is None or torch.equal(a, b) for a, b in zip(got, want))
     print(f"PrecomputedProposals: R-101-FPN bf16 pallas_fast B={B}, {int(valid.sum())} proposals fed back; "
           f"{int(want.valid.sum())} detections, equal slot for slot: {same} {tag}")
     if not same or not bool(want.valid.any()):
@@ -4753,7 +4836,7 @@ def predictor_check(tag):
         got = predictor(image)
         batch, _ = next(iter(build_detection_test_loader(cfg, "predictor_probe")))
         want = predictor.model(batch)
-        same = all(np.array_equal(a, b[0].cpu().numpy()) for a, b in zip(got, want))
+        same = all(a is b is None or np.array_equal(a, b[0].cpu().numpy()) for a, b in zip(got, want))
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -4875,6 +4958,631 @@ def clustering_check(tag):
         raise AssertionError("k-means: card and CPU assignments differ away from near-ties")
 
 
+# ---------------------------------------------------------------------------
+# Mask R-CNN and Keypoint R-CNN, segm evaluation (phases 32-35)
+# ---------------------------------------------------------------------------
+
+TASK_ITERS = 10  # each training run of phases 33-34: a warm-up step, then this many timed
+MASK_AP_FLOOR = 95.0  # phase 35's oracle masks (the gt cropped to 28 x 28 and pasted back): segm AP at least this
+SHIFTED_AP = (50.0, 85.0)  # the same masks moved 3 px right and down: segm AP inside this range
+MASK_ROW_IOU = 0.99  # phase 35: a card detection's pasted mask against the CPU's, RLE IoU at least this
+CARD = "cuda"  # the device of phases 32-35's card runs
+
+
+def task_cfg(kind: str, impl: str = "pallas_fast"):
+    """Phases 32-34's full-width configurations, built on Base-RCNN-FPN.yaml
+    in code (nothing fetched): ``mask`` follows detectron2's model zoo
+    COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml (MASK_ON, R-50, 80
+    classes; the mask head 4 convs 256 wide at P=14, 28 x 28 masks);
+    ``keypoint`` follows COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml on
+    Base-Keypoint-RCNN-FPN.yaml (KEYPOINT_ON, R-50, 1 class, the box head's
+    smooth-L1 beta 0.5, 1500 proposals an image in training; the keypoint
+    head 8 convs 512 wide at P=14, 17 keypoints on 56 x 56 heatmaps)."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(BASE_YAML)
+    opts = ["MODEL.RESNETS.DEPTH", 50, "MODEL.ROI_HEADS.POOLER_IMPL", impl]
+    if kind == "mask":
+        opts += ["MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80]
+    else:
+        opts += ["MODEL.KEYPOINT_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 1, "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", 0.5,
+                 "MODEL.RPN.POST_NMS_TOPK_TRAIN", 1500]
+    cfg.merge_from_list(opts)
+    return cfg
+
+
+@contextlib.contextmanager
+def cli_tf32():
+    """TF32 convolutions inside the block, PyTorch's default and the
+    training CLIs' setting (the heads run in float32 under bf16 and AMP, as
+    flax promotes them), back to off after it."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def add_launches(kernels, name: str, n: int, timed=None, err=None):
+    """Adds a path's launches to ``name``'s entry of the kernels line. A run
+    of selected phases without the kernel phases (``--phases``) makes the
+    entry from this path's own timed call: (ms, plain_ms, bound_ms,
+    bound_by) and its largest error against the plain version."""
+    if name not in kernels:
+        ms, plain_ms, bound_ms, bound_by = timed
+        kernels[name] = dict(name=name, route="cuda", source=KERNEL_SOURCE[name], replaces=KERNEL_REPLACES[name],
+                             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+    kernels[name]["launches"] += n
+
+
+def p14_calls(rec):
+    """A ``PoolRecorder`` holding only ``rec``'s P=14 calls."""
+    sub = PoolRecorder()
+    sub.band = [c for c in rec.band if c[1].rows.shape[1] == 14]
+    sub.fwd = [c for c in rec.fwd if c[1].rows.shape[1] == 14]
+    sub.bwd = [c for c in rec.bwd if c[1].rows.shape[1] == 14]
+    return sub
+
+
+def serving_batch(B, H=832, W=1344, seed=0):
+    import torch
+
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    return {"image": torch.rand(B, H, W, 3, generator=g, device=CARD) * 255,
+            "image_size": torch.tensor([[H, W]] * B, dtype=torch.int32, device=CARD)}
+
+
+def task_serving(kind: str, kernels, tag, B: int = 8):
+    """The serving forwards of ``task_cfg(kind)``: bf16, seeded damped
+    weights, score threshold 0.001 (so that the random detector keeps
+    detections), B=``B`` at 832x1344, with POOLER_IMPL pallas_fast (K1 twice
+    a forward: the boxes at P=7, the mask or keypoint boxes at P=14) and then
+    auto (K2 twice), 1 warm-up and 3 timed forwards each with every count set
+    to 0 just before and read just after; the outputs' shapes and ranges;
+    one more forward of each recorded, its P=14 pool held to its plain
+    version (``check_recorded_pool``, timed) and all its calls too. Returns
+    the last auto forward's detections and the recorded P=14 times."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.utils.init import damped_init
+
+    batch = serving_batch(B)
+    B = len(batch["image"])
+    parts, times = [], {}
+    for impl, kernel, name in (("pallas_fast", ra.roi_align_band, "roi_align_band"),
+                               ("auto", ra.roi_align_paired, "roi_align_paired")):
+        cfg = task_cfg(kind, impl)
+        cfg.MODEL.DTYPE = "bfloat16"
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+        model = damped_init(build_model(cfg), seed=0)
+        model(batch)  # warm-up
+        torch.cuda.synchronize()
+        ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dets = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        n = ra.roi_align_band.launches, ra.roi_align_paired.launches
+        if n != ((2 * iters, 0) if impl == "pallas_fast" else (0, 2 * iters)):
+            raise AssertionError(f"{kind} serving {impl}: K1/K2 launches {n} over {iters} forwards")
+        check_detections(dets, B)
+        if not dets.valid.any(dim=1).all():
+            raise AssertionError(f"{kind} serving {impl}: an image kept no detection")
+        if kind == "mask":
+            m = dets.masks
+            if tuple(m.shape) != (B, 100, 28, 28) or m.dtype != torch.float32 or not torch.isfinite(m).all() \
+                    or float(m.min()) < 0 or float(m.max()) > 1 or dets.keypoints is not None:
+                raise AssertionError(f"mask serving {impl}: masks {tuple(m.shape)} {m.dtype} in "
+                                     f"[{float(m.min())}, {float(m.max())}]")
+            out = f"masks {tuple(m.shape)} float32 in [{float(m.min()):.4f}, {float(m.max()):.4f}]"
+        else:
+            k = dets.keypoints
+            v = dets.valid
+            inside = ((k[..., 0] >= dets.boxes[..., None, 0] - 1e-3) & (k[..., 0] <= dets.boxes[..., None, 2] + 1e-3)
+                      & (k[..., 1] >= dets.boxes[..., None, 1] - 1e-3) & (k[..., 1] <= dets.boxes[..., None, 3] + 1e-3))
+            if tuple(k.shape) != (B, 100, 17, 3) or not torch.isfinite(k).all() or not bool(inside[v].all()) \
+                    or float(k[..., 2].min()) <= 0 or float(k[..., 2].max()) > 1 or dets.masks is not None:
+                raise AssertionError(f"keypoint serving {impl}: keypoints {tuple(k.shape)} outside their boxes or "
+                                     f"scores outside (0, 1]")
+            out = f"keypoints {tuple(k.shape)} inside their boxes, scores in (0, 1]"
+        rec = PoolRecorder()
+        with rec:
+            model(batch)
+        shapes = sorted(c[1].rows.shape[1] for c in rec.band + rec.fwd)
+        if shapes != [7, 14]:
+            raise AssertionError(f"{kind} serving {impl}: recorded pools at P={shapes}")
+        what = f"{kind} serving {impl} (B={B}, bf16)"
+        check_recorded_pool(f"{what}, all pools", rec, tag)
+        sub = p14_calls(rec)
+        t = check_recorded_pool(f"{what}, the P=14 pool on the detections' boxes", sub, tag, timed=True)
+        key = "K1" if impl == "pallas_fast" else "K2"
+        times[key] = t[key]
+        add_launches(kernels, name, n[0] + n[1], t[key], sub.max_err[key])
+        parts.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), K1/K2 {n[0]}/{n[1]}, valid detections "
+                     f"{dets.valid.sum(dim=1).tolist()}, {out}")
+        del model
+        torch.cuda.empty_cache()
+    name = "Mask R-CNN R-50-FPN" if kind == "mask" else "Keypoint R-CNN R-50-FPN"
+    print(f"{kind} serving: {name} bf16 B={B} at 832x1344 (TF32 convolutions): " + "; ".join(parts) + f" {tag}")
+    return dets, times
+
+
+def mask_serving_path(tag, kernels):
+    """Phase 32, Mask R-CNN serving (``task_cfg("mask")``,
+    COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml): ``task_serving``
+    at B=8, then the evaluator's host work on the last forward's
+    detections: each image's valid masks pasted at 832x1344 with
+    ``paste_masks_np`` and encoded as RLE rows (``detections_to_coco_json``),
+    ms an image."""
+    from lvc_tpu_torch.evaluation.coco_evaluation import detections_to_coco_json, host_detections
+    from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import index_detections
+
+    with cli_tf32():
+        dets, times = task_serving("mask", kernels, tag)
+    t0 = time.perf_counter()
+    host = host_detections(dets)
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    B = host.boxes.shape[0]
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(B):
+        meta = {"image_id": i + 1, "image_size": (832, 1344), "orig_size": (832, 1344)}
+        rows += detections_to_coco_json(index_detections(host, i), meta)
+    paste_ms = (time.perf_counter() - t0) * 1e3 / B
+    if len(rows) != int(host.valid.sum()) or not all("segmentation" in r for r in rows):
+        raise AssertionError("mask serving: result rows without a segmentation")
+    print(f"mask serving: the evaluator's host work on the auto forward's detections: copy to the host "
+          f"{copy_ms:.1f} ms a batch, paste_masks_np + RLE {paste_ms:.1f} ms an image ({len(rows) / B:.1f} masks an "
+          f"image pasted at 832x1344) {tag}")
+    return times
+
+
+def task_train(kind: str, kernels, tag, B: int):
+    """Training steps of ``task_cfg(kind, "pallas_train")`` through
+    ``make_train_step`` at B=``B`` on 832x1344 (seeded damped weights, a
+    seeded batch of 4-16 gts an image with ``box_masks`` at 1/4 of the
+    canvas, or ``box_keypoints``), float32 and AMP: a warm-up step, then
+    ``TASK_ITERS`` timed steps with every count set to 0 just before and read
+    just after (K2 and K3 twice a step: the boxes at P=7, the mask or
+    keypoint slots at P=14), the first step's losses (``loss_mask`` near ln 2
+    from damped weights), every loss finite, the peak memory; one more AMP
+    step recorded, its four pool calls held to their plain versions and the
+    P=14 pair timed. Returns the recorded P=14 times."""
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+    from lvc_tpu_torch.utils.init import damped_init
+
+    k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
+    cfg = task_cfg(kind, "pallas_train")
+    classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batch = train_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes, n_gt=(4, 16), size=(32, 500))
+    if kind == "mask":
+        batch["gt_masks"] = box_masks(batch["gt_boxes"], batch["gt_valid"], 832, 1344)
+        task_loss = "loss_mask"
+    else:
+        batch["gt_keypoints"] = box_keypoints(batch["gt_boxes"], batch["gt_valid"], seed=0)
+        task_loss = "loss_keypoint"
+    B = len(batch["image"])
+    parts, launches = [], [0, 0]
+    for amp in (False, True):
+        model = damped_init(build_model(cfg), seed=0).train()
+        opt = build_optimizer(cfg, model)
+        step = make_train_step(model, opt, build_lr_schedule(cfg, opt), mixed_precision=amp)
+        gen = torch.Generator(device=CARD).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        first = {k: float(v) for k, v in step(batch, gen).items()}
+        torch.cuda.synchronize()
+        k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        metrics = [step(batch, gen) for _ in range(TASK_ITERS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TASK_ITERS
+        n = k2.launches, k3.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        last = {k: float(v) for k, v in metrics[-1].items()}
+        if n != (2 * TASK_ITERS, 2 * TASK_ITERS):
+            raise AssertionError(f"{kind} training: K2/K3 launches {n} over {TASK_ITERS} steps")
+        if task_loss not in first or not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
+            raise AssertionError(f"{kind} training: {task_loss} missing or a loss not finite: {first}, {last}")
+        if kind == "mask" and abs(first["loss_mask"] - math.log(2)) > 0.05:
+            raise AssertionError(f"mask training: first loss_mask {first['loss_mask']}, want ln 2 within 0.05")
+        launches = [a + b for a, b in zip(launches, n)]
+        parts.append(f"{'AMP' if amp else 'float32'} {ms:.2f} ms/iter ({B * 1e3 / ms:.2f} img/s), K2/K3 {n[0]}/{n[1]}, "
+                     f"peak memory {peak:.2f} GiB, first step {task_loss} {first[task_loss]:.5f} (total "
+                     f"{first['total_loss']:.4f}), last step {task_loss} {last[task_loss]:.5f}")
+        if amp:
+            rec = PoolRecorder()
+            with rec:
+                step(batch, gen)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    name = "Mask R-CNN" if kind == "mask" else "Keypoint R-CNN"
+    print(f"{kind} training: {name} R-50-FPN POOLER_IMPL pallas_train B={B} at 832x1344 (TF32 convolutions), "
+          f"{TASK_ITERS} timed steps each: " + "; ".join(parts) + f" {tag}")
+    if sorted(c[1].rows.shape[1] for c in rec.fwd) != [7, 14] or len(rec.bwd) != 2:
+        raise AssertionError(f"{kind} training: recorded {len(rec.fwd)}/{len(rec.bwd)} K2/K3 calls")
+    what = f"{kind} AMP step (B={B}, {B} x 512 slots)"
+    check_recorded_pool(f"{what}, all pools", rec, tag)
+    sub = p14_calls(rec)
+    times = check_recorded_pool(f"{what}, the P=14 pool", sub, tag, timed=True)
+    for key, name, n in (("K2", "roi_align_paired", launches[0]), ("K3", "roi_align_paired_bwd", launches[1])):
+        add_launches(kernels, name, n, times[key], sub.max_err[key])
+    return times
+
+
+def mask_train_path(tag, kernels):
+    """Phase 33, the Mask R-CNN training step (``task_train("mask")``) at
+    IMS_PER_BATCH 16: the model zoo config's batch on one card."""
+    with cli_tf32():
+        return task_train("mask", kernels, tag, B=16)
+
+
+def keypoint_path(tag, kernels):
+    """Phase 34, Keypoint R-CNN (``task_cfg("keypoint")``,
+    COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml): ``task_serving`` and
+    ``task_train`` at B=8, with ``box_keypoints`` (B, G, 17, 3)."""
+    with cli_tf32():
+        _, serving = task_serving("keypoint", kernels, tag)
+        return serving, task_train("keypoint", kernels, tag, B=8)
+
+
+def task_reference_cfg(kind: str, device: str):
+    """Phase 35's narrow models: phase 25's narrow R-50-FPN (exhaustive
+    sampling, float32, POOLER_IMPL pallas_train, 5 classes) with the mask
+    or the keypoint head 2 convs 32 wide (``narrow_task_heads``)."""
+    cfg = extra_heads_cfg("StandardROIHeads", device)
+    cfg.DEBUG = False
+    return narrow_task_heads(cfg, mask=kind == "mask", keypoint=kind == "keypoint")
+
+
+@contextlib.contextmanager
+def relu_decisions(model, record=None, follow=None):
+    """Forward hooks on the inputs of the mask and keypoint heads' ReLUs
+    (their 3x3 convs and the mask head's transposed conv). ``record``: a
+    dict that gets each call's decisions (pre-activation > 0) on the CPU, by
+    module and in call order. ``follow``: such a dict from another run,
+    whose decision this run takes where its own sign differs: the
+    pre-activation there (within rounding of 0) is negated in value only, so
+    the run's value moves by twice it and its gradient passes as the other
+    run's did. A ReLU at its kink routes the gradient by the sign of a
+    rounding error, so two correct float32 runs may route it differently;
+    ``follow["flips"]`` counts the decisions taken over."""
+    import torch
+
+    names = [n for n, m in model.named_modules() if n.rsplit(".", 1)[-1].startswith(("mask_fcn", "conv_fcn"))
+             or n.endswith("mask_head.deconv")]
+    modules = dict(model.named_modules())
+    calls = {n: 0 for n in names}
+
+    def hook(name):
+        def fn(module, args, out):
+            i = calls[name]
+            calls[name] += 1
+            if record is not None:
+                record.setdefault(name, []).append((out > 0).cpu())
+            if follow is None:
+                return None
+            want = follow[name][i].to(out.device)
+            flip = want != (out > 0)
+            follow["flips"] = follow.get("flips", 0) + int(flip.sum())
+            return out + torch.where(flip, -2 * out + torch.where(want, 1e-30, 0.0), 0.0).detach()
+        return fn
+
+    handles = [modules[n].register_forward_hook(hook(n)) for n in names]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def task_reference_check(tag):
+    """Phase 35a: the narrow Mask R-CNN and Keypoint R-CNN
+    (``task_reference_cfg``) at float32 on the card and on the CPU from the
+    same weights (``calibrated_init``), both held against a float64 witness
+    on the CPU as phase 25 holds its heads (``witness_limit``): one training
+    step (its losses, ``loss_mask`` or ``loss_keypoint`` included, and every
+    trainable gradient), then the eval forward's detections, masks (abs) and
+    keypoints (px, and their scores). Each float32 run has its own witness,
+    which takes that run's decisions at the heads' ReLUs
+    (``relu_decisions``; the count is printed). K2/K3 2/2 a step and K1/K2
+    0/2 an eval forward on the card. Returns the mask model's card and CPU
+    detections and its batch, for ``segm_eval_check``."""
+    import copy
+
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+
+    batch = train_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 100))
+    batch["gt_masks"] = box_masks(batch["gt_boxes"], batch["gt_valid"], 128, 192)
+    batch["gt_keypoints"] = box_keypoints(batch["gt_boxes"], batch["gt_valid"], seed=3)
+    out = None
+    for kind in ("mask", "keypoint"):
+        cfg = task_reference_cfg(kind, "cpu")
+        cpu = build_model(cfg, device="cpu")
+        calibrated_init(cpu, seed=0)
+        with torch.no_grad():  # toward detectron2's N(0, 0.001) mask predictor: mask logits O(1)
+            for name, t in cpu.state_dict().items():
+                if name.startswith("roi_heads.mask_head.predictor."):
+                    t.mul_(0.05)
+        witness = copy.deepcopy(cpu).double()
+        witness.compute_dtype = torch.float64
+        gpu_cfg = cfg.clone()
+        gpu_cfg.MODEL.DEVICE = CARD
+        gpu = build_model(gpu_cfg, device=CARD)
+        gpu.load_state_dict(cpu.state_dict())
+        res, flips = {}, {}
+        for key, model in (("cpu", cpu), ("gpu", gpu)):
+            decided = {}
+            with relu_decisions(model, record=decided):
+                res[key] = extra_heads_run(model, cfg, batch, True)
+            with relu_decisions(witness, follow=decided):
+                res["f64 " + key] = extra_heads_run(witness, cfg, batch, True)
+            flips[key] = decided.get("flips", 0)
+        (c_loss, c_grad, c_dets, _, _), (g_loss, g_grad, g_dets, g_step, g_eval) = res["cpu"], res["gpu"]
+        # each run against its own witness; the CPU's witness is the reference of the detections
+        (w_loss, w_grad, w_dets, _, _), (v_loss, v_grad, _, _, _) = res["f64 cpu"], res["f64 gpu"]
+        task_loss = "loss_mask" if kind == "mask" else "loss_keypoint"
+        if (g_step, g_eval) != ((2, 2), (0, 2)) or task_loss not in g_loss or set(c_loss) != set(g_loss) \
+                or set(c_grad) != set(g_grad):
+            raise AssertionError(f"{kind} reference: card launches {g_step}/{g_eval} or losses {sorted(g_loss)}")
+        lines = []
+        for what, want, c, card_want, g in (("loss", w_loss, c_loss, v_loss, g_loss),
+                                            ("grad", w_grad, c_grad, v_grad, g_grad)):
+            if what == "loss":
+                rel = lambda a, w: abs(a - w) / max(abs(w), 1e-30)  # noqa: E731
+            else:
+                rel = lambda a, w: float((a - w).norm() / w.norm().clamp(min=1e-30))  # noqa: E731
+            keys = list(want)
+            if what == "grad":
+                # a gradient that is 0 in exact arithmetic (the keypoint head's last bias: a softmax over the
+                # upsampled cells ignores a constant) is rounding on every device: held below 1e-6 of the largest
+                top = max(float(w.norm()) for w in want.values())
+                keys = [k for k in want if float(want[k].norm()) > 1e-9 * top]
+                if any(float(g[k].norm()) > 1e-6 * top for k in want if k not in keys):
+                    raise AssertionError(f"{kind} reference: a gradient that is 0 in float64 is not 0 on the card")
+            c_err = {k: rel(c[k], want[k]) for k in keys}
+            g_err = {k: rel(g[k], card_want[k]) for k in keys}
+            over = [k for k in keys if g_err[k] > witness_limit(what, c_err[k])]
+            if over:
+                k = over[0]
+                raise AssertionError(f"{kind} reference: card {what} {k} {g_err[k]:.3e} from float64, the CPU's "
+                                     f"{c_err[k]:.3e} (limit {witness_limit(what, c_err[k]):.3e})")
+            worst = max(g_err, key=g_err.get)
+            # for the record: the card against the witness of the CPU's ReLU decisions
+            routed = max(rel(g[k], want[k]) for k in keys)
+            lines.append(f"{len(keys)} {what}{'es' if what == 'loss' else 's'} card max {g_err[worst]:.3e} ({worst}; "
+                         f"CPU {c_err[worst]:.3e}; the card against the CPU's witness {routed:.3e})")
+        n, c_box, c_score = detection_errors(f"{kind} CPU vs float64", w_dets, c_dets)
+        _, g_box, g_score = detection_errors(f"{kind} card vs float64", w_dets, g_dets)
+        v = w_dets.valid
+        if kind == "mask":
+            field, want_t = "masks", w_dets.masks[v]
+            c_task, g_task = [float((d.masks[v].double() - want_t).abs().max()) for d in (c_dets, g_dets)]
+            limit = witness_limit("score", c_task)
+        else:
+            # a heatmap whose two best cells tie within float32 rounding may take either on either device: the
+            # point moves by whole cells of its box (56ths) and keeps its score; the others are held as boxes are
+            field, want_t = "keypoints", w_dets.keypoints[v]
+            box = w_dets.boxes[v].double()
+            cell = torch.stack([box[:, 2] - box[:, 0], box[:, 3] - box[:, 1]], -1)[:, None, :] / 56
+            errs, moved, scores = [], [], []
+            for d in (c_dets, g_dets):
+                err = (d.keypoints[v][..., :2].double() - want_t[..., :2]).abs()
+                tie = (err - cell * torch.round(err / cell)).abs() <= 1e-3
+                errs.append(float(torch.where(tie, torch.zeros_like(err), err).max()))
+                moved.append(int((tie & (err > 1e-3)).any(-1).sum()))
+                scores.append(float((d.keypoints[v][..., 2].double() - want_t[..., 2]).abs().max()))
+            if max(moved) > 0.01 * want_t.shape[0] * want_t.shape[1] or scores[1] > witness_limit("score", scores[0]):
+                raise AssertionError(f"keypoint reference: {moved} keypoints (CPU, card) whole cells away, scores "
+                                     f"{scores} from float64")
+            c_task, g_task = errs
+            limit = witness_limit("box", c_task)
+            field += (f" (whole cells away from float64 where two cells tie: card {moved[1]}, CPU {moved[0]}; "
+                      f"scores card {scores[1]:.3e} CPU {scores[0]:.3e})")
+        if g_box > witness_limit("box", c_box) or g_score > witness_limit("score", c_score) or g_task > limit:
+            raise AssertionError(f"{kind} reference: card boxes {g_box:.3e} scores {g_score:.3e} {field} "
+                                 f"{g_task:.3e} from float64; CPU {c_box:.3e} {c_score:.3e} {c_task:.3e}")
+        print(f"{kind} reference (card and CPU float32 against CPU float64, narrow): {task_loss} card "
+              f"{g_loss[task_loss]:.6f} float64 {w_loss[task_loss]:.6f}; " + "; ".join(lines) + f"; eval {n} valid, "
+              f"boxes card {g_box:.3e} px CPU {c_box:.3e}, scores card {g_score:.3e} CPU {c_score:.3e}, {field} card "
+              f"{g_task:.3e} CPU {c_task:.3e} (limit {limit:.3e}); ReLU decisions the witnesses took over from "
+              f"the card's run {flips['gpu']}, the CPU's {flips['cpu']}; K2/K3 a step {g_step[0]}/{g_step[1]}, K1/K2 "
+              f"an eval {g_eval[0]}/{g_eval[1]} {tag}")
+        if kind == "mask":
+            out = g_dets, c_dets, batch
+    return out
+
+
+def write_segm_json(path: str, n_img: int = 12, hw=(480, 640), seed: int = 0):
+    """A seeded COCO ground truth of ``n_img`` images over 3 categories
+    whose segmentations mix polygons (some in two parts), uncompressed and
+    compressed RLE and crowd regions (RLE), objects 24-200 px. Returns
+    (dataset dict, each annotation's bitmask by id)."""
+    import json
+
+    import numpy as np
+
+    from lvc_tpu_torch.structures.masks import bitmask_to_rle, polygons_to_bitmask
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] + 0.5
+    images = [{"id": i + 1, "file_name": f"{i}.jpg", "height": h, "width": w} for i in range(n_img)]
+    anns, bits = [], {}
+    for img in images:
+        for k in range(rng.randint(3, 8)):
+            bw, bh = rng.uniform(24, 200, 2)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            kind = ("polygon", "rle", "string", "crowd", "parts")[(img["id"] + k) % 5]
+            if kind in ("polygon", "parts"):
+                t = np.sort(rng.uniform(0, 2 * np.pi, 9))
+                r = rng.uniform(0.7, 1.0, 9)
+                pts = np.stack([x0 + bw / 2 * (1 + r * np.cos(t)), y0 + bh / 2 * (1 + r * np.sin(t))], -1)
+                seg = [pts.reshape(-1).round(2).tolist()]
+                if kind == "parts":
+                    seg.append([x0, y0, x0 + bw / 4, y0, x0, y0 + bh / 4])
+                m = polygons_to_bitmask(seg, h, w)
+            else:
+                m = ((yy - y0 - bh / 2) / (bh / 2)) ** 2 + ((xx - x0 - bw / 2) / (bw / 2)) ** 2 <= 1
+                seg = bitmask_to_rle(m)
+                if kind == "string":
+                    seg = dict(seg, counts=rle_string(seg["counts"]))
+            ys, xs = np.nonzero(m)
+            ann = {"id": len(anns) + 1, "image_id": img["id"], "category_id": int(rng.choice([1, 2, 3])),
+                   "segmentation": seg, "area": float(m.sum()), "iscrowd": int(kind == "crowd"),
+                   "bbox": [float(xs.min()), float(ys.min()), float(xs.max() + 1 - xs.min()),
+                            float(ys.max() + 1 - ys.min())]}
+            anns.append(ann)
+            bits[ann["id"]] = m
+    dataset = {"images": images, "annotations": anns,
+               "categories": [{"id": c, "name": f"shape{c}"} for c in (1, 2, 3)]}
+    with open(path, "w") as f:
+        json.dump(dataset, f)
+    return dataset, bits
+
+
+def rle_string(counts) -> str:
+    """The COCO mask API's compressed form of run-length counts (its
+    ``rleToString``)."""
+    out = []
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = (x != -1) if (c & 0x10) else (x != 0)
+            out.append(chr((c | (0x20 if more else 0)) + 48))
+    return "".join(out)
+
+
+def oracle_detections(dataset, bits, device, shift: float = 0.0, scale: float = 1.25, D: int = 16):
+    """Padded ``Detections`` of a ``write_segm_json`` tree on a canvas
+    ``scale`` times the images, on ``device``, and their metas: each non-crowd
+    gt's bitmask cropped to 28 x 28 over its box by the port's
+    ``crop_gt_masks``, the detection's box that box moved ``shift`` px right
+    and down (so the mask lands moved)."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
+    from lvc_tpu_torch.modeling.roi_heads.mask_head import crop_gt_masks
+
+    images = dataset["images"]
+    B = len(images)
+    boxes = torch.zeros(B, D, 4, device=device)
+    masks = torch.zeros(B, D, 28, 28, device=device)
+    classes = torch.zeros(B, D, dtype=torch.int64, device=device)
+    valid = torch.zeros(B, D, dtype=torch.bool, device=device)
+    for i, img in enumerate(images):
+        anns = [a for a in dataset["annotations"] if a["image_id"] == img["id"] and not a["iscrowd"]][:D]
+        if not anns:
+            continue
+        x, y, w, h = (torch.tensor([a["bbox"] for a in anns], dtype=torch.float32, device=device).T)
+        box = torch.stack([x, y, x + w, y + h], -1)
+        gt = torch.from_numpy(np.stack([bits[a["id"]] for a in anns])).to(device)
+        n = len(anns)
+        masks[i, :n] = crop_gt_masks(gt, box, torch.arange(n, device=device), 28)
+        boxes[i, :n] = (box + shift) * scale
+        classes[i, :n] = torch.tensor([a["category_id"] - 1 for a in anns], device=device)
+        valid[i, :n] = True
+    scores = torch.linspace(0.9, 0.5, D, device=device).expand(B, D).contiguous()
+    dets = Detections(boxes, scores, classes, valid, torch.zeros_like(classes), masks=masks)
+    h, w = images[0]["height"], images[0]["width"]
+    metas = [{"image_id": img["id"], "image_size": (round(h * scale), round(w * scale)), "orig_size": (h, w)}
+             for img in images]
+    return dets, metas
+
+
+def segm_eval_check(tag, narrow):
+    """Phase 35b: segm evaluation through ``COCOEvaluator`` (registered on a
+    ``write_segm_json`` tree of 12 images at 480x640 with polygon, RLE and
+    crowd ground truth) from the card's tensors: oracle detections (each gt
+    mask cropped to 28 x 28 by ``crop_gt_masks`` on the card, on a 1.25x
+    canvas; the evaluator pastes them back at 480x640) must reach
+    ``MASK_AP_FLOOR`` segm AP; the same masks moved 3 px must score inside
+    ``SHIFTED_AP``; ms an image of the evaluator's host work. Then the
+    narrow mask model's card and CPU eval detections (phase 35a) as RLE rows
+    (``detections_to_coco_json`` at the 128x192 canvas): on every valid slot
+    the card's mask against the CPU's, RLE IoU at least ``MASK_ROW_IOU``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from lvc_tpu_torch.data.catalog import MetadataCatalog
+    from lvc_tpu_torch.evaluation.coco_evaluation import COCOEvaluator, detections_to_coco_json, host_detections
+    from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import index_detections
+    from lvc_tpu_torch.structures.masks import rle_to_bitmask
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "segm.json")
+        dataset, bits = write_segm_json(path)
+        kinds = {("poly" if isinstance(a["segmentation"], list) else "rle") + ("-crowd" if a["iscrowd"] else "")
+                 for a in dataset["annotations"]}
+        MetadataCatalog.get("segmcheck_test").set(json_file=path, thing_classes=["shape1", "shape2", "shape3"],
+                                                  thing_dataset_id_to_contiguous_id={1: 0, 2: 1, 3: 2})
+        results = {}
+        for shift in (0.0, 3.0):
+            dets, metas = oracle_detections(dataset, bits, CARD, shift)
+            ev = COCOEvaluator("segmcheck_test")
+            t0 = time.perf_counter()
+            ev.process_detections(dets, metas)
+            host_ms = (time.perf_counter() - t0) * 1e3 / len(metas)
+            results[shift] = ev.evaluate(), host_ms, len(ev._predictions)
+    (exact, host_ms, n_rows), (moved, _, _) = results[0.0], results[3.0]
+    ap, ap_moved = exact["segm"]["AP"], moved["segm"]["AP"]
+    if not ap >= MASK_AP_FLOOR or not SHIFTED_AP[0] < ap_moved < SHIFTED_AP[1]:
+        raise AssertionError(f"segm evaluation: oracle AP {ap} (floor {MASK_AP_FLOOR}), moved 3 px {ap_moved} "
+                             f"(want inside {SHIFTED_AP})")
+    print(f"segm evaluation ({len(dataset['annotations'])} gts: {sorted(kinds)}; {n_rows} oracle rows from the card's "
+          f"crop_gt_masks): segm AP {ap:.4f} AP50 {exact['segm']['AP50']:.4f} AP75 {exact['segm']['AP75']:.4f} "
+          f"(floor {MASK_AP_FLOOR}), bbox AP {exact['bbox']['AP']:.4f}; moved 3 px segm AP {ap_moved:.4f} (want "
+          f"inside {SHIFTED_AP}); evaluator host work {host_ms:.1f} ms an image {tag}")
+
+    g_dets, c_dets, batch = narrow
+    rows = {}
+    for key, dets in (("card", g_dets), ("cpu", c_dets)):
+        host = host_detections(dets)
+        rows[key] = [detections_to_coco_json(index_detections(host, i), {"image_id": i + 1, "image_size": (128, 192),
+                                                                         "orig_size": (128, 192)})
+                     for i in range(host.boxes.shape[0])]
+    ious = []
+    for card_rows, cpu_rows in zip(rows["card"], rows["cpu"]):
+        if len(card_rows) != len(cpu_rows):
+            raise AssertionError("narrow mask model: the card's and the CPU's valid slots differ")
+        for a, b in zip(card_rows, cpu_rows):
+            ma, mb = rle_to_bitmask(a["segmentation"]), rle_to_bitmask(b["segmentation"])
+            union = int((ma | mb).sum())
+            ious.append(int((ma & mb).sum()) / union if union else 1.0)
+    if not ious or min(ious) < MASK_ROW_IOU:
+        raise AssertionError(f"narrow mask model: card rows' masks against the CPU's, min RLE IoU "
+                             f"{min(ious) if ious else None} (want >= {MASK_ROW_IOU})")
+    print(f"segm rows of the narrow mask model: {len(ious)} card rows against the CPU's, RLE IoU min "
+          f"{min(ious):.6f} mean {float(np.mean(ious)):.6f} (want >= {MASK_ROW_IOU}) {tag}")
+
+
+def task_heads_phase(tag):
+    """Phase 35: ``task_reference_check`` then ``segm_eval_check``."""
+    segm_eval_check(tag, task_reference_check(tag))
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -4884,9 +5592,137 @@ def tf32_off():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def main() -> int:
+FT_NOVEL_YAML = "configs/COCO-detection/faster_rcnn_R_50_FPN_ft_novel_30shot.yaml"
+# the checkpoints a phase hands to later ones: (file, the phase writing it, the config of a damped-init stand-in)
+HANDOFFS = {"base": ("base.pth", 17, TRAIN_NET_YAML), "gate": ("gate.pth", 18, None),
+            "ubbr": ("ubbr.pth", 20, UBBR_YAML), "ft_novel": ("ft_novel.pth", 22, FT_NOVEL_YAML)}
+# phases that need another phase's run (its kernels entry, its time or its trained model), added when not selected
+REQUIRES = {4: (2,), 7: (2, 5), 10: (8,), 14: (4, 12), 15: (7, 12), 28: (18,)}
+FUSED_PHASES = (12, 13, 14, 15)  # the rest run with the fused path off, whatever the environment says
+
+
+def handoff(run, key: str) -> str:
+    """The path of a checkpoint one phase hands to later ones. When the phase
+    that writes it is not selected, a damped-init checkpoint of its config
+    stands in (the gate model has none: its phase is added instead)."""
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.utils.init import damped_init
+
+    name, phase, yaml = HANDOFFS[key]
+    path = os.path.join(run["keep"], name)
+    if phase not in run["selected"] and not os.path.exists(path):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(REPO, yaml))
+        model = damped_init(build_model(cfg), seed=0)
+        shutil.copy(DetectionCheckpointer(model, os.path.join(run["keep"], "standin")).save(key, 0), path)
+        print(f"{name}: a damped-init {yaml} stands in for phase {phase}'s checkpoint")
+    return path
+
+
+def coco_root(run) -> str:
+    """Phases 30-31's seeded COCO tree (``coco_tree_for``), written once."""
+    if "root" not in run:
+        run["root"] = os.path.join(run["keep"], "datasets")
+        coco_tree_for(run["root"])
+    return run["root"]
+
+
+def context_phases(run):
+    tag = run["tag"]
+    context_path(tag, handoff(run, "base"))
+    crops_path(tag, handoff(run, "base"))
+    context_reference_check(tag)
+    precomputed_proposals_check(tag)
+    predictor_check(tag)
+    clustering_check(tag)
+
+
+def phase_table():
+    """(number, function name, call on the run's state) for phases 2-35 in
+    the order ``main`` runs them; phase 1 (the build) always runs."""
+    def k(run):
+        return run["kernels"]
+
+    return [
+        (2, "kernel_phase", lambda r: k(r).update(kernel_phase(r["tag"]))),
+        (3, "reference_check", lambda r: reference_check(r["tag"])),
+        (4, "main_path", lambda r: r.update(serving_ms=main_path(r["tag"], k(r)))),
+        (5, "backward_kernel_phase", lambda r: k(r).update(roi_align_paired_bwd=backward_kernel_phase(r["tag"]))),
+        (6, "train_reference_check", lambda r: train_reference_check(r["tag"])),
+        (7, "train_main_path", lambda r: r.update(train=train_main_path(r["tag"], k(r)))),
+        (8, "attention_kernel_phase", lambda r: k(r).update(flash_attention_fwd=attention_kernel_phase(r["tag"]))),
+        (9, "verify_reference_check", lambda r: verify_reference_check(r["tag"])),
+        (10, "verify_main_path", lambda r: verify_main_path(r["tag"], k(r))),
+        (11, "cli_phase", lambda r: cli_phase(r["tag"])),
+        (12, "fused_kernel_phase", lambda r: k(r).update(matmul_affine_residual=fused_kernel_phase(r["tag"]))),
+        (13, "fused_reference_check", lambda r: fused_reference_check(r["tag"])),
+        (14, "fused_main_path", lambda r: fused_main_path(r["tag"], k(r), r["serving_ms"])),
+        (15, "fused_train_path", lambda r: fused_train_path(r["tag"], k(r), r["train"])),
+        (16, "trainer_reference_check", lambda r: trainer_reference_check(r["tag"])),
+        (17, "train_net_path", lambda r: train_net_path(r["tag"], os.path.join(r["keep"], "base.pth"))),
+        (18, "synthetic_ap_gate", lambda r: synthetic_ap_gate(r["tag"], os.path.join(r["keep"], "gate.pth"))),
+        (19, "corrector_reference_check", lambda r: corrector_reference_check(r["tag"])),
+        (20, "correct_path", lambda r: correct_path(r["tag"], os.path.join(r["keep"], "ubbr.pth"))),
+        (21, "finetune_reference_check", lambda r: finetune_reference_check(r["tag"])),
+        (22, "lvc_chain_path", lambda r: lvc_chain_path(r["tag"], handoff(r, "base"), handoff(r, "ubbr"),
+                                                         os.path.join(r["keep"], "ft_novel.pth"))),
+        (23, "dp_reference_check", lambda r: dp_reference_check(r["tag"])),
+        (24, "dp_train_net_path", lambda r: dp_train_net_path(r["tag"])),
+        (25, "extra_heads_reference_check", lambda r: extra_heads_reference_check(r["tag"])),
+        (26, "parallel_finetune_path", lambda r: parallel_finetune_path(r["tag"], handoff(r, "base"),
+                                                                         handoff(r, "ft_novel"))),
+        (27, "c4_path", lambda r: c4_path(r["tag"])),
+        (28, "voc_gate_check", lambda r: voc_gate_check(r["tag"], os.path.join(r["keep"], "gate.pth"))),
+        (29, "voc_path", lambda r: voc_path(r["tag"])),
+        (30, "lvis_path", lambda r: lvis_path(r["tag"], coco_root(r), handoff(r, "base"))),
+        (31, "context_phases", context_phases),
+        (32, "mask_serving_path", lambda r: mask_serving_path(r["tag"], k(r))),
+        (33, "mask_train_path", lambda r: mask_train_path(r["tag"], k(r))),
+        (34, "keypoint_path", lambda r: keypoint_path(r["tag"], k(r))),
+        (35, "task_heads_phase", lambda r: task_heads_phase(r["tag"])),
+    ]
+
+
+def select_phases(spec):
+    """``--phases``: numbers, ranges (``32-35``) or function names, comma
+    separated; None selects every phase. Adds the phases a selected one
+    needs (``REQUIRES``)."""
+    table = phase_table()
+    if spec is None:
+        return {n for n, _, _ in table}
+    names = {name: n for n, name, _ in table}
+    chosen = set()
+    for part in spec.replace(" ", "").split(","):
+        if part in names:
+            chosen.add(names[part])
+        elif "-" in part:
+            lo, hi = part.split("-")
+            chosen.update(range(int(lo), int(hi) + 1))
+        elif part:
+            chosen.add(int(part))
+    unknown = chosen - set(names.values())
+    if unknown:
+        raise SystemExit(f"chip_smoke: no phase {sorted(unknown)} (phases 2-{max(names.values())}; 1 always runs)")
+    todo = list(chosen)
+    while todo:
+        for need in REQUIRES.get(todo.pop(), ()):
+            if need not in chosen:
+                chosen.add(need)
+                todo.append(need)
+    return chosen
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
+    parser.add_argument("--phases", default=None, help="run only these phases after the build: numbers, ranges or "
+                        "function names, comma separated (e.g. 32-35 or mask_serving_path); default all")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4896,12 +5732,14 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
+    selected = select_phases(args.phases)
     tf32_off()
     card = card_line()
     tag = f"[{card}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}; "
           f"TF32 off (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}); phases 1 and "
+          f"{','.join(str(n) for n in sorted(selected))}")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as ex:
@@ -4912,49 +5750,16 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {line.strip()} {tag}")
 
-    kernels = kernel_phase(tag)
-    with fused_residual(False):
-        reference_check(tag)
-        serving_ms = main_path(tag, kernels)
-        kernels["roi_align_paired_bwd"] = backward_kernel_phase(tag)
-        train_reference_check(tag)
-        train = train_main_path(tag, kernels)
-    kernels["flash_attention_fwd"] = attention_kernel_phase(tag)
-    verify_reference_check(tag)
-    verify_main_path(tag, kernels)
-    cli_phase(tag)
-    kernels["matmul_affine_residual"] = fused_kernel_phase(tag)
-    fused_reference_check(tag)
-    fused_main_path(tag, kernels, serving_ms)
-    fused_train_path(tag, kernels, train)
-    with fused_residual(False), tempfile.TemporaryDirectory() as keep:
-        trainer_reference_check(tag)
-        train_net_path(tag, os.path.join(keep, "base.pth"))
-        synthetic_ap_gate(tag, os.path.join(keep, "gate.pth"))
-        corrector_reference_check(tag)
-        correct_path(tag, os.path.join(keep, "ubbr.pth"))
-        finetune_reference_check(tag)
-        lvc_chain_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ubbr.pth"),
-                       os.path.join(keep, "ft_novel.pth"))
-        dp_reference_check(tag)
-        dp_train_net_path(tag)
-        extra_heads_reference_check(tag)
-        parallel_finetune_path(tag, os.path.join(keep, "base.pth"), os.path.join(keep, "ft_novel.pth"))
-        c4_path(tag)
-        t0 = time.perf_counter()
-        voc_gate_check(tag, os.path.join(keep, "gate.pth"))
-        voc_path(tag)
-        with tempfile.TemporaryDirectory() as tmp:
-            root = os.path.join(tmp, "datasets")
-            coco_tree_for(root)
-            lvis_path(tag, root, os.path.join(keep, "base.pth"))
-            context_path(tag, os.path.join(keep, "base.pth"))
-            crops_path(tag, os.path.join(keep, "base.pth"))
-        context_reference_check(tag)
-        precomputed_proposals_check(tag)
-        predictor_check(tag)
-        clustering_check(tag)
-        print(f"phases 28-31 took {time.perf_counter() - t0:.1f} s {tag}")
+    with tempfile.TemporaryDirectory() as keep:
+        run = {"tag": tag, "kernels": {}, "keep": keep, "selected": selected}
+        for number, name, call in phase_table():
+            if number not in selected:
+                continue
+            t0 = time.perf_counter()
+            with fused_residual(False) if number not in FUSED_PHASES else contextlib.nullcontext():
+                call(run)
+            print(f"phase {number} ({name}) took {time.perf_counter() - t0:.1f} s {tag}")
+        kernels = run["kernels"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

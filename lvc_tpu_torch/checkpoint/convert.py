@@ -21,6 +21,16 @@ C4 head's blocks are ``res5.{0,1,2}`` in both, its extra regressor
 ``cont_cls/kernel`` in flax, ``cont_conv.{weight,bias}`` and
 ``cont_cls.weight`` here (JAX's ``torch_to_flax`` sends a reference
 ``cont_conv`` to ``cont_conv/conv/*``, which its tree does not hold).
+The mask and keypoint heads are bare flax ``nn.Conv``/``nn.ConvTranspose``
+too (``roi_heads/mask_head/{mask_fcn1..n,deconv,predictor}``,
+``roi_heads/keypoint_head/{conv_fcn1..n,score_lowres}``), detectron2's
+names here. flax's ``ConvTranspose`` (``transpose_kernel=False``) stores
+(kh, kw, in, out) and does not flip its kernel; ``nn.ConvTranspose2d``
+stores (in, out, kh, kw) and computes the true transpose of a convolution,
+so ``deconv`` and ``score_lowres`` are flipped in both spatial axes on the
+way across (JAX's ``torch_to_flax`` maps every 4-D weight to
+``<module>/conv/kernel`` unflipped, so its tree cannot take a reference mask
+or keypoint head).
 ``vit_from_flax`` and ``vit_to_flax`` do the same for the DINO verifier
 ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
@@ -38,6 +48,12 @@ _RES_STAGE = re.compile(r"res\d")
 _CASCADE = re.compile(r"^(box_head|box_predictor)_(\d+)$")
 _CASCADE_MODULES = ("box_head", "box_predictor")
 _TWINS = {"base_head": "base", "novel_head": "novel"}  # flax name -> ParallelStandardROIHeads key
+_BARE_HEADS = ("mask_head", "keypoint_head")  # heads of bare flax nn.Conv / nn.ConvTranspose modules
+_TRANSPOSED = ("deconv", "score_lowres")  # their ConvTranspose modules
+
+
+def _in_bare_head(parts) -> bool:
+    return any(p in _BARE_HEADS for p in parts)
 
 
 def _twin_to_torch(path):
@@ -76,7 +92,9 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "bias" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".bias"] = v
-        elif parts[-1] == "kernel" and v.ndim == 4:  # a bare nn.Conv (cont_conv)
+        elif parts[-1] == "kernel" and parts[-2] in _TRANSPOSED and _in_bare_head(parts):
+            out[".".join(parts[:-1]) + ".weight"] = v[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif parts[-1] == "kernel" and v.ndim == 4:  # a bare nn.Conv (cont_conv, the mask and keypoint heads)
             out[".".join(parts[:-1]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "kernel":
             out[".".join(parts[:-1]) + ".weight"] = v.T
@@ -130,10 +148,10 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 stats[tuple(base + [name])] = v
             else:
                 raise KeyError(f"unrecognized norm key {key}")
-        elif mod == ["cont_conv"]:  # the context head's bare nn.Conv
-            params[("cont_conv", {"weight": "kernel"}.get(name, name))] = (
-                v.transpose(2, 3, 1, 0) if name == "weight" else v
-            )
+        elif mod == ["cont_conv"] or (_in_bare_head(mod) and v.ndim in (1, 4)):  # bare nn.Conv / ConvTranspose
+            if name == "weight":
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1] if mod[-1] in _TRANSPOSED else v.transpose(2, 3, 1, 0)
+            params[tuple(mod + [{"weight": "kernel"}.get(name, name)])] = v
         elif name == "weight" and v.ndim == 4:
             params[tuple(mod + ["conv", "kernel"])] = v.transpose(2, 3, 1, 0)
         elif name == "weight" and v.ndim == 2 and mod[-1] == "cls_score" and (

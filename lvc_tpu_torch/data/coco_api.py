@@ -2,9 +2,9 @@
 
 A copy of ``lvc_tpu/data/coco_api.py`` (the port keeps its own; pycocotools
 is not a dependency): ann/img/cat indices, ranged ``getAnnIds`` and
-``loadRes`` for bbox result lists, and ``COCO_PK`` (:169), the mining
-tool's area-ratio index. Not ported yet: ``loadRes`` of segmentation
-results, which needs the mask structures (ROADMAP.md queue 1, item 10).
+``loadRes`` for bbox and segmentation result lists (a segmentation row's
+area and bbox come from its mask), and ``COCO_PK``, the mining tool's
+area-ratio index.
 """
 from __future__ import annotations
 
@@ -12,6 +12,10 @@ import copy
 import json
 from collections import defaultdict
 from typing import Dict, List, Optional, Union
+
+import numpy as np
+
+from lvc_tpu_torch.structures.masks import polygons_to_bitmask, rle_to_bitmask
 
 
 class COCO:
@@ -128,10 +132,27 @@ class COCO:
                 ann["id"] = i + 1
                 ann.setdefault("iscrowd", 0)
         elif "segmentation" in anns[0]:
-            raise NotImplementedError(
-                "segmentation results need the mask structures, which are not ported yet "
-                "(ROADMAP.md queue 1, item 10)"
-            )
+            # segm results (bbox popped by the caller): area and bbox come
+            # from the mask (pycocotools loadRes maskUtils.area/toBbox
+            # semantics), so S/M/L area ranges follow the mask for segm eval
+            res.dataset["categories"] = copy.deepcopy(self.dataset["categories"])
+            for i, ann in enumerate(anns):
+                seg = ann["segmentation"]
+                if isinstance(seg, dict):
+                    m = rle_to_bitmask(seg)
+                else:
+                    img = self.imgs[ann["image_id"]]
+                    m = polygons_to_bitmask(seg, img["height"], img["width"])
+                ann["area"] = float(m.sum())
+                if "bbox" not in ann:
+                    ys, xs = np.nonzero(m)
+                    if len(xs):
+                        x0, y0 = float(xs.min()), float(ys.min())
+                        ann["bbox"] = [x0, y0, float(xs.max()) + 1 - x0, float(ys.max()) + 1 - y0]
+                    else:
+                        ann["bbox"] = [0.0, 0.0, 0.0, 0.0]
+                ann["id"] = i + 1
+                ann.setdefault("iscrowd", 0)
         res.dataset["annotations"] = anns
         res.createIndex()
         return res

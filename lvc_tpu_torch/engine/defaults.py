@@ -319,7 +319,10 @@ class DefaultPredictor:
 
 
 def _first_image(out):
-    """Image 0 of a batched model output, as numpy arrays."""
+    """Image 0 of a batched model output, as numpy arrays (``None`` fields
+    stay ``None``)."""
+    if out is None:
+        return None
     if isinstance(out, torch.Tensor):
         return out[0].cpu().numpy()
     if isinstance(out, dict):

@@ -105,7 +105,9 @@ def make_data_parallel_train_step(
     evaluation use ``model`` itself. The model has no BatchNorm statistics
     (BN is not ported), so no buffer is broadcast per step. DDP searches the
     graph for trainable parameters that get no gradient only where the
-    model says it has them (``unused_parameters``: the context detector);
+    model says it has them (``unused_parameters``: the context detector, and
+    a mask or keypoint model, whose head gets none from a batch without its
+    gt);
     elsewhere every trainable parameter gets one in every step (frozen ones
     have ``requires_grad`` off)."""
     if not dist.is_initialized():

@@ -6,8 +6,9 @@ accelerates the same algorithm in C++: detectron2/layers/csrc/cocoeval/
 cocoeval.cpp driven by evaluation/fast_eval_api.py). pycocotools is not a
 dependency, so this is the port's canonical evaluator; ``fast_eval_api``'s
 native matching slots in behind the same interface. The ``segm`` IoU type
-needs the mask structures, which are not ported yet (ROADMAP.md queue 1,
-item 10): ``Params("segm")`` raises.
+decodes each annotation's polygons or RLE to packed bits (the port's
+``structures/masks.py``) and counts their overlaps; against a crowd gt it
+divides by the detection's area (pycocotools ``maskUtils.iou``).
 
 Matching semantics (per image, category, IoU threshold): detections in
 descending score order greedily claim the highest-IoU ground truth above
@@ -17,9 +18,11 @@ ignores; area-range filtering marks ignores, not removals.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from lvc_tpu_torch.structures.masks import polygons_to_bitmask, rle_to_bitmask
 
 
 def bbox_iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -40,14 +43,46 @@ def bbox_iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
+_POPCOUNT = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+def _ann_mask_bits(ann: dict, h: int, w: int, cache: Optional[dict] = None):
+    """Decode an annotation's segmentation to packed bits (np.packbits of
+    the row-major flattened bool mask) + pixel area. ``cache`` (keyed by
+    the ann dict's identity) lives on the COCOeval instance so the packed
+    masks are freed with the evaluation instead of accumulating on the
+    shared gt object (~H*W/8 bytes per ann — over a GB on COCO val)."""
+    key = id(ann)
+    if cache is not None:
+        cached = cache.get(key)
+        if cached is not None:
+            return cached
+    seg = ann["segmentation"]
+    if isinstance(seg, dict):
+        m = rle_to_bitmask(seg)
+    else:
+        m = polygons_to_bitmask(seg, h, w)
+    out = (np.packbits(m.reshape(-1)), int(m.sum()))
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
+def segm_iou(dt_bits, gt_bits, iscrowd) -> np.ndarray:
+    """Mask IoU from packed-bit masks [(bits, area), ...]; crowd gt uses
+    intersection / det area (pycocotools maskUtils.iou semantics)."""
+    out = np.zeros((len(dt_bits), len(gt_bits)))
+    for j, (gb, ga) in enumerate(gt_bits):
+        for i, (db, da) in enumerate(dt_bits):
+            inter = int(_POPCOUNT[np.bitwise_and(db, gb)].sum())
+            union = da if iscrowd[j] else da + ga - inter
+            out[i, j] = inter / union if union > 0 else 0.0
+    return out
+
+
 class Params:
     def __init__(self, iouType="bbox"):
-        if iouType == "segm":
-            raise NotImplementedError(
-                "segm evaluation needs the mask structures, which are not ported yet "
-                "(ROADMAP.md queue 1, item 10)"
-            )
-        assert iouType == "bbox", iouType
+        assert iouType in ("bbox", "segm"), iouType
         self.iouType = iouType
         self.imgIds: List[int] = []
         self.catIds: List[int] = []
@@ -120,6 +155,17 @@ class COCOeval:
         if len(dt) > p.maxDets[-1]:
             dt = dt[: p.maxDets[-1]]
         iscrowd = np.array([x.get("iscrowd", 0) for x in gt], dtype=bool)
+        if p.iouType == "segm":
+            img = self.cocoGt.imgs[imgId]
+            h, w = img["height"], img["width"]
+            cache = getattr(self, "_mask_bits_cache", None)
+            if cache is None:
+                cache = self._mask_bits_cache = {}
+            return segm_iou(
+                [_ann_mask_bits(x, h, w, cache) for x in dt],
+                [_ann_mask_bits(x, h, w, cache) for x in gt],
+                iscrowd,
+            )
         d = np.array([x["bbox"] for x in dt], dtype=np.float64)
         g = np.array([x["bbox"] for x in gt], dtype=np.float64)
         return bbox_iou_xywh(d, g, iscrowd)

@@ -15,8 +15,12 @@ detections it reads) through one copy to the host per batch
 rows of its shard; ``evaluate`` gathers them to the main rank in rank order
 (the whole dataset's order, as the test shards are contiguous) and returns
 an empty dict on the others (``lvc_tpu/evaluation/coco_evaluation.py:143-151``).
-The mask branch is not ported (item 10): the port's detections carry boxes
-only, so only the ``bbox`` task is evaluated.
+Detections with ``masks`` (Mask R-CNN) give each row an uncompressed RLE
+``segmentation``: the roi masks pasted on the host at the original size
+(``paste_masks_np``); on a dataset without the all/base/novel splits the
+``segm`` task is then evaluated beside ``bbox``, with each row's area and
+box taken from its mask (``lvc_tpu/evaluation/coco_evaluation.py:56-67,
+91-96,206-210``).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from lvc_tpu_torch.data.coco_api import COCO
 from lvc_tpu_torch.evaluation.coco_eval import COCOeval
 from lvc_tpu_torch.evaluation.fast_eval_api import COCOeval_opt
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import index_detections
+from lvc_tpu_torch.structures.masks import bitmask_to_rle, paste_masks_np
 from lvc_tpu_torch.utils import comm
 
 logger = logging.getLogger(__name__)
@@ -65,7 +70,10 @@ def detections_to_coco_json(dets, meta: dict, reverse_id_map=None) -> List[dict]
     maps contiguous class indices to dataset category ids at process time,
     like the reference (lvc/evaluation/coco_evaluation.py:96-117); without
     it the contiguous index is emitted as-is. Fields may be numpy arrays or
-    CPU tensors."""
+    CPU tensors. With ``masks``, each valid detection's probability mask is
+    pasted at the original resolution and emitted as an uncompressed RLE
+    ``segmentation`` (the reference emits compressed RLE; the port's COCO
+    api decodes both)."""
     rows = []
     boxes = np.asarray(dets.boxes, np.float64)
     scores = np.asarray(dets.scores, np.float64)
@@ -74,7 +82,13 @@ def detections_to_coco_json(dets, meta: dict, reverse_id_map=None) -> List[dict]
     rh, rw = [int(x) for x in meta["image_size"]]
     oh, ow = [int(x) for x in meta["orig_size"]]
     sx, sy = ow / rw, oh / rh
-    for b, s, c, v in zip(boxes, scores, classes, valid):
+    masks = None
+    if getattr(dets, "masks", None) is not None:
+        scaled = boxes * np.array([sx, sy, sx, sy], np.float64)
+        keep = np.flatnonzero(valid)
+        pasted = paste_masks_np(np.asarray(dets.masks, np.float32)[keep], scaled[keep], (oh, ow))
+        masks = {int(i): bitmask_to_rle(m) for i, m in zip(keep, pasted)}
+    for i, (b, s, c, v) in enumerate(zip(boxes, scores, classes, valid)):
         if not v:
             continue
         x0, y0, x1, y1 = b[0] * sx, b[1] * sy, b[2] * sx, b[3] * sy
@@ -85,6 +99,8 @@ def detections_to_coco_json(dets, meta: dict, reverse_id_map=None) -> List[dict]
             "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
             "score": float(s),
         }
+        if masks is not None:
+            row["segmentation"] = masks[i]
         rows.append(row)
     return rows
 
@@ -93,6 +109,11 @@ def _evaluate_predictions_on_coco(
     coco_gt: COCO, coco_results: List[dict], catIds=None, iou_type: str = "bbox"
 ) -> COCOeval:
     coco_results = copy.deepcopy(coco_results)
+    if iou_type == "segm":
+        # a segm row's area (its small/medium/large range) comes from its mask, not its box: loadRes
+        # takes the segmentation branch without the bbox (detectron2/evaluation/coco_evaluation.py:489-496)
+        for c in coco_results:
+            c.pop("bbox", None)
     coco_dt = coco_gt.loadRes(coco_results)
     coco_eval = COCOeval_opt(coco_gt, coco_dt, iouType=iou_type)
     if catIds is not None:
@@ -199,14 +220,20 @@ class COCOEvaluator:
                     "nAP", results["bbox"].get("bAP")
                 )
         else:
-            coco_eval = (
-                _evaluate_predictions_on_coco(self._coco_api, coco_results)
-                if coco_results
-                else None
-            )
-            results["bbox"] = self._derive_coco_results(
-                coco_eval, class_names=self._metadata.get("thing_classes")
-            )
+            # every task the rows carry, as the detectron2 evaluator does (the reference's lvc evaluator
+            # evaluates bbox alone even with MASK_ON)
+            tasks = ["bbox"]
+            if any("segmentation" in r for r in coco_results):
+                tasks.append("segm")
+            for task in tasks:
+                coco_eval = (
+                    _evaluate_predictions_on_coco(self._coco_api, coco_results, iou_type=task)
+                    if coco_results
+                    else None
+                )
+                results[task] = self._derive_coco_results(
+                    coco_eval, class_names=self._metadata.get("thing_classes")
+                )
         return results
 
     def _derive_coco_results(self, coco_eval: Optional[COCOeval], class_names=None) -> Dict[str, float]:

@@ -14,8 +14,13 @@ the proposals); every ROI head JAX's ``build_roi_heads`` builds:
 ``CosineSimOutputLayers``, and the debug inference under ``cfg.DEBUG``),
 ``CascadeROIHeads``, ``CascadeUBBRROIHeads``, ``UBBRROIHeads``,
 ``Res5ROIHeads``, ``StandardROIHeadsCascadeBBox``, ``CascadeStandardROIHeads``
-and ``ParallelStandardROIHeads``, with their training keys. The RPN and the
-ROI heads take the channel count of the backbone's output feature.
+and ``ParallelStandardROIHeads``, with their training keys; the mask and
+keypoint heads (``MODEL.MASK_ON``, ``MODEL.KEYPOINT_ON``,
+``ROI_MASK_HEAD.{NUM_CONV, CONV_DIM, POOLER_RESOLUTION, CLS_AGNOSTIC_MASK}``,
+``ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS, NUM_CONV, CONV_DIM, POOLER_RESOLUTION}``,
+``lvc_tpu/modeling/meta_arch/build.py:156-165``) in the heads that JAX
+builds them in and with what they do there. The RPN and the ROI heads take
+the channel count of the backbone's output feature.
 """
 from __future__ import annotations
 
@@ -185,6 +190,14 @@ def build_roi_heads(cfg, strides, in_channels: int):
             num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP, res2_out_channels=r.RES2_OUT_CHANNELS,
             stride_in_1x1=r.STRIDE_IN_1X1, resnet_norm=r.NORM, **common,
         )
+    # the heads JAX gives the mask and keypoint heads (neither the cascade heads nor the C4 head build them)
+    mask, kp = m.ROI_MASK_HEAD, m.ROI_KEYPOINT_HEAD
+    common.update(
+        mask_on=m.MASK_ON, mask_num_conv=mask.NUM_CONV, mask_conv_dim=mask.CONV_DIM,
+        mask_pooler_resolution=mask.POOLER_RESOLUTION, cls_agnostic_mask=mask.CLS_AGNOSTIC_MASK,
+        keypoint_on=m.KEYPOINT_ON, num_keypoints=kp.NUM_KEYPOINTS, keypoint_num_conv=kp.NUM_CONV,
+        keypoint_conv_dim=kp.CONV_DIM, keypoint_pooler_resolution=kp.POOLER_RESOLUTION,
+    )
     if name == "ParallelStandardROIHeads":
         seen, unseen = cfg.DATASETS.SEEN_IDS, cfg.DATASETS.UNSEEN_IDS
         return ParallelStandardROIHeads(
@@ -206,8 +219,6 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
     m = cfg.MODEL
     if m.META_ARCHITECTURE not in _META_ARCHS:
         _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, item 10")
-    if m.MASK_ON or m.KEYPOINT_ON:
-        _unported("mask and keypoint heads", "queue 1, item 10")
     if m.DTYPE not in _DTYPES:
         raise ValueError(f"MODEL.DTYPE {m.DTYPE!r}")
 
@@ -231,4 +242,8 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
             backbone, build_proposal_generator(cfg, strides, rpn_channels),
             build_roi_heads(cfg, strides, channels[m.ROI_HEADS.IN_FEATURES[0]]), **kwargs
         )
+    if m.MASK_ON or m.KEYPOINT_ON:
+        # the loader's batches carry no gt masks or keypoints (as in JAX), and a batch without them
+        # leaves its head without a gradient
+        model.unused_parameters = True
     return model.to(device=device, memory_format=torch.channels_last).eval()

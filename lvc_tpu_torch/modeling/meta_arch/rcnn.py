@@ -1,14 +1,17 @@
 """Generalized R-CNN (counterpart of ``lvc_tpu/modeling/meta_arch/rcnn.py``:
-model_images:25, GeneralizedRCNN:55-131, GeneralizedRCNN_Context:134-210,
-GeneralizedRCNNRegOnly:213, ProposalNetwork:279).
+model_images:25, GeneralizedRCNN:55-131 (its gt masks and keypoints
+:119-122), GeneralizedRCNN_Context:134-210, GeneralizedRCNNRegOnly:213,
+ProposalNetwork:279).
 
 The model takes the JAX package's batch dict, ``image`` (B, H, W, 3) raw
 pixels in cfg INPUT.FORMAT order and ``image_size`` (B, 2) true (h, w) inside
 the padded canvas. In eval mode it returns padded ``Detections`` (under
 ``no_grad``). In training mode with gt in the batch (``gt_boxes`` (B, G, 4),
-``gt_classes`` (B, G), ``gt_valid`` (B, G), optional ``gt_ignores`` (B, G)) it
-returns the JAX loss dict: ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
-``loss_box_reg``. It runs on the device its parameters live on; the batch is
+``gt_classes`` (B, G), ``gt_valid`` (B, G), optional ``gt_ignores`` (B, G),
+and for a mask or keypoint model ``gt_masks`` (B, G, Hm, Wm) and
+``gt_keypoints`` (B, G, K, 3), which only ``GeneralizedRCNN`` passes on, as
+in JAX) it returns the JAX loss dict: ``loss_rpn_cls``, ``loss_rpn_loc``,
+``loss_cls``, ``loss_box_reg`` (and ``loss_mask``, ``loss_keypoint``). It runs on the device its parameters live on; the batch is
 moved there. With the ``RBG`` proposal generator the proposals are jittered
 gt boxes (plus ``proposal_boxes``/``proposal_logits``/``proposal_valid`` when
 the batch holds them, which the loader's batches do not, as in JAX).
@@ -48,7 +51,10 @@ class GeneralizedRCNN(nn.Module):
     """backbone -> RPN (or RBG) -> ROI heads."""
 
     train_ignores = True  # the gt ignore regions reach the ROI heads in training
-    unused_parameters = False  # every trainable parameter gets a gradient in every step
+    train_tasks = True  # so do the batch's gt masks and keypoints
+    # every trainable parameter gets a gradient in every step (``build_model``
+    # sets it on a model whose mask or keypoint head a batch without their gt leaves out)
+    unused_parameters = False
 
     def __init__(
         self,
@@ -118,7 +124,9 @@ class GeneralizedRCNN(nn.Module):
             proposals, _, prop_valid, _ = self._propose(batch, features, image_sizes)
             return self.roi_heads(features, proposals, prop_valid, image_sizes)
 
-    def _gt(self, batch: Dict, ignores: bool = True) -> Dict[str, torch.Tensor]:
+    def _gt(self, batch: Dict, ignores: bool = True, tasks: bool = False) -> Dict[str, torch.Tensor]:
+        """The ROI heads' gt dict; with ``tasks`` also the batch's
+        ``gt_masks`` and ``gt_keypoints`` (``masks``, ``keypoints``)."""
         gt = {
             "boxes": self._as_tensor(batch["gt_boxes"]).float(),
             "classes": self._as_tensor(batch["gt_classes"]),
@@ -126,6 +134,9 @@ class GeneralizedRCNN(nn.Module):
         }
         if ignores and "gt_ignores" in batch:
             gt["ignores"] = self._as_tensor(batch["gt_ignores"]).bool()
+        for key, name in (("gt_masks", "masks"), ("gt_keypoints", "keypoints")):
+            if tasks and key in batch:
+                gt[name] = self._as_tensor(batch[key])
         return gt
 
     def _propose(self, batch: Dict, features, image_sizes, gt=None, generator=None):
@@ -151,7 +162,7 @@ class GeneralizedRCNN(nn.Module):
         with record_function("backbone"):
             features = self.backbone(self.model_images(batch))
         image_sizes = self._as_tensor(batch["image_size"])
-        gt = self._gt(batch, ignores=self.train_ignores)
+        gt = self._gt(batch, ignores=self.train_ignores, tasks=self.train_tasks)
         with record_function("rpn"):
             proposals, _, prop_valid, rpn_losses = self._propose(batch, features, image_sizes, gt, generator)
         with record_function("roi_heads"):
@@ -237,6 +248,7 @@ class GeneralizedRCNNRegOnly(GeneralizedRCNN):
     output is ``RegOnlyOutput`` aligned to them."""
 
     train_ignores = False
+    train_tasks = False
 
     def forward(self, batch: Dict, generator: Generators = None):
         if self.training and "gt_boxes" in batch:

@@ -2,13 +2,13 @@
 
 Counterpart of ``lvc_tpu/modeling/roi_heads/fast_rcnn.py``
 (FastRCNNOutputLayers:24, CosineSimOutputLayers:57, BoxOnlyLayers:94,
-fast_rcnn_losses:123-173, Detections:181,
+fast_rcnn_losses:123-173, Detections:181, index_detections:192,
 fast_rcnn_inference:198-261). The whole batch is processed at once on padded
 (B, R, ...) slots with validity masks.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -127,19 +127,24 @@ def fast_rcnn_losses(
 
 
 class Detections(NamedTuple):
-    """Fixed-shape padded detections per image: check ``valid``."""
+    """Fixed-shape padded detections per image: check ``valid``. ``masks``
+    and ``keypoints`` are ``None`` unless the model runs the mask or
+    keypoint head (``MODEL.MASK_ON``, ``MODEL.KEYPOINT_ON``)."""
 
     boxes: torch.Tensor  # (B, D, 4)
     scores: torch.Tensor  # (B, D)
     classes: torch.Tensor  # (B, D) int64
     valid: torch.Tensor  # (B, D) bool
     proposal_idx: torch.Tensor  # (B, D) index into the input proposals
+    masks: Optional[torch.Tensor] = None  # (B, D, M, M) float32 probability masks
+    keypoints: Optional[torch.Tensor] = None  # (B, D, K, 3) (x, y, score)
 
 
 def index_detections(dets: Detections, i) -> Detections:
     """One image's rows of a batched ``Detections``
-    (``lvc_tpu/modeling/roi_heads/fast_rcnn.py:192``)."""
-    return type(dets)(*[f[i] for f in dets])
+    (``lvc_tpu/modeling/roi_heads/fast_rcnn.py:192``); fields that are
+    ``None`` stay ``None``."""
+    return type(dets)(*[None if f is None else f[i] for f in dets])
 
 
 def fast_rcnn_inference(

@@ -49,4 +49,4 @@ def fast_rcnn_inference_debug(
     fg = scores[..., :-1]
     fg = torch.gather(fg, 1, dets.proposal_idx[..., None].expand(-1, -1, fg.shape[-1]))  # (B, D, K)
     inds = torch.sort(fg, dim=-1, descending=True, stable=True).indices[..., :2]
-    return DetectionsDebug(*dets, top2_scores=torch.gather(fg, 2, inds), top2_inds=inds)
+    return DetectionsDebug(*dets[:5], top2_scores=torch.gather(fg, 2, inds), top2_inds=inds)

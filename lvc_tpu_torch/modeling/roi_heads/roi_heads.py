@@ -1,10 +1,23 @@
 """ROI heads (counterpart of ``lvc_tpu/modeling/roi_heads/roi_heads.py``:
 SampledProposals:39, StandardROIHeads:47, label_and_sample_proposals:158-215,
-pool:218-314, __call__:371-448).
+pool:218-314, _mask_loss:316, _keypoint_loss:351, __call__:371-474).
 
 In training mode with gt, the heads append the gt boxes to the proposals,
 match and sample them, pool the sampled boxes and return the Fast R-CNN
 losses; otherwise they return fixed-shape detections.
+
+With ``mask_on`` (``MODEL.MASK_ON``) or ``keypoint_on`` the heads also hold
+``mask_head`` or ``keypoint_head``, each pooling at its own resolution (14)
+with the box pooler's implementation, sampling ratio and grid cap, as JAX
+pools them (the ``ROI_MASK_HEAD``/``ROI_KEYPOINT_HEAD`` ``NAME``, ``NORM``
+and ``POOLER_SAMPLING_RATIO`` keys are read by neither package). Training
+adds ``loss_mask`` (when the gt holds ``masks``, (B, G, Hm, Wm) bitmasks at
+any uniform scale of the canvas) and ``loss_keypoint`` (when it holds
+``keypoints``, (B, G, K, 3) image coordinates and visibility). As in JAX,
+they pool all B x S sampled slots and mask the non-foreground ones in the
+loss, where detectron2 pools the foreground alone. Inference adds the
+detections' ``masks`` (B, D, 2P, 2P) and ``keypoints`` (B, D, K, 3), from
+the detection boxes of every slot, valid or not.
 """
 from __future__ import annotations
 
@@ -25,6 +38,17 @@ from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import (
     fast_rcnn_losses,
 )
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn_debug import fast_rcnn_inference_debug
+from lvc_tpu_torch.modeling.roi_heads.keypoint_head import (
+    KRCNNConvDeconvUpsampleHead,
+    keypoint_rcnn_inference,
+    keypoint_rcnn_loss,
+)
+from lvc_tpu_torch.modeling.roi_heads.mask_head import (
+    MaskRCNNConvUpsampleHead,
+    crop_gt_masks,
+    mask_rcnn_inference,
+    mask_rcnn_loss,
+)
 from lvc_tpu_torch.modeling.sampling import Generators, image_generator, subsample_labels
 from lvc_tpu_torch.ops import roi_align
 from lvc_tpu_torch.structures import boxes as box_ops
@@ -77,11 +101,22 @@ class StandardROIHeads(nn.Module):
         box_reg_loss_type: str = "smooth_l1",
         reg_off: bool = False,
         debug: bool = False,
+        mask_on: bool = False,
+        mask_num_conv: int = 4,
+        mask_conv_dim: int = 256,
+        mask_pooler_resolution: int = 14,
+        cls_agnostic_mask: bool = False,
+        keypoint_on: bool = False,
+        num_keypoints: int = 17,
+        keypoint_num_conv: int = 8,
+        keypoint_conv_dim: int = 512,
+        keypoint_pooler_resolution: int = 14,
         **head_options,
     ):
         """``head_options`` go to ``_build_box_heads`` (the cascade heads'
         stage options, the C4 head's res5 options). ``debug`` (``cfg.DEBUG``)
-        makes inference return ``DetectionsDebug``."""
+        makes inference return ``DetectionsDebug``. The ``mask_*`` and
+        ``keypoint_*`` options build the mask and keypoint heads."""
         super().__init__()
         if pooler_impl == "tiled":
             raise NotImplementedError(
@@ -116,6 +151,17 @@ class StandardROIHeads(nn.Module):
         self.nms_thresh = nms_thresh_test
         self.detections_per_image = detections_per_image
         self.pre_nms_candidates = pre_nms_candidates
+        self.mask_on, self.keypoint_on = mask_on, keypoint_on
+        self.mask_pooler_resolution = mask_pooler_resolution
+        self.keypoint_pooler_resolution = keypoint_pooler_resolution
+        if mask_on:
+            self.mask_head = MaskRCNNConvUpsampleHead(
+                in_channels, num_classes, mask_num_conv, mask_conv_dim, cls_agnostic_mask
+            )
+        if keypoint_on:
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(
+                in_channels, num_keypoints, keypoint_num_conv, keypoint_conv_dim
+            )
 
     def _build_box_heads(self, cls_agnostic_bbox_reg: bool, output_layer: str = "FastRCNNOutputLayers",
                          cosine_scale: float = 20.0) -> None:
@@ -180,9 +226,11 @@ class StandardROIHeads(nn.Module):
         return SampledProposals(*(torch.stack(t) for t in zip(*out)))
 
     # --------------------------------------------------------------- pooling
-    def pool(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor) -> torch.Tensor:
+    def pool(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor,
+             output_size: Optional[int] = None) -> torch.Tensor:
         """features: per-level (B, C, H, W) in channels_last memory; boxes
-        (B, R, 4) -> (B, R, P, P, C) in the feature dtype.
+        (B, R, 4) -> (B, R, P, P, C) in the feature dtype, P the
+        ``output_size`` (default ``pooler_resolution``).
 
         In eval mode: pallas_fast / pallas_band -> the band kernel (K1); auto
         / pallas on CUDA -> the paired kernel (K2), as "auto -> pallas on the
@@ -207,7 +255,7 @@ class StandardROIHeads(nn.Module):
             # the kernels' band and pair layouts assume a sampling grid <= 2
             max_grid = min(max_grid, 2)
         kwargs = dict(
-            output_size=self.pooler_resolution,
+            output_size=output_size or self.pooler_resolution,
             sampling_ratio=self.pooler_sampling_ratio,
             max_grid=max_grid,
             min_level=int(math.log2(self.strides[0])),
@@ -235,15 +283,33 @@ class StandardROIHeads(nn.Module):
         generator: Generators = None,
     ):
         """Detections, or in training mode with ``gt`` (boxes, classes, valid,
-        optional ignores) the dict of ``loss_cls`` and ``loss_box_reg``."""
+        optional ignores, masks and keypoints) the dict of ``loss_cls`` and
+        ``loss_box_reg`` (and ``loss_mask``, ``loss_keypoint``)."""
         if self.training and gt is not None:
             return self._losses(features, proposals, proposal_valid, gt, generator)
         probs, boxes = self._predict(features, proposals)
         infer = fast_rcnn_inference_debug if self.debug else fast_rcnn_inference
-        return infer(
+        dets = infer(
             boxes, probs, image_sizes, proposal_valid, self.score_thresh,
             self.nms_thresh, self.detections_per_image, self.pre_nms_candidates,
         )
+        return self._task_outputs(features, dets)
+
+    def _task_outputs(self, features, dets):
+        """The detections with the mask and keypoint heads' outputs on their
+        boxes."""
+        B, D = dets.classes.shape
+        if self.mask_on:
+            pooled = self.pool(features, dets.boxes, self.mask_pooler_resolution)
+            logits = self.mask_head(pooled.reshape(B * D, *pooled.shape[2:]))
+            masks = mask_rcnn_inference(logits, dets.classes.reshape(B * D))
+            dets = dets._replace(masks=masks.reshape(B, D, *masks.shape[1:]))
+        if self.keypoint_on:
+            pooled = self.pool(features, dets.boxes, self.keypoint_pooler_resolution)
+            logits = self.keypoint_head(pooled.reshape(B * D, *pooled.shape[2:]))
+            kps = keypoint_rcnn_inference(logits, dets.boxes.reshape(B * D, 4))
+            dets = dets._replace(keypoints=kps.reshape(B, D, *kps.shape[1:]))
+        return dets
 
     def _box_features(self, features, boxes: torch.Tensor) -> torch.Tensor:
         """(B, R, 4) boxes -> the (B * R, D) features the predictor takes."""
@@ -280,4 +346,38 @@ class StandardROIHeads(nn.Module):
         if self.reg_off:
             # REG_OFF (roi_heads.py:397-400): the regression branch is off
             deltas = deltas * 0.0
-        return self._fast_rcnn_losses(sampled, scores, deltas)
+        losses = self._fast_rcnn_losses(sampled, scores, deltas)
+        fg = sampled.valid & (sampled.gt_classes >= 0) & (sampled.gt_classes < self.num_classes)
+        if self.mask_on and "masks" in gt:
+            losses["loss_mask"] = self._mask_loss(features, sampled, gt["masks"], fg)
+        if self.keypoint_on and "keypoints" in gt:
+            losses["loss_keypoint"] = self._keypoint_loss(features, sampled, gt["keypoints"], fg)
+        return losses
+
+    def _mask_loss(self, features, sampled: SampledProposals, gt_masks: torch.Tensor, fg: torch.Tensor):
+        """BCE of every sampled slot's mask against its matched gt bitmask
+        cropped to the box; the bitmasks' scale of the canvas is read from
+        their height."""
+        B, S = sampled.gt_classes.shape
+        G = gt_masks.shape[1]
+        M = 2 * self.mask_pooler_resolution  # the head upsamples 2x
+        canvas_h = features[self.in_features[0]].shape[2] * self.strides[0]
+        scale = gt_masks.shape[2] / canvas_h
+        pooled = self.pool(features, sampled.boxes, self.mask_pooler_resolution)
+        logits = self.mask_head(pooled.reshape(B * S, *pooled.shape[2:]))
+        image = torch.arange(B, device=fg.device)[:, None] * G
+        crops = crop_gt_masks(
+            gt_masks.reshape(B * G, *gt_masks.shape[2:]), sampled.boxes.reshape(B * S, 4) * scale,
+            (sampled.gt_idx + image).reshape(B * S), M,
+        )
+        return mask_rcnn_loss(logits, crops, sampled.gt_classes.reshape(B * S), fg.reshape(B * S))
+
+    def _keypoint_loss(self, features, sampled: SampledProposals, gt_keypoints: torch.Tensor, fg: torch.Tensor):
+        """Heatmap CE of every sampled slot against its matched gt's
+        keypoints."""
+        B, S = sampled.gt_classes.shape
+        K = gt_keypoints.shape[2]
+        pooled = self.pool(features, sampled.boxes, self.keypoint_pooler_resolution)
+        logits = self.keypoint_head(pooled.reshape(B * S, *pooled.shape[2:]))
+        kps = torch.gather(gt_keypoints.float(), 1, sampled.gt_idx[..., None, None].expand(-1, -1, K, 3))
+        return keypoint_rcnn_loss(logits, kps.reshape(B * S, K, 3), sampled.boxes.reshape(B * S, 4), fg.reshape(B * S))

@@ -118,5 +118,15 @@ def test_empty_detections_and_iou_equal_jax():
 
 
 def test_segm_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Params("segm")
+    """The segm IoU type is ported (it raised until then, naming its ROADMAP
+    item): ``Params("segm")`` equals JAX's, and a COCOeval of that type
+    takes it."""
+    from lvc_tpu.evaluation.coco_eval import Params as JaxParams
+
+    got, want = Params("segm"), JaxParams("segm")
+    assert set(vars(got)) == set(vars(want))
+    for k, v in vars(want).items():
+        np.testing.assert_array_equal(np.asarray(getattr(got, k)), np.asarray(v))
+    assert COCOeval(iouType="segm").params.iouType == "segm"
+    with pytest.raises(AssertionError):
+        Params("keypoints")  # no OKS type, as in JAX

@@ -16,6 +16,9 @@ through ``chip_smoke``'s phase-23 helpers with the CPU's plain pool
   gets no gradient) and with ``MODEL.IMAGES_ONLY`` (only the backbone up to
   p5 and ``cont_cls`` get one): DDP must all-reduce the gradients that
   exist and leave the others to the optimizer's zeros, as in one process.
+  And for the detector with ``MASK_ON`` (a narrow mask head, gt bitmasks
+  at 1/4 of the canvas): ``loss_mask``'s normaliser is global, so 2 ranks
+  give one process's ``loss_mask`` and mask-head gradients.
 - Every image samples the same slots on whichever rank holds it.
 - A toy loss through ``global_ratio`` on 2 ranks has its analytic gradient
   (not 2x too small or too large), within 1e-12 in float64.
@@ -29,8 +32,8 @@ import chip_smoke
 from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.modeling import sampling
 
-KINDS = ("detector", "cascade", "context", "context_images_only")
-SLOTS = {"detector": 8, "cascade": 4, "context": 8, "context_images_only": 0}
+KINDS = ("detector", "cascade", "context", "context_images_only", "mask")
+SLOTS = {"detector": 8, "cascade": 4, "context": 8, "context_images_only": 0, "mask": 8}
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +59,9 @@ def test_two_ranks_equal_one_process(runs, kind):
     # one RPN and one ROI call an image; the cascade's stage 0 alone samples; images_only runs neither
     assert err["slots"] == SLOTS[kind]
     assert ref["metrics"]["total_loss"] > 0
+    if kind == "mask":
+        assert ref["metrics"]["loss_mask"] > 0 and ref["launches"] == (0, 0)  # the CPU's plain pools
+        assert any(".mask_head." in n and g.abs().sum() > 0 for n, g in ref["grads"].items())
 
 
 def test_global_ratio_toy_gradient(runs):
