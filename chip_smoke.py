@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (lvc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # from the root of the repository
-    python3 chip_smoke.py --phases 32-35   # the build and phases 32-35 only
+    python3 chip_smoke.py --phases 36-39   # the build and phases 36-39 only
 
 ``--phases`` takes numbers, ranges or phase function names (comma
 separated); a phase that needs another's run (REQUIRES) brings it along, and
@@ -226,7 +226,36 @@ Phases, each of which raises (non-zero exit) on failure:
    crop_gt_masks on a seeded tree of polygon, RLE and crowd ground truth
    (an AP floor; moved 3 px, an AP range), the narrow model's card rows
    against the CPU's (RLE IoU).
-Phases 1-11 and 16-35 run with the fused path off, whatever the environment
+36. RetinaNet (detectron2's retinanet_R_50_FPN_1x.yaml on Base-RetinaNet.yaml,
+   built in code: R-50, p3-p7 with P6/P7 from res5, 9 anchors a location,
+   towers 4 x 256, 80 classes): bf16 serving at B=8 on 832x1344 from damped
+   weights with the head at its prior, at the yaml's score threshold 0.05
+   (which keeps nothing: every score sits at 0.01) and at 0 (1,000
+   candidates a level reach the NMS), 3 timed forwards each; then
+   train_net.main on it (60 classes: phase 17's tree holds the base
+   classes), IMS_PER_BATCH 16, AMP, 10 iterations and the COCO evaluation:
+   ms/iter, data_time, peak memory, the first loss_cls within 2% of the
+   focal loss the prior predicts for that batch's labels; no TPU kernel;
+37. Panoptic FPN (panoptic_fpn_R_50_1x.yaml on Base-Panoptic-FPN.yaml: Mask
+   R-CNN R-50-FPN, 80 classes, plus the semantic head, 54 classes, GN,
+   128 wide): bf16 serving at B=8 with pallas_fast (K1 twice a forward) and
+   auto (K2 twice), each pool on the forward's own tensors against its plain
+   version; on the host paste_masks_np and the panoptic fusion of each image
+   and PQ of the result against itself (100); AMP training at B=16 with
+   seeded gt masks and sem_seg maps (K2/K3 twice a step), loss_mask ln 2
+   and loss_sem_seg 0.5 ln 54 at the first step, its pools against their
+   plain versions and the P=14 pair timed against its bound;
+38. the semantic FPN (Misc/semantic_R_50_FPN_1x.yaml): bf16 serving at B=8,
+   10 AMP training steps at B=16 (loss_sem_seg ln 54 at the first), and
+   SemSegEvaluator's mIoU of the card's predictions of its own batch;
+   phases 36-38 run with TF32 convolutions;
+39. the narrow RetinaNet, semantic FPN and Panoptic FPN on the card and the
+   CPU against float64 witnesses (losses, gradients, detections, masks,
+   semantic logits), and a seeded Cityscapes tree of 1024x2048 frames
+   through the port's loaders and both Cityscapes evaluators from the
+   card's tensors: oracle boxes AP 100, moved 3 px an AP range, oracle maps
+   mIoU 100.
+Phases 1-11 and 16-39 run with the fused path off, whatever the environment
 says (spawned ranks inherit it).
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -495,6 +524,9 @@ def calibrated_init(model, seed: int):
         "proposal_generator.rpn_head.objectness_logits.": 0.1,
         "proposal_generator.rpn_head.anchor_deltas.": 0.01,
         "roi_heads.box_predictor.cls_score.": 0.03, "roi_heads.box_predictor.bbox_pred.": 0.3,
+        # RetinaNet's head: logits about the prior's with std ~1 (a few percent of the scores above 0.05), deltas
+        # O(0.3)
+        "head.cls_subnet.": 0.5, "head.bbox_subnet.": 0.5, "head.cls_score.": 0.05, "head.bbox_pred.": 0.015,
     }
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -852,6 +884,113 @@ def box_keypoints(gt_boxes, gt_valid, K: int = 17, seed: int = 0):
     kps[..., 1] = rng.uniform(boxes[..., 1:2], np.maximum(boxes[..., 3:4], boxes[..., 1:2]), (B, G, K))
     kps[..., 2] = rng.choice([0, 1, 2], (B, G, K), p=[0.2, 0.3, 0.5]) * gt_valid.cpu().numpy()[..., None]
     return torch.from_numpy(kps).to(gt_boxes.device)
+
+
+def dense_batch(B, H, W, G, seed, device, num_classes=80, sem_classes=54, n_gt=(4, 16), size=(32, 500)):
+    """``train_batch`` for the dense models: image i > 0 of the batch fills
+    (1 - i / (8 B)) of the canvas in each axis (its gt boxes clipped to it,
+    those left under 8 px dropped), and the batch adds ``sem_seg`` (B, H, W)
+    int64, blocks of 32 x 32 px of seeded classes in [0, sem_classes) with
+    255 in the padding, and ``gt_masks`` (``box_masks``)."""
+    import numpy as np
+    import torch
+
+    batch = train_batch(B, H, W, G, seed, device, num_classes, n_gt, size)
+    rng = np.random.RandomState(seed + 1)
+    sizes = np.array([[round(H * (1 - i / (8 * B))), round(W * (1 - i / (8 * B)))] for i in range(B)], np.int32)
+    hw = torch.from_numpy(sizes).to(device).float()
+    limit = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]], -1)[:, None, :]
+    boxes = torch.minimum(batch["gt_boxes"], limit)
+    valid = batch["gt_valid"] & ((boxes[..., 2:] - boxes[..., :2]) >= 8).all(-1)
+    blocks = rng.randint(0, sem_classes, (B, -(-H // 32), -(-W // 32)))
+    sem = np.repeat(np.repeat(blocks, 32, axis=1), 32, axis=2)[:, :H, :W].astype(np.int64)
+    rows, cols = np.arange(H)[None, :, None], np.arange(W)[None, None, :]
+    sem[(rows >= sizes[:, 0, None, None]) | (cols >= sizes[:, 1, None, None])] = 255
+    batch.update(image_size=torch.from_numpy(sizes).to(device), gt_boxes=torch.where(valid[..., None], boxes, 0.0),
+                 gt_valid=valid, sem_seg=torch.from_numpy(sem).to(device))
+    batch["gt_masks"] = box_masks(batch["gt_boxes"], valid, H, W)
+    return batch
+
+
+CITYSCAPES_THINGS = ("person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle")
+
+
+def write_cityscapes_tree(root: str, split: str = "val", cities=("aachen", "bremen"), per_city: int = 2,
+                          hw=(256, 512), seed: int = 0):
+    """A seeded Cityscapes tree in the layout ``data/cityscapes.py`` walks:
+    ``leftImg8bit/<split>/<city>/<city>_<seq>_000019_leftImg8bit.png`` and
+    beside each under ``gtFine/<split>/<city>/`` its ``_gtFine_polygons.json``
+    (``imgHeight``, ``imgWidth`` and objects: 3-8 things as 10-point
+    polygons, one in four a ``...group`` crowd, stuff polygons ``road`` and
+    ``sky`` that the loader skips, and one degenerate (flat) thing),
+    ``_gtFine_labelIds.png`` (uint8: 16 x 16 px blocks of classes 0-18 of the
+    19-class space JAX's evaluator counts in, 255 void) and
+    ``_gtFine_instanceIds.png`` (uint16, class x 1000 + instance inside each
+    thing's box; the loaders do not read it)."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    for c, city in enumerate(cities):
+        img_dir = os.path.join(root, "leftImg8bit", split, city)
+        gt_dir = os.path.join(root, "gtFine", split, city)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(gt_dir, exist_ok=True)
+        for k in range(per_city):
+            prefix = f"{city}_{c * 100 + k:06d}_000019_"
+            low = rng.randint(0, 255, (H // 16, W // 16, 3)).astype(np.uint8)
+            Image.fromarray(np.kron(low, np.ones((16, 16, 1), np.uint8))).save(
+                os.path.join(img_dir, prefix + "leftImg8bit.png"))
+            labels = np.kron(rng.randint(0, 19, (H // 16, W // 16)), np.ones((16, 16), np.int64))
+            labels[rng.rand(H, W) < 0.05] = 255
+            instances = np.zeros((H, W), np.uint16)
+            objects = [{"label": "road", "polygon": [[0, H - 1], [W - 1, H - 1], [W - 1, H // 2], [0, H // 2]]},
+                       {"label": "sky", "polygon": [[0, 0], [W - 1, 0], [W - 1, 20], [0, 20]]}]
+            for j in range(rng.randint(3, 9)):
+                cls = int(rng.randint(len(CITYSCAPES_THINGS)))
+                bw, bh = rng.uniform(24, W / 3), rng.uniform(24, H / 2)
+                x0, y0 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
+                t = np.sort(rng.uniform(0, 2 * np.pi, 10))
+                pts = np.stack([x0 + bw / 2 * (1 + np.cos(t)), y0 + bh / 2 * (1 + np.sin(t))], -1)
+                label = CITYSCAPES_THINGS[cls] + ("group" if j % 4 == 3 else "")
+                objects.append({"label": label, "polygon": np.round(pts, 1).tolist()})
+                instances[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = (24 + cls) * 1000 + j
+            objects.append({"label": "car", "polygon": [[10.0, 40.0], [60.0, 40.0], [35.0, 40.0]]})
+            with open(os.path.join(gt_dir, prefix + "gtFine_polygons.json"), "w") as f:
+                json.dump({"imgHeight": H, "imgWidth": W, "objects": objects}, f)
+            Image.fromarray(labels.astype(np.uint8)).save(os.path.join(gt_dir, prefix + "gtFine_labelIds.png"))
+            Image.fromarray(instances).save(os.path.join(gt_dir, prefix + "gtFine_instanceIds.png"))
+
+
+def cityscapes_oracle(dicts, device, shift: float = 0.0, D: int = 16):
+    """Each image of ``load_cityscapes_instances``'s dicts as
+    ``(image_id, (h, w), gt boxes XYXY, gt classes, one image's Detections)``, the
+    detections every gt box (crowds included, as the evaluator counts them)
+    moved ``shift`` px right and down, scores falling from 0.9, on
+    ``device``."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
+
+    out = []
+    for d in dicts:
+        xywh = np.array([a["bbox"] for a in d["annotations"]], np.float32).reshape(-1, 4)
+        boxes = np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], -1)
+        classes = np.array([a["category_id"] for a in d["annotations"]], np.int64)
+        n = len(boxes)
+        det_boxes = torch.zeros(D, 4, device=device)
+        det_boxes[:n] = torch.from_numpy(boxes + shift).to(device)
+        det_cls = torch.zeros(D, dtype=torch.int64, device=device)
+        det_cls[:n] = torch.from_numpy(classes).to(device)
+        valid = torch.arange(D, device=device) < n
+        scores = torch.linspace(0.9, 0.5, D, device=device)
+        dets = Detections(det_boxes, scores, det_cls, valid, torch.zeros_like(det_cls))
+        out.append((d["image_id"], (d["height"], d["width"]), boxes, classes, dets))
+    return out
 
 
 def narrow_task_heads(cfg, mask: bool = False, keypoint: bool = False):
@@ -3896,7 +4035,17 @@ def extra_heads_run(model, cfg, batch, train, recorder=None):
         with (recorder if not train else None) or contextlib.nullcontext():
             dets = model(batch)
         eval_n = ra.roi_align_band.launches, ra.roi_align_paired.launches
-    return losses, grads, type(dets)(*[None if t is None else t.cpu() for t in dets]), step_n, eval_n
+    return losses, grads, to_cpu(dets), step_n, eval_n
+
+
+def to_cpu(out):
+    """A model output (a tensor, a dict of outputs or ``Detections``, whose
+    ``None`` fields stay ``None``) copied to the CPU."""
+    if out is None or hasattr(out, "cpu"):
+        return None if out is None else out.cpu()
+    if isinstance(out, dict):
+        return {k: to_cpu(v) for k, v in out.items()}
+    return type(out)(*[to_cpu(t) for t in out])
 
 
 def extra_heads_reference_check(tag):
@@ -4962,22 +5111,24 @@ def clustering_check(tag):
 # Mask R-CNN and Keypoint R-CNN, segm evaluation (phases 32-35)
 # ---------------------------------------------------------------------------
 
-TASK_ITERS = 10  # each training run of phases 33-34: a warm-up step, then this many timed
+TASK_ITERS = 10  # each training run of phases 33-34 and 36-38: a warm-up step, then this many timed
 MASK_AP_FLOOR = 95.0  # phase 35's oracle masks (the gt cropped to 28 x 28 and pasted back): segm AP at least this
 SHIFTED_AP = (50.0, 85.0)  # the same masks moved 3 px right and down: segm AP inside this range
 MASK_ROW_IOU = 0.99  # phase 35: a card detection's pasted mask against the CPU's, RLE IoU at least this
-CARD = "cuda"  # the device of phases 32-35's card runs
+CARD = "cuda"  # the device of phases 32-39's card runs
+TASK_NAMES = {"mask": "Mask R-CNN R-50-FPN", "keypoint": "Keypoint R-CNN R-50-FPN", "panoptic": "Panoptic FPN R-50"}
 
 
 def task_cfg(kind: str, impl: str = "pallas_fast"):
-    """Phases 32-34's full-width configurations, built on Base-RCNN-FPN.yaml
-    in code (nothing fetched): ``mask`` follows detectron2's model zoo
-    COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml (MASK_ON, R-50, 80
-    classes; the mask head 4 convs 256 wide at P=14, 28 x 28 masks);
-    ``keypoint`` follows COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml on
-    Base-Keypoint-RCNN-FPN.yaml (KEYPOINT_ON, R-50, 1 class, the box head's
+    """Phases 32-34's and 36-38's full-width configurations, built on
+    Base-RCNN-FPN.yaml in code (nothing fetched): ``mask`` follows
+    detectron2's model zoo COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml
+    (MASK_ON, R-50, 80 classes; the mask head 4 convs 256 wide at P=14, 28 x
+    28 masks); ``keypoint`` follows COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml
+    on Base-Keypoint-RCNN-FPN.yaml (KEYPOINT_ON, R-50, 1 class, the box head's
     smooth-L1 beta 0.5, 1500 proposals an image in training; the keypoint
-    head 8 convs 512 wide at P=14, 17 keypoints on 56 x 56 heatmaps)."""
+    head 8 convs 512 wide at P=14, 17 keypoints on 56 x 56 heatmaps);
+    ``retinanet``, ``panoptic`` and ``semantic`` are ``dense_opts``'s."""
     from lvc_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
@@ -4985,11 +5136,61 @@ def task_cfg(kind: str, impl: str = "pallas_fast"):
     opts = ["MODEL.RESNETS.DEPTH", 50, "MODEL.ROI_HEADS.POOLER_IMPL", impl]
     if kind == "mask":
         opts += ["MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80]
-    else:
+    elif kind == "keypoint":
         opts += ["MODEL.KEYPOINT_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 1, "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", 0.5,
                  "MODEL.RPN.POST_NMS_TOPK_TRAIN", 1500]
+    else:
+        opts += dense_opts(kind)
     cfg.merge_from_list(opts)
     return cfg
+
+
+RETINANET_SIZES = [[x, x * 2 ** (1.0 / 3), x * 2 ** (2.0 / 3)] for x in (32, 64, 128, 256, 512)]
+RETINANET_MIN_SIZES = (640, 672, 704, 736, 768, 800)  # Base-RetinaNet.yaml's and semantic_R_50_FPN_1x.yaml's INPUT
+
+
+def dense_opts(kind: str, narrow: bool = False):
+    """The options on Base-RCNN-FPN.yaml of the dense meta-architectures,
+    for either package's config: ``retinanet`` is detectron2's model zoo
+    COCO-Detection/retinanet_R_50_FPN_1x.yaml on Base-RetinaNet.yaml (R-50,
+    res3-res5 into p3-p7 with P6/P7 from res5, 80 classes, the sizes
+    ``x * 2**{0, 1/3, 2/3}`` for x in 32-512 with three aspect ratios: 9
+    anchors a location, towers of 4 convs 256 wide, IoU 0.4/0.5, smooth-L1
+    beta 0, BASE_LR 0.01); ``panoptic`` is
+    COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml on
+    Base-Panoptic-FPN.yaml (R-50-FPN, MASK_ON with 80 thing classes, the
+    semantic head's defaults: 54 classes, 128 wide, GN, common stride 4,
+    LOSS_WEIGHT 0.5); ``semantic`` is Misc/semantic_R_50_FPN_1x.yaml
+    (R-50-FPN and that head at LOSS_WEIGHT 1). ``narrow``: phase 39's and the
+    CPU tests' widths (res2 64, FPN 64, 5 classes, towers 2 convs, the
+    semantic head 32 wide over 7 classes, the box head 128, the mask head 2
+    convs 32 wide, small top-k sizes and exhaustive sampling)."""
+    opts = ["MODEL.RESNETS.DEPTH", 50]
+    if kind == "retinanet":
+        opts += ["MODEL.META_ARCHITECTURE", "RetinaNet", "MODEL.RESNETS.OUT_FEATURES", ["res3", "res4", "res5"],
+                 "MODEL.FPN.IN_FEATURES", ["res3", "res4", "res5"], "MODEL.ANCHOR_GENERATOR.SIZES", RETINANET_SIZES,
+                 "MODEL.RETINANET.IOU_THRESHOLDS", [0.4, 0.5], "MODEL.RETINANET.IOU_LABELS", [0, -1, 1],
+                 "MODEL.RETINANET.SMOOTH_L1_LOSS_BETA", 0.0, "SOLVER.BASE_LR", 0.01,
+                 "INPUT.MIN_SIZE_TRAIN", RETINANET_MIN_SIZES]
+    elif kind == "panoptic":
+        opts += ["MODEL.META_ARCHITECTURE", "PanopticFPN", "MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80,
+                 "MODEL.SEM_SEG_HEAD.LOSS_WEIGHT", 0.5, "DATALOADER.FILTER_EMPTY_ANNOTATIONS", False]
+    elif kind == "semantic":
+        opts += ["MODEL.META_ARCHITECTURE", "SemanticSegmentor", "INPUT.MIN_SIZE_TRAIN", RETINANET_MIN_SIZES]
+    else:
+        raise ValueError(f"no dense configuration {kind!r}")
+    if narrow:
+        opts += ["MODEL.RESNETS.RES2_OUT_CHANNELS", 64, "MODEL.RESNETS.WIDTH_PER_GROUP", 16, "MODEL.FPN.OUT_CHANNELS", 64,
+                 "MODEL.RETINANET.NUM_CONVS", 2, "MODEL.RETINANET.NUM_CLASSES", 5,
+                 "MODEL.RETINANET.TOPK_CANDIDATES_TEST", 200, "MODEL.SEM_SEG_HEAD.CONVS_DIM", 32,
+                 "MODEL.SEM_SEG_HEAD.NUM_CLASSES", 7, "MODEL.ROI_HEADS.NUM_CLASSES", 5, "MODEL.ROI_BOX_HEAD.FC_DIM", 128,
+                 "MODEL.ROI_MASK_HEAD.NUM_CONV", 2, "MODEL.ROI_MASK_HEAD.CONV_DIM", 32,
+                 "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 200, "MODEL.RPN.POST_NMS_TOPK_TRAIN", 100,
+                 "MODEL.RPN.BATCH_SIZE_PER_IMAGE", 8192, "MODEL.RPN.POSITIVE_FRACTION", 0.999,
+                 "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 128, "MODEL.ROI_HEADS.POSITIVE_FRACTION", 0.999,
+                 "MODEL.RPN.PRE_NMS_TOPK_TEST", 200, "MODEL.RPN.POST_NMS_TOPK_TEST", 100,
+                 "TEST.DETECTIONS_PER_IMAGE", 30]
+    return opts
 
 
 @contextlib.contextmanager
@@ -5046,7 +5247,8 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
     to 0 just before and read just after; the outputs' shapes and ranges;
     one more forward of each recorded, its P=14 pool held to its plain
     version (``check_recorded_pool``, timed) and all its calls too. Returns
-    the last auto forward's detections and the recorded P=14 times."""
+    the last auto forward's output (Panoptic FPN's dict, else its
+    detections) and the recorded P=14 times."""
     import torch
 
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
@@ -5074,16 +5276,24 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         n = ra.roi_align_band.launches, ra.roi_align_paired.launches
         if n != ((2 * iters, 0) if impl == "pallas_fast" else (0, 2 * iters)):
             raise AssertionError(f"{kind} serving {impl}: K1/K2 launches {n} over {iters} forwards")
+        out = dets
+        if kind == "panoptic":
+            dets, sem = out["instances"], out["sem_seg"]
+            shape = (B, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES) + tuple(batch["image"].shape[1:3])
+            if tuple(sem.shape) != shape or sem.dtype != torch.float32 or not torch.isfinite(sem).all():
+                raise AssertionError(f"panoptic serving {impl}: sem_seg {tuple(sem.shape)} {sem.dtype}")
         check_detections(dets, B)
         if not dets.valid.any(dim=1).all():
             raise AssertionError(f"{kind} serving {impl}: an image kept no detection")
-        if kind == "mask":
+        if kind in ("mask", "panoptic"):
             m = dets.masks
             if tuple(m.shape) != (B, 100, 28, 28) or m.dtype != torch.float32 or not torch.isfinite(m).all() \
                     or float(m.min()) < 0 or float(m.max()) > 1 or dets.keypoints is not None:
-                raise AssertionError(f"mask serving {impl}: masks {tuple(m.shape)} {m.dtype} in "
+                raise AssertionError(f"{kind} serving {impl}: masks {tuple(m.shape)} {m.dtype} in "
                                      f"[{float(m.min())}, {float(m.max())}]")
-            out = f"masks {tuple(m.shape)} float32 in [{float(m.min()):.4f}, {float(m.max()):.4f}]"
+            shown = f"masks {tuple(m.shape)} float32 in [{float(m.min()):.4f}, {float(m.max()):.4f}]"
+            if kind == "panoptic":
+                shown += f", sem_seg logits {tuple(sem.shape)} float32"
         else:
             k = dets.keypoints
             v = dets.valid
@@ -5093,7 +5303,7 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
                     or float(k[..., 2].min()) <= 0 or float(k[..., 2].max()) > 1 or dets.masks is not None:
                 raise AssertionError(f"keypoint serving {impl}: keypoints {tuple(k.shape)} outside their boxes or "
                                      f"scores outside (0, 1]")
-            out = f"keypoints {tuple(k.shape)} inside their boxes, scores in (0, 1]"
+            shown = f"keypoints {tuple(k.shape)} inside their boxes, scores in (0, 1]"
         rec = PoolRecorder()
         with rec:
             model(batch)
@@ -5108,12 +5318,12 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         times[key] = t[key]
         add_launches(kernels, name, n[0] + n[1], t[key], sub.max_err[key])
         parts.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), K1/K2 {n[0]}/{n[1]}, valid detections "
-                     f"{dets.valid.sum(dim=1).tolist()}, {out}")
+                     f"{dets.valid.sum(dim=1).tolist()}, {shown}")
         del model
         torch.cuda.empty_cache()
-    name = "Mask R-CNN R-50-FPN" if kind == "mask" else "Keypoint R-CNN R-50-FPN"
+    name = TASK_NAMES[kind]
     print(f"{kind} serving: {name} bf16 B={B} at 832x1344 (TF32 convolutions): " + "; ".join(parts) + f" {tag}")
-    return dets, times
+    return out, times
 
 
 def mask_serving_path(tag, kernels):
@@ -5146,7 +5356,7 @@ def mask_serving_path(tag, kernels):
     return times
 
 
-def task_train(kind: str, kernels, tag, B: int):
+def task_train(kind: str, kernels, tag, B: int, amps=(False, True)):
     """Training steps of ``task_cfg(kind, "pallas_train")`` through
     ``make_train_step`` at B=``B`` on 832x1344 (seeded damped weights, a
     seeded batch of 4-16 gts an image with ``box_masks`` at 1/4 of the
@@ -5156,7 +5366,10 @@ def task_train(kind: str, kernels, tag, B: int):
     keypoint slots at P=14), the first step's losses (``loss_mask`` near ln 2
     from damped weights), every loss finite, the peak memory; one more AMP
     step recorded, its four pool calls held to their plain versions and the
-    P=14 pair timed. Returns the recorded P=14 times."""
+    P=14 pair timed. ``panoptic`` takes ``dense_batch`` (``sem_seg`` maps
+    with 255 in the padding, and gt bitmasks) and adds ``loss_sem_seg``.
+    ``amps``: the runs, float32 (False) and AMP (True; the last must be
+    AMP). Returns the recorded P=14 times."""
     import torch
 
     from lvc_tpu_torch.engine.train_loop import make_train_step
@@ -5168,16 +5381,20 @@ def task_train(kind: str, kernels, tag, B: int):
     k2, k3 = ra.roi_align_paired, ra.roi_align_paired_bwd
     cfg = task_cfg(kind, "pallas_train")
     classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    batch = train_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes, n_gt=(4, 16), size=(32, 500))
-    if kind == "mask":
-        batch["gt_masks"] = box_masks(batch["gt_boxes"], batch["gt_valid"], 832, 1344)
+    if kind == "panoptic":
+        batch = dense_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes,
+                            sem_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, n_gt=(4, 16), size=(32, 500))
+    else:
+        batch = train_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes, n_gt=(4, 16), size=(32, 500))
+    if kind in ("mask", "panoptic"):
+        batch.setdefault("gt_masks", box_masks(batch["gt_boxes"], batch["gt_valid"], 832, 1344))
         task_loss = "loss_mask"
     else:
         batch["gt_keypoints"] = box_keypoints(batch["gt_boxes"], batch["gt_valid"], seed=0)
         task_loss = "loss_keypoint"
     B = len(batch["image"])
     parts, launches = [], [0, 0]
-    for amp in (False, True):
+    for amp in amps:
         model = damped_init(build_model(cfg), seed=0).train()
         opt = build_optimizer(cfg, model)
         step = make_train_step(model, opt, build_lr_schedule(cfg, opt), mixed_precision=amp)
@@ -5197,20 +5414,28 @@ def task_train(kind: str, kernels, tag, B: int):
             raise AssertionError(f"{kind} training: K2/K3 launches {n} over {TASK_ITERS} steps")
         if task_loss not in first or not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
             raise AssertionError(f"{kind} training: {task_loss} missing or a loss not finite: {first}, {last}")
-        if kind == "mask" and abs(first["loss_mask"] - math.log(2)) > 0.05:
-            raise AssertionError(f"mask training: first loss_mask {first['loss_mask']}, want ln 2 within 0.05")
+        if kind in ("mask", "panoptic") and abs(first["loss_mask"] - math.log(2)) > 0.05:
+            raise AssertionError(f"{kind} training: first loss_mask {first['loss_mask']}, want ln 2 within 0.05")
+        sem = ""
+        if kind == "panoptic":
+            # damped weights: uniform logits, so the pixel CE is ln(classes), times LOSS_WEIGHT
+            want = cfg.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT * math.log(cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+            if abs(first.get("loss_sem_seg", math.inf) - want) > 0.05:
+                raise AssertionError(f"panoptic training: first loss_sem_seg {first.get('loss_sem_seg')}, want {want}")
+            sem = (f", loss_sem_seg {first['loss_sem_seg']:.5f} ({cfg.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT} ln "
+                   f"{cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES} = {want:.5f}) to {last['loss_sem_seg']:.5f}")
         launches = [a + b for a, b in zip(launches, n)]
         parts.append(f"{'AMP' if amp else 'float32'} {ms:.2f} ms/iter ({B * 1e3 / ms:.2f} img/s), K2/K3 {n[0]}/{n[1]}, "
                      f"peak memory {peak:.2f} GiB, first step {task_loss} {first[task_loss]:.5f} (total "
-                     f"{first['total_loss']:.4f}), last step {task_loss} {last[task_loss]:.5f}")
+                     f"{first['total_loss']:.4f}), last step {task_loss} {last[task_loss]:.5f}{sem}")
         if amp:
             rec = PoolRecorder()
             with rec:
                 step(batch, gen)
         del model, opt, step
         torch.cuda.empty_cache()
-    name = "Mask R-CNN" if kind == "mask" else "Keypoint R-CNN"
-    print(f"{kind} training: {name} R-50-FPN POOLER_IMPL pallas_train B={B} at 832x1344 (TF32 convolutions), "
+    name = TASK_NAMES[kind]
+    print(f"{kind} training: {name} POOLER_IMPL pallas_train B={B} at 832x1344 (TF32 convolutions), "
           f"{TASK_ITERS} timed steps each: " + "; ".join(parts) + f" {tag}")
     if sorted(c[1].rows.shape[1] for c in rec.fwd) != [7, 14] or len(rec.bwd) != 2:
         raise AssertionError(f"{kind} training: recorded {len(rec.fwd)}/{len(rec.bwd)} K2/K3 calls")
@@ -5289,6 +5514,44 @@ def relu_decisions(model, record=None, follow=None):
             h.remove()
 
 
+def witness_lines(kind, losses, grads):
+    """Phases 35 and 39: a training step's losses and trainable gradients on
+    the CPU and the card, each held to its own float64 witness (``losses``
+    and ``grads``: (the CPU's witness, the CPU's, the card's witness, the
+    card's)) within ``witness_limit`` of the CPU's distance. A gradient that
+    is 0 in float64 (rounding on every device) must stay below 1e-6 of the
+    largest. Returns the report's parts; raises on the first one over."""
+    (w_loss, c_loss, v_loss, g_loss), (w_grad, c_grad, v_grad, g_grad) = losses, grads
+    lines = []
+    for what, want, c, card_want, g in (("loss", w_loss, c_loss, v_loss, g_loss),
+                                        ("grad", w_grad, c_grad, v_grad, g_grad)):
+        if what == "loss":
+            rel = lambda a, w: abs(a - w) / max(abs(w), 1e-30)  # noqa: E731
+        else:
+            rel = lambda a, w: float((a - w).norm() / w.norm().clamp(min=1e-30))  # noqa: E731
+        keys = list(want)
+        if what == "grad":
+            # a gradient that is 0 in exact arithmetic (the keypoint head's last bias: a softmax over the
+            # upsampled cells ignores a constant) is rounding on every device: held below 1e-6 of the largest
+            top = max(float(w.norm()) for w in want.values())
+            keys = [k for k in want if float(want[k].norm()) > 1e-9 * top]
+            if any(float(g[k].norm()) > 1e-6 * top for k in want if k not in keys):
+                raise AssertionError(f"{kind} reference: a gradient that is 0 in float64 is not 0 on the card")
+        c_err = {k: rel(c[k], want[k]) for k in keys}
+        g_err = {k: rel(g[k], card_want[k]) for k in keys}
+        over = [k for k in keys if g_err[k] > witness_limit(what, c_err[k])]
+        if over:
+            k = over[0]
+            raise AssertionError(f"{kind} reference: card {what} {k} {g_err[k]:.3e} from float64, the CPU's "
+                                 f"{c_err[k]:.3e} (limit {witness_limit(what, c_err[k]):.3e})")
+        worst = max(g_err, key=g_err.get)
+        # for the record: the card against the witness of the CPU's ReLU decisions
+        routed = max(rel(g[k], want[k]) for k in keys)
+        lines.append(f"{len(keys)} {what}{'es' if what == 'loss' else 's'} card max {g_err[worst]:.3e} ({worst}; "
+                     f"CPU {c_err[worst]:.3e}; the card against the CPU's witness {routed:.3e})")
+    return lines
+
+
 def task_reference_check(tag):
     """Phase 35a: the narrow Mask R-CNN and Keypoint R-CNN
     (``task_reference_cfg``) at float32 on the card and on the CPU from the
@@ -5340,33 +5603,7 @@ def task_reference_check(tag):
         if (g_step, g_eval) != ((2, 2), (0, 2)) or task_loss not in g_loss or set(c_loss) != set(g_loss) \
                 or set(c_grad) != set(g_grad):
             raise AssertionError(f"{kind} reference: card launches {g_step}/{g_eval} or losses {sorted(g_loss)}")
-        lines = []
-        for what, want, c, card_want, g in (("loss", w_loss, c_loss, v_loss, g_loss),
-                                            ("grad", w_grad, c_grad, v_grad, g_grad)):
-            if what == "loss":
-                rel = lambda a, w: abs(a - w) / max(abs(w), 1e-30)  # noqa: E731
-            else:
-                rel = lambda a, w: float((a - w).norm() / w.norm().clamp(min=1e-30))  # noqa: E731
-            keys = list(want)
-            if what == "grad":
-                # a gradient that is 0 in exact arithmetic (the keypoint head's last bias: a softmax over the
-                # upsampled cells ignores a constant) is rounding on every device: held below 1e-6 of the largest
-                top = max(float(w.norm()) for w in want.values())
-                keys = [k for k in want if float(want[k].norm()) > 1e-9 * top]
-                if any(float(g[k].norm()) > 1e-6 * top for k in want if k not in keys):
-                    raise AssertionError(f"{kind} reference: a gradient that is 0 in float64 is not 0 on the card")
-            c_err = {k: rel(c[k], want[k]) for k in keys}
-            g_err = {k: rel(g[k], card_want[k]) for k in keys}
-            over = [k for k in keys if g_err[k] > witness_limit(what, c_err[k])]
-            if over:
-                k = over[0]
-                raise AssertionError(f"{kind} reference: card {what} {k} {g_err[k]:.3e} from float64, the CPU's "
-                                     f"{c_err[k]:.3e} (limit {witness_limit(what, c_err[k]):.3e})")
-            worst = max(g_err, key=g_err.get)
-            # for the record: the card against the witness of the CPU's ReLU decisions
-            routed = max(rel(g[k], want[k]) for k in keys)
-            lines.append(f"{len(keys)} {what}{'es' if what == 'loss' else 's'} card max {g_err[worst]:.3e} ({worst}; "
-                         f"CPU {c_err[worst]:.3e}; the card against the CPU's witness {routed:.3e})")
+        lines = witness_lines(kind, (w_loss, c_loss, v_loss, g_loss), (w_grad, c_grad, v_grad, g_grad))
         n, c_box, c_score = detection_errors(f"{kind} CPU vs float64", w_dets, c_dets)
         _, g_box, g_score = detection_errors(f"{kind} card vs float64", w_dets, g_dets)
         v = w_dets.valid
@@ -5583,6 +5820,418 @@ def task_heads_phase(tag):
     segm_eval_check(tag, task_reference_check(tag))
 
 
+# ---------------------------------------------------------------------------
+# RetinaNet, the semantic FPN and Panoptic FPN, their evaluators (phases 36-39)
+# ---------------------------------------------------------------------------
+
+CITYSCAPES_SHIFTED_AP = (75.0, 95.0)  # phase 39: the oracle boxes moved 3 px right and down, box AP inside this range
+
+
+def prior_focal_loss(p: float, alpha: float, gamma: float, K: int, n_pos: int, n_valid: int) -> float:
+    """``loss_cls`` of a RetinaNet whose every score is ``p``: each
+    non-ignored anchor adds K focal terms (one positive term for a
+    foreground anchor's class), divided by the positive count."""
+    pos = alpha * (1 - p) ** gamma * -math.log(p)
+    neg = (1 - alpha) * p ** gamma * -math.log(1 - p)
+    return (n_pos * (pos + (K - 1) * neg) + (n_valid - n_pos) * K * neg) / max(n_pos, 1)
+
+
+def prior_model(cfg, seed: int = 0):
+    """``build_model(cfg)`` with seeded damped weights, RetinaNet's head
+    initialised as its module is (N(0, 0.01), every score at the prior)."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.utils.init import damped_init
+
+    model = damped_init(build_model(cfg), seed=seed)
+    if hasattr(model, "head"):
+        model.head.init_weights(torch.Generator(device=model.device).manual_seed(seed))
+    return model
+
+
+def retinanet_serving(tag, B: int = 8):
+    """Phase 36a: RetinaNet (``task_cfg("retinanet")``) serving in bf16 at
+    B=8 on 832x1344 from ``prior_model`` weights, at the yaml's
+    SCORE_THRESH_TEST 0.05 and at 0: 1 warm-up and 3 timed forwards each.
+    At seeded init every score sits at the prior 0.01, so 0.05 must keep
+    nothing; at 0 each level's 1,000 best candidates (5,000 an image) must
+    reach the class-aware NMS (recorded on one more forward) and every image
+    keep detections. No TPU kernel runs here (K1/K2/K3 0)."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch import retinanet as rn
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    cfg = task_cfg("retinanet")
+    cfg.MODEL.DTYPE = "bfloat16"
+    model = prior_model(cfg)
+    batch = serving_batch(B)
+    B, r = len(batch["image"]), cfg.MODEL.RETINANET
+    with torch.no_grad():
+        _, logits, _ = model.head_outputs(model.backbone(model.model_images(batch)))
+        top = max(float(torch.sigmoid(x).max()) for x in logits)
+        anchors = sum(x.shape[1] for x in logits)
+        reach = sum(min(r.TOPK_CANDIDATES_TEST, x.shape[1] * x.shape[2]) for x in logits)
+    parts = []
+    for thresh in (r.SCORE_THRESH_TEST, 0.0):
+        model.score_thresh_test = thresh
+        model(batch)
+        torch.cuda.synchronize()
+        ra.roi_align_band.launches = ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dets = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        seen, nms = [], rn.batched_nms_mask
+        rn.batched_nms_mask = lambda boxes, scores, idxs, valid, thr: seen.append(valid.sum(1).tolist()) or nms(
+            boxes, scores, idxs, valid, thr)
+        try:
+            model(batch)
+        finally:
+            rn.batched_nms_mask = nms
+        n = (ra.roi_align_band.launches, ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches)
+        check_detections(dets, B)
+        kept = dets.valid.sum(1).tolist()
+        cands = [reach] * B if thresh == 0 else [0] * B
+        if (any(kept) if thresh > 0 else not all(kept)) or seen[0] != cands or n != (0, 0, 0):
+            raise AssertionError(f"retinanet serving at {thresh}: kept {kept}, NMS candidates {seen}, K1/K2/K3 {n}")
+        parts.append(f"SCORE_THRESH_TEST {thresh}{' (the yaml)' if thresh > 0 else ''}: {ms:.2f} ms/batch "
+                     f"({B * 1e3 / ms:.2f} img/s), NMS candidates an image {seen[0][0]}, detections kept {kept}")
+    print(f"retinanet serving: RetinaNet R-50-FPN (9 anchors, {anchors:,} an image) bf16 B={B} at 832x1344, prior "
+          f"init (largest score {top:.5f}): " + "; ".join(parts) + f"; K1/K2/K3 0/0/0 {tag}")
+
+
+def retinanet_train_net(tag, root: str):
+    """Phase 36b: RetinaNet through ``train_net.main`` in this process
+    (``dense_opts("retinanet")`` on Base-RCNN-FPN.yaml: IMS_PER_BATCH 16,
+    the yaml's train sizes on the 832x1344 canvas, AMP, BASE_LR 0.01) from
+    a ``prior_model`` ``.pth``, ``TASK_ITERS`` iterations on phase 17's
+    seeded COCO tree (``coco_trainval_base``: its images hold the 60 base
+    classes, so NUM_CLASSES is 60 here; the "all" splits would take the LVC
+    few-shot merge), then its COCO evaluation on ``coco_test_base`` at
+    SCORE_THRESH_TEST 0 (the scores sit near the prior). The first step's ``loss_cls`` is held within 2% of the
+    focal loss the prior predicts for that batch's labels (recorded from
+    ``RetinaNet.label_anchors``; the prior 0.01 as bf16 logits make it);
+    ms/iter, data_time and peak memory as phase 17 reports them; no TPU
+    kernel launches."""
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
+    from lvc_tpu_torch.tools import train_net
+
+    cfg = task_cfg("retinanet")
+    cfg.MODEL.RETINANET.NUM_CLASSES = 60
+    r = cfg.MODEL.RETINANET
+    with tempfile.TemporaryDirectory() as tmp:
+        model = prior_model(cfg)
+        weights = DetectionCheckpointer(model, os.path.join(tmp, "weights")).save("prior_init", iteration=0)
+        del model
+        counts, label = [], RetinaNet.label_anchors
+
+        def recording(self, *args):
+            cls, matched = label(self, *args)
+            counts.append((int(((cls >= 0) & (cls < self.num_classes)).sum()), int((cls >= 0).sum())))
+            return cls, matched
+
+        opts = [str(x) for x in dense_opts("retinanet")] + [
+            "MODEL.WEIGHTS", weights, "SOLVER.IMS_PER_BATCH", "16", "SOLVER.MAX_ITER", str(TASK_ITERS),
+            "SOLVER.AMP.ENABLED", "True", "DATASETS.TRAIN", "('coco_trainval_base',)", "MODEL.RETINANET.NUM_CLASSES",
+            "60", "DATASETS.TEST", "('coco_test_base',)", "MODEL.RETINANET.SCORE_THRESH_TEST", "0.0", "SEED", "0",
+            "OUTPUT_DIR", os.path.join(tmp, "out")]
+        torch.cuda.reset_peak_memory_stats()
+        RetinaNet.label_anchors = recording
+        try:
+            res, secs, n, trainer = run_cli(train_net, ["--config-file", BASE_YAML] + opts)
+        finally:
+            RetinaNet.label_anchors = label
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = trainer.storage.histories()
+    first, last = hist["loss_cls"].values()[0], hist["loss_cls"].values()[-1]
+    p = float(torch.sigmoid(torch.tensor(-math.log((1 - r.PRIOR_PROB) / r.PRIOR_PROB)).bfloat16().float()))
+    want = prior_focal_loss(p, r.FOCAL_LOSS_ALPHA, r.FOCAL_LOSS_GAMMA, r.NUM_CLASSES, *counts[0])
+    ap = res["bbox"]["AP"]
+    if trainer.cfg.MODEL.META_ARCHITECTURE != "RetinaNet" or len(trainer.step_s) != TASK_ITERS or n != (0, 0, 0) \
+            or abs(first - want) > 0.02 * want or not math.isfinite(ap) or len(counts) != TASK_ITERS:
+        raise AssertionError(f"retinanet train_net: {len(trainer.step_s)} steps, K1/K2/K3 {n}, first loss_cls "
+                             f"{first} (the prior predicts {want}), AP {ap}")
+    train_net_report(f"retinanet train_net: RetinaNet R-50-FPN 60 classes AMP, IMS_PER_BATCH 16 at 832x1344 (TF32 "
+                     f"convolutions)", trainer, secs, peak, 16, tag)
+    print(f"retinanet train_net: first step loss_cls {first:.5f}, the prior's focal loss {want:.5f} ({counts[0][0]} "
+          f"positive of {counts[0][1]:,} non-ignored anchors, p = {p:.6f}: 0.01 as bf16 logits), step "
+          f"{TASK_ITERS} {last:.5f}; evaluation of coco_test_base at score threshold 0: bbox AP {ap:.4f}, "
+          f"{trainer.test_s * 1e3 / TRAIN_NET_TREE[1]:.1f} ms/img; K1/K2/K3 0/0/0 {tag}")
+
+
+def retinanet_path(tag, root: str):
+    """Phase 36: ``retinanet_serving`` and ``retinanet_train_net``."""
+    with cli_tf32():
+        retinanet_serving(tag)
+        retinanet_train_net(tag, root)
+
+
+def panoptic_path(tag, kernels):
+    """Phase 37, Panoptic FPN (``task_cfg("panoptic")``,
+    COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml): ``task_serving``
+    at B=8 (K1 twice a forward with pallas_fast, K2 twice with auto, each
+    held to its plain version on the forward's tensors), then on the host
+    for each image of the auto forward: ``paste_masks_np`` at 832x1344,
+    ``combine_semantic_and_instance_outputs`` with the config's thresholds
+    but INSTANCES_CONFIDENCE_THRESH 0 (the random detector's scores sit near
+    1/81) and PQ of the result against itself (100); then
+    ``task_train`` at IMS_PER_BATCH 16, AMP only (``dense_batch``: sem_seg
+    maps with 255 in the padding, gt bitmasks), K2/K3 twice a step."""
+    import numpy as np
+
+    from lvc_tpu_torch.evaluation.coco_evaluation import host_detections
+    from lvc_tpu_torch.evaluation.panoptic_evaluation import COCOPanopticEvaluator
+    from lvc_tpu_torch.modeling.meta_arch.panoptic_fpn import combine_semantic_and_instance_outputs
+    from lvc_tpu_torch.structures.masks import paste_masks_np
+
+    combine = task_cfg("panoptic").MODEL.PANOPTIC_FPN.COMBINE
+    with cli_tf32():
+        out, serving = task_serving("panoptic", kernels, tag)
+        host = host_detections(out["instances"])
+        B = host.boxes.shape[0]
+        ev = COCOPanopticEvaluator()
+        things = stuff = 0
+        t0 = time.perf_counter()
+        for i in range(B):
+            v = host.valid[i]
+            masks = paste_masks_np(host.masks[i][v], host.boxes[i][v], tuple(out["sem_seg"].shape[2:]))
+            logits = out["sem_seg"][i].permute(1, 2, 0).cpu().numpy()
+            pan, segments = combine_semantic_and_instance_outputs(
+                host.boxes[i][v], host.scores[i][v], host.classes[i][v], np.ones(int(v.sum()), bool), masks, logits,
+                combine.OVERLAP_THRESH, combine.STUFF_AREA_LIMIT, 0.0)
+            ev.process(pan, segments, pan, segments)
+            things += sum(s["isthing"] for s in segments)
+            stuff += sum(not s["isthing"] for s in segments)
+        host_ms = (time.perf_counter() - t0) * 1e3 / B
+        pq = ev.evaluate()["panoptic_seg"]["PQ"]
+        if pq != 100.0 or not things or not stuff:
+            raise AssertionError(f"panoptic combine: PQ against itself {pq}, {things} thing and {stuff} stuff segments")
+        print(f"panoptic combine on the host: paste_masks_np at 832x1344 + the logits' copy + "
+              f"combine_semantic_and_instance_outputs {host_ms:.1f} ms an image; {things / B:.1f} thing and "
+              f"{stuff / B:.1f} stuff segments an image; PQ of the combine against itself {pq:.1f} {tag}")
+        return serving, task_train("panoptic", kernels, tag, B=16, amps=(True,))
+
+
+def semantic_path(tag):
+    """Phase 38, the semantic FPN (``task_cfg("semantic")``,
+    Misc/semantic_R_50_FPN_1x.yaml): bf16 serving at B=8 on 832x1344 (1
+    warm-up and 3 timed forwards; logits (8, 54, 832, 1344) float32), then
+    ``make_train_step`` with AMP at B=16 (``dense_batch``): a warm-up step
+    and ``TASK_ITERS`` timed, the first ``loss_sem_seg`` ln 54 within 0.05
+    from damped weights, peak memory; then the trained model's predictions
+    on its training batch (argmax on the card) through ``SemSegEvaluator``
+    (54 classes, 255 ignored): mIoU, pACC. No TPU kernel runs."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.engine.train_loop import make_train_step
+    from lvc_tpu_torch.evaluation.sem_seg_evaluation import SemSegEvaluator
+    from lvc_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+
+    with cli_tf32():
+        cfg = task_cfg("semantic")
+        C = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        serve = cfg.clone()
+        serve.MODEL.DTYPE = "bfloat16"
+        model = prior_model(serve)
+        batch = serving_batch(8)
+        model(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            logits = model(batch)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3 / 3
+        serve_batch = len(batch["image"])
+        if tuple(logits.shape) != (serve_batch, C) + tuple(batch["image"].shape[1:3]) \
+                or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+            raise AssertionError(f"semantic serving: logits {tuple(logits.shape)} {logits.dtype}")
+        del model, logits
+        torch.cuda.empty_cache()
+
+        batch = dense_batch(16, 832, 1344, 16, seed=0, device=CARD, sem_classes=C)
+        model = prior_model(cfg).train()
+        opt = build_optimizer(cfg, model)
+        step = make_train_step(model, opt, build_lr_schedule(cfg, opt), mixed_precision=True)
+        torch.cuda.reset_peak_memory_stats()
+        first = float(step(batch)["loss_sem_seg"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = [step(batch) for _ in range(TASK_ITERS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TASK_ITERS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        last = float(metrics[-1]["loss_sem_seg"])
+        if abs(first - math.log(C)) > 0.05 or not all(math.isfinite(float(m["total_loss"])) for m in metrics):
+            raise AssertionError(f"semantic training: first loss_sem_seg {first} (ln {C} = {math.log(C)}), last {last}")
+        model.eval()
+        with torch.no_grad():
+            pred = model(batch).argmax(1).cpu().numpy()
+        gt = batch["sem_seg"].cpu().numpy()
+        ev = SemSegEvaluator("seeded", num_classes=C)
+        for p, g in zip(pred, gt):
+            ev.process(p, g)
+        res = ev.evaluate()["sem_seg"]
+        if not all(np.isfinite([res["mIoU"], res["pACC"]])):
+            raise AssertionError(f"semantic evaluation: {res}")
+    h = cfg.MODEL.SEM_SEG_HEAD
+    n_serve, n_train = serve_batch, len(batch["image"])
+    print(f"semantic: SemanticSegmentor R-50-FPN ({C} classes, {h.NORM} head {h.CONVS_DIM} wide) serving bf16 "
+          f"B={n_serve} at 832x1344 {serve_ms:.2f} ms/batch ({n_serve * 1e3 / serve_ms:.2f} img/s); training AMP "
+          f"B={n_train} {ms:.2f} ms/iter ({n_train * 1e3 / ms:.2f} img/s), peak memory {peak:.2f} GiB, loss_sem_seg "
+          f"{first:.5f} (ln {C} = "
+          f"{math.log(C):.5f}) to {last:.5f} after {TASK_ITERS + 1} steps; SemSegEvaluator on the trained model's "
+          f"card predictions of its batch: mIoU {res['mIoU']:.4f} pACC {res['pACC']:.4f} (TF32 convolutions; no "
+          f"TPU kernel) {tag}")
+
+
+def dense_reference_cfg(kind: str, device: str):
+    """Phase 39's narrow models: ``dense_opts(kind, narrow=True)`` at
+    float32, POOLER_IMPL pallas_train (K2 forward and K3 backward on the
+    card, their plain versions on the CPU)."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(BASE_YAML)
+    cfg.merge_from_list(dense_opts(kind, narrow=True) + ["MODEL.ROI_HEADS.POOLER_IMPL", "pallas_train",
+                                                          "MODEL.DEVICE", device])
+    return cfg
+
+
+def dense_reference_check(tag, kinds=("retinanet", "semantic", "panoptic")):
+    """Phase 39a: the narrow RetinaNet, SemanticSegmentor and PanopticFPN
+    (``dense_reference_cfg``) at float32 on the card and on the CPU from the
+    same weights (``calibrated_init``; RetinaNet's score bias at the prior,
+    Panoptic FPN's mask predictor scaled by 0.05 as phase 35's), each held
+    to its own float64 witness on the CPU (``witness_lines``,
+    ``witness_limit``; the witnesses take each run's decisions at the mask
+    head's ReLUs): one training step's losses and trainable gradients on a
+    B=2 ``dense_batch`` of 128x192, then the eval forward: detections (boxes
+    px, scores), masks (abs) and the semantic logits (abs, over the largest).
+    K2/K3 2/2 a step and 0/2 an eval forward for Panoptic FPN on the card,
+    none for the others."""
+    import copy
+
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+
+    batch = dense_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, sem_classes=7, n_gt=(3, 3),
+                        size=(24, 100))
+    for kind in kinds:
+        cfg = dense_reference_cfg(kind, "cpu")
+        cpu = build_model(cfg, device="cpu")
+        calibrated_init(cpu, seed=0)
+        with torch.no_grad():
+            for name, t in cpu.state_dict().items():
+                if name == "head.cls_score.bias":
+                    t.fill_(-math.log(99.0))
+                if name.startswith("roi_heads.mask_head.predictor."):
+                    t.mul_(0.05)
+        witness = copy.deepcopy(cpu).double()
+        witness.compute_dtype = torch.float64
+        gpu_cfg = cfg.clone()
+        gpu_cfg.MODEL.DEVICE = CARD
+        gpu = build_model(gpu_cfg, device=CARD)
+        gpu.load_state_dict(cpu.state_dict())
+        res, flips = {}, {}
+        for key, model in (("cpu", cpu), ("gpu", gpu)):
+            decided = {}
+            with relu_decisions(model, record=decided):
+                res[key] = extra_heads_run(model, cfg, batch, True)
+            with relu_decisions(witness, follow=decided):
+                res["f64 " + key] = extra_heads_run(witness, cfg, batch, True)
+            flips[key] = decided.get("flips", 0)
+        (c_loss, c_grad, c_out, _, _), (g_loss, g_grad, g_out, g_step, g_eval) = res["cpu"], res["gpu"]
+        (w_loss, w_grad, w_out, _, _), (v_loss, v_grad, _, _, _) = res["f64 cpu"], res["f64 gpu"]
+        want_n = ((2, 2), (0, 2)) if kind == "panoptic" else ((0, 0), (0, 0))
+        if (g_step, g_eval) != want_n or set(c_loss) != set(g_loss) or set(c_grad) != set(g_grad):
+            raise AssertionError(f"{kind} reference: card launches {g_step}/{g_eval} or losses {sorted(g_loss)}")
+        lines = witness_lines(kind, (w_loss, c_loss, v_loss, g_loss), (w_grad, c_grad, v_grad, g_grad))
+        errs = []
+        if kind != "semantic":
+            w_dets, c_dets, g_dets = (o["instances"] if kind == "panoptic" else o for o in (w_out, c_out, g_out))
+            n, c_box, c_score = detection_errors(f"{kind} CPU vs float64", w_dets, c_dets)
+            _, g_box, g_score = detection_errors(f"{kind} card vs float64", w_dets, g_dets)
+            errs += [("boxes (px)", "box", g_box, c_box), ("scores", "score", g_score, c_score)]
+            if kind == "panoptic":
+                v = w_dets.valid
+                c_m, g_m = [float((d.masks[v].double() - w_dets.masks[v]).abs().max()) for d in (c_dets, g_dets)]
+                errs.append(("masks", "score", g_m, c_m))
+            lines.append(f"eval {n} valid detections")
+        if kind != "retinanet":
+            w_sem, c_sem, g_sem = (o["sem_seg"] if kind == "panoptic" else o for o in (w_out, c_out, g_out))
+            top = float(w_sem.abs().max())
+            c_s, g_s = [float((x.double() - w_sem).abs().max()) / top for x in (c_sem, g_sem)]
+            errs.append(("semantic logits (over the largest)", "score", g_s, c_s))
+        for what, kind_limit, g_err, c_err in errs:
+            if g_err > witness_limit(kind_limit, c_err):
+                raise AssertionError(f"{kind} reference: card {what} {g_err:.3e} from float64, the CPU's {c_err:.3e} "
+                                     f"(limit {witness_limit(kind_limit, c_err):.3e})")
+            lines.append(f"{what} card {g_err:.3e} CPU {c_err:.3e} (limit {witness_limit(kind_limit, c_err):.3e})")
+        print(f"{kind} reference (card and CPU float32 against CPU float64, narrow): " + "; ".join(lines) +
+              f"; ReLU decisions the witnesses took over from the card's run {flips['gpu']}, the CPU's "
+              f"{flips['cpu']}; K2/K3 a step {g_step[0]}/{g_step[1]}, K1/K2 an eval {g_eval[0]}/{g_eval[1]} {tag}")
+
+
+def cityscapes_check(tag):
+    """Phase 39b: a seeded Cityscapes tree of 1024x2048 frames
+    (``write_cityscapes_tree``: 2 cities, 3 frames each) through the port's
+    loaders (``register_cityscapes``) and both evaluators from the card's
+    tensors: ``CityscapesInstanceEvaluator`` on the oracle boxes built on
+    the card (``cityscapes_oracle``) must give box AP 100, and moved 3 px an
+    AP inside ``CITYSCAPES_SHIFTED_AP``; ``CityscapesSemSegEvaluator`` on the
+    argmax (on the card) of one-hot logits of the labelIds maps must give
+    mIoU 100."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.cityscapes import register_cityscapes
+    from lvc_tpu_torch.evaluation.cityscapes_evaluation import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_cityscapes_tree(tmp, per_city=3, hw=(1024, 2048))
+        inst, sem = register_cityscapes(tmp, "val")
+        tree_s = time.perf_counter() - t0
+        dicts = DatasetCatalog.get(inst)
+        aps = {}
+        for shift in (0.0, 3.0):
+            ev = CityscapesInstanceEvaluator(inst)
+            for image_id, hw, boxes, classes, dets in cityscapes_oracle(dicts, CARD, shift):
+                ev.process_image(image_id, hw, boxes, classes, to_cpu(dets))
+            aps[shift] = ev.evaluate()["bbox"]
+        ev = CityscapesSemSegEvaluator(sem)
+        for d in DatasetCatalog.get(sem):
+            gt = torch.from_numpy(np.asarray(Image.open(d["sem_seg_file_name"]), np.int64)).to(CARD)
+            logits = torch.nn.functional.one_hot(torch.where(gt == 255, 0, gt), 19).permute(2, 0, 1).float()
+            ev.process(logits.argmax(0).cpu().numpy(), gt.cpu().numpy())
+        miou = ev.evaluate()["sem_seg"]["mIoU"]
+    n_gt = sum(len(d["annotations"]) for d in dicts)
+    crowd = sum(a["iscrowd"] for d in dicts for a in d["annotations"])
+    if abs(aps[0.0]["AP"] - 100.0) > 1e-9 or not CITYSCAPES_SHIFTED_AP[0] < aps[3.0]["AP"] < CITYSCAPES_SHIFTED_AP[1] \
+            or abs(miou - 100.0) > 1e-9:
+        raise AssertionError(f"cityscapes: oracle AP {aps[0.0]}, moved 3 px {aps[3.0]} (want inside "
+                             f"{CITYSCAPES_SHIFTED_AP}), oracle mIoU {miou}")
+    print(f"cityscapes: {len(dicts)} frames at 1024x2048 written and registered in {tree_s:.1f} s, {n_gt} instances "
+          f"({crowd} crowd) from the polygons; oracle box AP {aps[0.0]['AP']:.4f} AP50 {aps[0.0]['AP50']:.4f}; moved "
+          f"3 px AP {aps[3.0]['AP']:.4f} (want inside {CITYSCAPES_SHIFTED_AP}); oracle labelIds mIoU {miou:.4f} {tag}")
+
+
+def dense_reference_phase(tag):
+    """Phase 39: ``dense_reference_check`` then ``cityscapes_check``."""
+    dense_reference_check(tag)
+    cityscapes_check(tag)
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -5640,7 +6289,7 @@ def context_phases(run):
 
 
 def phase_table():
-    """(number, function name, call on the run's state) for phases 2-35 in
+    """(number, function name, call on the run's state) for phases 2-39 in
     the order ``main`` runs them; phase 1 (the build) always runs."""
     def k(run):
         return run["kernels"]
@@ -5682,6 +6331,10 @@ def phase_table():
         (33, "mask_train_path", lambda r: mask_train_path(r["tag"], k(r))),
         (34, "keypoint_path", lambda r: keypoint_path(r["tag"], k(r))),
         (35, "task_heads_phase", lambda r: task_heads_phase(r["tag"])),
+        (36, "retinanet_path", lambda r: retinanet_path(r["tag"], coco_root(r))),
+        (37, "panoptic_path", lambda r: panoptic_path(r["tag"], k(r))),
+        (38, "semantic_path", lambda r: semantic_path(r["tag"])),
+        (39, "dense_reference_phase", lambda r: dense_reference_phase(r["tag"])),
     ]
 
 

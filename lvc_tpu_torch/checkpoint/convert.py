@@ -31,6 +31,15 @@ so ``deconv`` and ``score_lowres`` are flipped in both spatial axes on the
 way across (JAX's ``torch_to_flax`` maps every 4-D weight to
 ``<module>/conv/kernel`` unflipped, so its tree cannot take a reference mask
 or keypoint head).
+The dense meta-architectures: RetinaNet's towers are
+``head/{cls,bbox}_subnet_{i}`` in flax and ``head.{cls,bbox}_subnet.{2i}``
+here (detectron2's ``nn.Sequential`` of conv and ReLU), the semantic head's
+blocks ``sem_seg_head/{f}_conv{k}`` (and their ``GroupNorm_0``) in flax and
+``sem_seg_head.{f}.{2k}`` (and ``.norm``) here, the ``p6p7`` top block
+``backbone/top_block_p{6,7}`` in flax and ``backbone.top_block.p{6,7}``
+here. JAX's ``torch_to_flax`` sends ``head.cls_subnet.2.weight`` to
+``head/cls_subnet/2/conv/kernel``, which its tree does not hold, so JAX
+cannot load a detectron2 RetinaNet or semantic head.
 ``vit_from_flax`` and ``vit_to_flax`` do the same for the DINO verifier
 ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
@@ -50,6 +59,19 @@ _CASCADE_MODULES = ("box_head", "box_predictor")
 _TWINS = {"base_head": "base", "novel_head": "novel"}  # flax name -> ParallelStandardROIHeads key
 _BARE_HEADS = ("mask_head", "keypoint_head")  # heads of bare flax nn.Conv / nn.ConvTranspose modules
 _TRANSPOSED = ("deconv", "score_lowres")  # their ConvTranspose modules
+_DENSE_PARTS = (  # flax module name -> the port's dotted path, for RetinaNet, the semantic head and the p6p7 block
+    (re.compile(r"^(cls_subnet|bbox_subnet)_(\d+)$"), lambda m: f"{m[1]}.{2 * int(m[2])}"),
+    (re.compile(r"^(p\d+)_conv(\d+)$"), lambda m: f"{m[1]}.{2 * int(m[2])}"),
+    (re.compile(r"^top_block_(p\d+)$"), lambda m: f"top_block.{m[1]}"),
+)
+_TOWERS = ("cls_subnet", "bbox_subnet")
+
+
+def _part_to_torch(part: str) -> str:
+    part = _CASCADE.sub(r"\1.\2", part)
+    for pattern, repl in _DENSE_PARTS:
+        part = pattern.sub(repl, part)
+    return part
 
 
 def _in_bare_head(parts) -> bool:
@@ -87,7 +109,7 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(variables.get("params", {})).items():
-        parts = [_CASCADE.sub(r"\1.\2", p) for p in _twin_to_torch(path)]
+        parts = [_part_to_torch(p) for p in _twin_to_torch(path)]
         if parts[-1] == "kernel" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
         elif parts[-1] == "bias" and parts[-2] == "conv":
@@ -131,6 +153,12 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 parts[-1] = parts[-1] + "." + p
             elif parts and parts[-1] in _CASCADE_MODULES and p.isdigit():
                 parts[-1] = parts[-1] + "_" + p  # a cascade stage
+            elif parts and parts[-1] in _TOWERS and p.isdigit():
+                parts[-1] = f"{parts[-1]}_{int(p) // 2}"  # a RetinaNet tower conv
+            elif len(parts) == 2 and parts[0] == "sem_seg_head" and p.isdigit():
+                parts[-1] = f"{parts[-1]}_conv{int(p) // 2}"  # a semantic head block
+            elif parts and parts[-1] == "top_block":
+                parts[-1] = f"top_block_{p}"
             else:
                 parts.append(p)
         if parts[:2] == ["roi_heads", "roi_heads"] and parts[2] in _TWINS.values():

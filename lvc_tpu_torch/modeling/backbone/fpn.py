@@ -2,8 +2,12 @@
 
 Counterpart of ``lvc_tpu/modeling/backbone/fpn.py`` (FPN:25, fpn_strides:95):
 1x1 lateral and 3x3 output convs named by stage stride (``fpn_lateral2``,
-``fpn_output2``), nearest 2x top-down upsampling, and the p6
-``LastLevelMaxPool`` taken as ``p5[:, :, ::2, ::2]``.
+``fpn_output2``), nearest 2x top-down upsampling, and a top block
+(``top_block``, ``fpn.py:73-91``): ``"maxpool"``, the p6
+``LastLevelMaxPool`` taken as ``p5[:, :, ::2, ::2]``; ``"p6p7"``,
+RetinaNet's ``LastLevelP6P7`` (two stride-2 3x3 convs, p7 from ``relu(p6)``,
+the source ``res5`` or with ``p6p7_from_res5=False`` the top FPN output),
+under detectron2's names ``top_block.p6`` and ``top_block.p7``; ``""``, none.
 """
 from __future__ import annotations
 
@@ -17,6 +21,19 @@ from lvc_tpu_torch.modeling.backbone.resnet import ResNet, build_resnet, resnet_
 from lvc_tpu_torch.modeling.layers import Conv2d
 
 
+class LastLevelP6P7(nn.Module):
+    """p6 = conv(src), p7 = conv(relu(p6)): 3x3, stride 2, with bias."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.p6 = Conv2d(in_channels, out_channels, kernel_size=3, stride=2, padding=1)
+        self.p7 = Conv2d(out_channels, out_channels, kernel_size=3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor):
+        p6 = self.p6(x)
+        return p6, self.p7(F.relu(p6))
+
+
 class FPN(nn.Module):
     def __init__(
         self,
@@ -26,10 +43,14 @@ class FPN(nn.Module):
         out_channels: int = 256,
         norm: str = "",
         fuse_type: str = "sum",
+        top_block: str = "maxpool",
+        p6p7_from_res5: bool = True,
     ):
         super().__init__()
         if fuse_type not in ("sum", "avg"):
             raise ValueError(f"FPN fuse_type {fuse_type!r}")
+        if top_block not in ("maxpool", "p6p7", ""):
+            raise ValueError(f"FPN top_block {top_block!r}")
         self.bottom_up = bottom_up
         self.in_features = tuple(in_features)
         self.fuse_type = fuse_type
@@ -44,6 +65,11 @@ class FPN(nn.Module):
                 Conv2d(out_channels, out_channels, kernel_size=3, padding=1,
                        bias=(norm == ""), norm=norm),
             )
+        self.top_block_kind = top_block
+        self.p6p7_from_res5 = p6p7_from_res5
+        if top_block == "p6p7":
+            top = f"res{max(self.stage_ids)}"
+            self.top_block = LastLevelP6P7(in_channels[top] if p6p7_from_res5 else out_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         bottom_up = self.bottom_up(x)
@@ -60,16 +86,21 @@ class FPN(nn.Module):
             prev = cur
             results[f"p{sid}"] = getattr(self, f"fpn_output{sid}")(cur)
         top = max(self.stage_ids)
-        results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
+        if self.top_block_kind == "maxpool":
+            results[f"p{top + 1}"] = results[f"p{top}"][:, :, ::2, ::2]
+        elif self.top_block_kind == "p6p7":
+            src = bottom_up[f"res{top}"] if self.p6p7_from_res5 else results[f"p{top}"]
+            results[f"p{top + 1}"], results[f"p{top + 2}"] = self.top_block(src)
         return results
 
 
-def fpn_strides(in_features: Sequence[str]) -> Dict[str, int]:
-    """Stride of every FPN output, p6 (the max-pool top block) included."""
+def fpn_strides(in_features: Sequence[str], top_block: str = "maxpool") -> Dict[str, int]:
+    """Stride of every FPN output, the top block's (p6, or p6 and p7)
+    included."""
     stage_ids = [int(f[len("res"):]) for f in in_features]
-    strides = {f"p{s}": 2 ** s for s in stage_ids}
-    strides[f"p{max(stage_ids) + 1}"] = 2 ** (max(stage_ids) + 1)
-    return strides
+    top = max(stage_ids)
+    extra = {"maxpool": 1, "p6p7": 2, "": 0}[top_block]
+    return {f"p{s}": 2 ** s for s in stage_ids + list(range(top + 1, top + 1 + extra))}
 
 
 def build_resnet_fpn_backbone(cfg) -> FPN:

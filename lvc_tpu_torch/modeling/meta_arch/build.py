@@ -19,14 +19,23 @@ keypoint heads (``MODEL.MASK_ON``, ``MODEL.KEYPOINT_ON``,
 ``ROI_MASK_HEAD.{NUM_CONV, CONV_DIM, POOLER_RESOLUTION, CLS_AGNOSTIC_MASK}``,
 ``ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS, NUM_CONV, CONV_DIM, POOLER_RESOLUTION}``,
 ``lvc_tpu/modeling/meta_arch/build.py:156-165``) in the heads that JAX
-builds them in and with what they do there. The RPN and the ROI heads take
-the channel count of the backbone's output feature.
+builds them in and with what they do there; and the dense meta-architectures
+(``:257-352``): ``SemanticSegmentor`` and ``PanopticFPN`` with the
+``SemSegFPNHead`` of ``MODEL.SEM_SEG_HEAD`` (PanopticFPN's RPN and ROI heads
+as ``GeneralizedRCNN``'s), and ``RetinaNet`` on its own FPN:
+``FPN.IN_FEATURES`` or res3-res5 with the ``p6p7`` top block, strides
+``2**level``, and the anchor sizes of ``ANCHOR_GENERATOR.SIZES`` unless their
+count is not the number of levels, when each level gets the three octaves
+``stride * 4 * 2**(o / 3)`` (JAX's rule, ``:318-326``: Base-RCNN-FPN's five
+one-size entries give 3 anchors a location, the RetinaNet yaml's 9). The
+RPN and the ROI heads take the channel count of the backbone's output
+feature. The Swin backbone is not ported (``_unported``).
 """
 from __future__ import annotations
 
 import torch
 
-from lvc_tpu_torch.modeling.backbone.fpn import build_resnet_fpn_backbone, fpn_strides
+from lvc_tpu_torch.modeling.backbone.fpn import FPN, build_resnet_fpn_backbone, fpn_strides
 from lvc_tpu_torch.modeling.backbone.resnet import RESNET_STAGE_STRIDES, build_resnet, resnet_out_channels
 from lvc_tpu_torch.modeling.meta_arch.rcnn import (
     GeneralizedRCNN,
@@ -34,7 +43,10 @@ from lvc_tpu_torch.modeling.meta_arch.rcnn import (
     GeneralizedRCNNRegOnly,
     ProposalNetwork,
 )
+from lvc_tpu_torch.modeling.meta_arch.panoptic_fpn import PanopticFPN
+from lvc_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
 from lvc_tpu_torch.modeling.meta_arch.rpn_comp import RPNComp
+from lvc_tpu_torch.modeling.meta_arch.semantic_seg import SemanticSegmentor, SemSegFPNHead
 from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.cascade_rcnn import (
@@ -75,6 +87,9 @@ _META_ARCHS = {
     "GeneralizedRCNN_Context": GeneralizedRCNN_Context,
     "ProposalNetwork": ProposalNetwork,
     "RPNComp": RPNComp,
+    "RetinaNet": RetinaNet,
+    "SemanticSegmentor": SemanticSegmentor,
+    "PanopticFPN": PanopticFPN,
 }
 _ROI_HEADS = {  # the heads built from the common options alone
     "StandardROIHeads": StandardROIHeads,
@@ -210,6 +225,39 @@ def build_roi_heads(cfg, strides, in_channels: int):
     return _ROI_HEADS[name](**common)
 
 
+def build_sem_seg_head(cfg, strides, channels) -> SemSegFPNHead:
+    h = cfg.MODEL.SEM_SEG_HEAD
+    in_features = tuple(h.IN_FEATURES)
+    return SemSegFPNHead(
+        in_features, {f: strides[f] for f in in_features}, channels[in_features[0]], num_classes=h.NUM_CLASSES,
+        convs_dim=h.CONVS_DIM, common_stride=h.COMMON_STRIDE, norm=h.NORM, ignore_value=h.IGNORE_VALUE,
+        loss_weight=h.LOSS_WEIGHT,
+    )
+
+
+def build_retinanet(cfg, **kwargs) -> RetinaNet:
+    m = cfg.MODEL
+    r = m.RETINANET
+    backbone = FPN(build_resnet(cfg), resnet_out_channels(cfg), tuple(m.FPN.IN_FEATURES) or ("res3", "res4", "res5"),
+                   out_channels=m.FPN.OUT_CHANNELS, norm=m.FPN.NORM, fuse_type=m.FPN.FUSE_TYPE, top_block="p6p7")
+    in_features = tuple(r.IN_FEATURES)
+    strides = {f: 2 ** int(f[1:]) for f in in_features}
+    sizes = [list(s) for s in m.ANCHOR_GENERATOR.SIZES]
+    if len(sizes) != len(in_features):
+        sizes = [[strides[f] * 4 * 2 ** (o / 3.0) for o in range(3)] for f in in_features]
+    return RetinaNet(
+        backbone, in_features, strides, m.FPN.OUT_CHANNELS, num_classes=r.NUM_CLASSES,
+        anchor_sizes=tuple(tuple(s) for s in sizes),
+        anchor_aspect_ratios=tuple(tuple(a) for a in m.ANCHOR_GENERATOR.ASPECT_RATIOS),
+        anchor_offset=m.ANCHOR_GENERATOR.OFFSET, num_convs=r.NUM_CONVS, prior_prob=r.PRIOR_PROB,
+        iou_thresholds=tuple(r.IOU_THRESHOLDS), iou_labels=tuple(r.IOU_LABELS),
+        focal_loss_alpha=r.FOCAL_LOSS_ALPHA, focal_loss_gamma=r.FOCAL_LOSS_GAMMA,
+        smooth_l1_beta=r.SMOOTH_L1_LOSS_BETA, bbox_reg_weights=tuple(r.BBOX_REG_WEIGHTS),
+        score_thresh_test=r.SCORE_THRESH_TEST, topk_candidates_test=r.TOPK_CANDIDATES_TEST,
+        nms_thresh_test=r.NMS_THRESH_TEST, detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE, **kwargs,
+    )
+
+
 def build_model(cfg, device=None) -> GeneralizedRCNN:
     """cfg -> the meta-architecture on ``device`` (default ``cuda``), with
     parameters in float32 and activations in ``MODEL.DTYPE``, in eval mode
@@ -218,14 +266,24 @@ def build_model(cfg, device=None) -> GeneralizedRCNN:
     device = resolve_device(device)
     m = cfg.MODEL
     if m.META_ARCHITECTURE not in _META_ARCHS:
-        _unported(f"META_ARCHITECTURE {m.META_ARCHITECTURE!r}", "queue 1, item 10")
+        raise ValueError(f"unknown META_ARCHITECTURE {m.META_ARCHITECTURE!r}")
     if m.DTYPE not in _DTYPES:
         raise ValueError(f"MODEL.DTYPE {m.DTYPE!r}")
 
-    backbone, strides, channels = build_backbone(cfg)
     kwargs = dict(pixel_mean=tuple(m.PIXEL_MEAN), pixel_std=tuple(m.PIXEL_STD), compute_dtype=_DTYPES[m.DTYPE])
+    if m.META_ARCHITECTURE == "RetinaNet":
+        return build_retinanet(cfg, **kwargs).to(device=device, memory_format=torch.channels_last).eval()
+    backbone, strides, channels = build_backbone(cfg)
     rpn_channels = channels[m.RPN.IN_FEATURES[0]]
-    if m.META_ARCHITECTURE == "ProposalNetwork":
+    if m.META_ARCHITECTURE == "SemanticSegmentor":
+        model = SemanticSegmentor(backbone, build_sem_seg_head(cfg, strides, channels), **kwargs)
+    elif m.META_ARCHITECTURE == "PanopticFPN":
+        model = PanopticFPN(
+            backbone, build_rpn(cfg, strides, rpn_channels),
+            build_roi_heads(cfg, strides, channels[m.ROI_HEADS.IN_FEATURES[0]]),
+            build_sem_seg_head(cfg, strides, channels), m.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT, **kwargs,
+        )
+    elif m.META_ARCHITECTURE == "ProposalNetwork":
         model = ProposalNetwork(backbone, build_rpn(cfg, strides, rpn_channels), **kwargs)
     elif m.META_ARCHITECTURE == "RPNComp":
         model = RPNComp(backbone, pooler=m.RPNCOMP.POOLER or "identity", **kwargs)
