@@ -255,8 +255,31 @@ Phases, each of which raises (non-zero exit) on failure:
    through the port's loaders and both Cityscapes evaluators from the
    card's tensors: oracle boxes AP 100, moved 3 px an AP range, oracle maps
    mIoU 100.
-Phases 1-11 and 16-39 run with the fused path off, whatever the environment
-says (spawned ranks inherit it).
+40. Swin-T FPN Faster R-CNN (Base-RCNN-FPN.yaml with
+   build_swin_transformer_fpn_backbone, SWIN_SIZE tiny): bf16 serving at
+   B=8 with pallas_fast (K1) and auto (K2), each pool on the forward's own
+   tensors against its plain version; train_net AMP at IMS_PER_BATCH 16 on
+   phase 17's tree, 10 iterations, ms/iter, data_time and peak memory, one
+   more step's K2/K3 against their plain versions;
+41. ResNet-D in LVC's retrain: train_net_qe_ig on the ft_all dropout config
+   with MODEL.RESNETS.D, the CLIP optimizer, AMP, 10 iterations on a chain
+   tree with a pseudo-annotation file; one more step's K2/K3 against their
+   plain versions; on the card the CLIP update is CLIP_LR / BASE_LR times
+   the plain optimizer's; one bf16 serving batch with
+   LVC_TPU_FUSED_RESIDUAL=1, every fused GEMM call on its own tensors
+   against the plain version;
+42. the deformable R-50 (detectron2's mask_rcnn_R_50_FPN_1x_dconv_c3-c5):
+   bf16 serving at B=8 and AMP training at B=16 for 10 steps, its peak
+   memory, its pools against their plain versions;
+43. RROIHeads at full width on a damped R-50-FPN's bf16 p2-p5 of B=8
+   832x1344, 2,000 rotated proposals an image: 10 AMP training steps,
+   inference with the rotated NMS over 2,048 candidates an image, and
+   RotatedCOCOEvaluator on oracle boxes (AP 100) and on them turned 15
+   degrees (the AP the boxes' geometry predicts); no TPU kernel;
+44. the narrow Swin-FPN, ResNet-D (CLIP optimizer), DCN v1 and v2 detectors
+   and narrow RROIHeads on the card and the CPU against float64 witnesses.
+Phases 1-11 and 16-44 run with the fused path off, whatever the environment
+says (spawned ranks inherit it), but for phase 41's fused serving batch.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
 both convolutions and matmuls (set below).
@@ -280,11 +303,13 @@ KERNEL_REPLACES = {
     "roi_align_paired": "lvc_tpu/ops/roi_align.py:1133; lvc_tpu/ops/roi_align.py:2813; "
                         "lvc_tpu/ops/roi_align.py:717",
     "roi_align_paired_bwd": "lvc_tpu/ops/roi_align.py:3174; lvc_tpu/ops/roi_align.py:2340",
+    "matmul_affine_residual": "lvc_tpu/ops/fused_matmul.py:76",
 }
 KERNEL_SOURCE = {
     "roi_align_band": "lvc_tpu_torch/ops/csrc/roi_align_fwd.cu",
     "roi_align_paired": "lvc_tpu_torch/ops/csrc/roi_align_fwd.cu",
     "roi_align_paired_bwd": "lvc_tpu_torch/ops/csrc/roi_align_bwd.cu",
+    "matmul_affine_residual": "lvc_tpu_torch/ops/csrc/fused_matmul.cu",
 }
 HAND_KERNELS = ("roi_align_rows_kernel", "box_ranges_kernel", "roi_align_paired_bwd_kernel",
                 "flash_attention_fwd_kernel", "matmul_affine_residual_kernel")
@@ -532,8 +557,8 @@ def calibrated_init(model, seed: int):
         for name, t in model.state_dict().items():
             if name.endswith(("bias", "running_mean")):
                 t.zero_()
-            elif name.endswith(("running_var", ".scale")) or ".norm." in name:
-                t.fill_(1.0)  # the cosine head's learnable scale starts at 1, as he_init starts it
+            elif name.endswith(("running_var", ".scale")) or ".norm." in name or t.dim() == 1:
+                t.fill_(1.0)  # the cosine head's learnable scale starts at 1, as he_init starts it; LayerNorm weights
             else:
                 std = math.sqrt(2.0 / (t.shape[0] * t[0, 0].numel())) if t.dim() == 4 else math.sqrt(1.0 / t.shape[1])
                 f = next((v for k, v in scale.items() if name.startswith(k)), 1.0)
@@ -3996,14 +4021,15 @@ def witness_limit(kind, cpu_err):
     return max(WITNESS_FLOOR[kind], WITNESS_FACTOR[kind] * cpu_err)
 
 
-def extra_heads_run(model, cfg, batch, train, recorder=None):
+def extra_heads_run(model, cfg, batch, train, recorder=None, optimizer=None):
     """One run of a phase 25 model: (losses, trainable gradients as float64,
     eval detections on the CPU, (K2, K3) launches of the step, K1 and K2
     launches of the eval forward). ``train``: a training step (generator
     seed 0) first; the eval forward runs from the weights before it.
     ``recorder`` records the step, or the eval forward where there is no
-    step. A model in float64 runs under ``float64_witness`` on the batch's
-    image in float64."""
+    step. ``optimizer``: the function that builds the step's optimizer (default
+    ``build_optimizer``). A model in float64 runs under ``float64_witness``
+    on the batch's image in float64."""
     import contextlib
 
     import torch
@@ -4021,7 +4047,7 @@ def extra_heads_run(model, cfg, batch, train, recorder=None):
     with mode:
         if train:
             model.train()
-            opt = build_optimizer(cfg, model)
+            opt = (optimizer or build_optimizer)(cfg, model)
             step = make_train_step(model, opt, build_lr_schedule(cfg, opt))
             ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
             with recorder or contextlib.nullcontext():
@@ -5116,7 +5142,8 @@ MASK_AP_FLOOR = 95.0  # phase 35's oracle masks (the gt cropped to 28 x 28 and p
 SHIFTED_AP = (50.0, 85.0)  # the same masks moved 3 px right and down: segm AP inside this range
 MASK_ROW_IOU = 0.99  # phase 35: a card detection's pasted mask against the CPU's, RLE IoU at least this
 CARD = "cuda"  # the device of phases 32-39's card runs
-TASK_NAMES = {"mask": "Mask R-CNN R-50-FPN", "keypoint": "Keypoint R-CNN R-50-FPN", "panoptic": "Panoptic FPN R-50"}
+TASK_NAMES = {"mask": "Mask R-CNN R-50-FPN", "keypoint": "Keypoint R-CNN R-50-FPN", "panoptic": "Panoptic FPN R-50",
+              "dcn": "Mask R-CNN R-50-FPN DCN c3-c5"}
 
 
 def task_cfg(kind: str, impl: str = "pallas_fast"):
@@ -5128,14 +5155,18 @@ def task_cfg(kind: str, impl: str = "pallas_fast"):
     on Base-Keypoint-RCNN-FPN.yaml (KEYPOINT_ON, R-50, 1 class, the box head's
     smooth-L1 beta 0.5, 1500 proposals an image in training; the keypoint
     head 8 convs 512 wide at P=14, 17 keypoints on 56 x 56 heatmaps);
-    ``retinanet``, ``panoptic`` and ``semantic`` are ``dense_opts``'s."""
+    ``retinanet``, ``panoptic`` and ``semantic`` are ``dense_opts``'s;
+    ``dcn`` is Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml: ``mask`` with
+    deformable 3x3s in res3-res5 (DEFORM_ON_PER_STAGE F,T,T,T, DCN v1)."""
     from lvc_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(BASE_YAML)
     opts = ["MODEL.RESNETS.DEPTH", 50, "MODEL.ROI_HEADS.POOLER_IMPL", impl]
-    if kind == "mask":
+    if kind in ("mask", "dcn"):
         opts += ["MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80]
+        if kind == "dcn":
+            opts += backbone_opts("dcn")
     elif kind == "keypoint":
         opts += ["MODEL.KEYPOINT_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 1, "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", 0.5,
                  "MODEL.RPN.POST_NMS_TOPK_TRAIN", 1500]
@@ -5285,7 +5316,7 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         check_detections(dets, B)
         if not dets.valid.any(dim=1).all():
             raise AssertionError(f"{kind} serving {impl}: an image kept no detection")
-        if kind in ("mask", "panoptic"):
+        if kind in ("mask", "panoptic", "dcn"):
             m = dets.masks
             if tuple(m.shape) != (B, 100, 28, 28) or m.dtype != torch.float32 or not torch.isfinite(m).all() \
                     or float(m.min()) < 0 or float(m.max()) > 1 or dets.keypoints is not None:
@@ -5386,7 +5417,7 @@ def task_train(kind: str, kernels, tag, B: int, amps=(False, True)):
                             sem_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, n_gt=(4, 16), size=(32, 500))
     else:
         batch = train_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes, n_gt=(4, 16), size=(32, 500))
-    if kind in ("mask", "panoptic"):
+    if kind in ("mask", "panoptic", "dcn"):
         batch.setdefault("gt_masks", box_masks(batch["gt_boxes"], batch["gt_valid"], 832, 1344))
         task_loss = "loss_mask"
     else:
@@ -5414,7 +5445,7 @@ def task_train(kind: str, kernels, tag, B: int, amps=(False, True)):
             raise AssertionError(f"{kind} training: K2/K3 launches {n} over {TASK_ITERS} steps")
         if task_loss not in first or not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
             raise AssertionError(f"{kind} training: {task_loss} missing or a loss not finite: {first}, {last}")
-        if kind in ("mask", "panoptic") and abs(first["loss_mask"] - math.log(2)) > 0.05:
+        if kind in ("mask", "panoptic", "dcn") and abs(first["loss_mask"] - math.log(2)) > 0.05:
             raise AssertionError(f"{kind} training: first loss_mask {first['loss_mask']}, want ln 2 within 0.05")
         sem = ""
         if kind == "panoptic":
@@ -6232,6 +6263,805 @@ def dense_reference_phase(tag):
     cityscapes_check(tag)
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-44: the alternative backbones and the rotated family
+# ---------------------------------------------------------------------------
+BACKBONE_NAMES = {"swin": "Swin-T FPN Faster R-CNN", "resnet_d": "ResNet-D R-50-FPN Faster R-CNN",
+                  "dcn": "R-50-FPN DCN v1 c3-c5", "dcn_v2": "R-50-FPN DCN v2 c3-c5"}
+ROTATED_B, ROTATED_G, ROTATED_PROPOSALS = 8, 16, 2000  # phase 43: images, gt slots and proposals an image
+ROTATED_TURN = 15.0  # phase 43: the oracle boxes turned by this many degrees for the second evaluation
+ROTATED_AP = (20.0, 60.0)  # the AP predicted for them (PERF.md, before the first card run)
+
+
+def backbone_opts(kind: str):
+    """The options of phases 40-42's and 44's backbones, for either
+    package's config: ``swin`` is build_swin_transformer_fpn_backbone with
+    Swin-T (embed 96, depths 2-2-6-2, heads 3-6-12-24, window 7);
+    ``resnet_d`` the ResNet-D R-50 (MODEL.RESNETS.D); ``dcn`` and ``dcn_v2``
+    R-50 with deformable 3x3s in res3-res5 as detectron2's
+    mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml (DCN v1) and
+    mask_rcnn_R_50_FPN_3x_dconv_c3-c5 style DCN v2 (DEFORM_MODULATED)."""
+    if kind == "swin":
+        return ["MODEL.BACKBONE.NAME", "build_swin_transformer_fpn_backbone", "MODEL.SWIN.SWIN_SIZE", "tiny"]
+    if kind == "resnet_d":
+        return ["MODEL.RESNETS.DEPTH", 50, "MODEL.RESNETS.D", True]
+    if kind in ("dcn", "dcn_v2"):
+        return ["MODEL.RESNETS.DEPTH", 50, "MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True],
+                "MODEL.RESNETS.DEFORM_MODULATED", kind == "dcn_v2"]
+    raise ValueError(f"no backbone {kind!r}")
+
+
+def backbone_cfg(kind: str, impl: str = "pallas_fast"):
+    """Base-RCNN-FPN.yaml (R-50-FPN Faster R-CNN, 80 classes) with
+    ``backbone_opts(kind)``, built in code."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(BASE_YAML)
+    cfg.merge_from_list(backbone_opts(kind) + ["MODEL.ROI_HEADS.POOLER_IMPL", impl])
+    return cfg
+
+
+def backbone_init(kind: str, model, seed: int = 0):
+    """``damped_init``; for Swin every bias of the bottom-up then drawn from
+    N(0, 0.02), as trained weights have them. With zero biases the canvas
+    padding (0 after normalising, as in JAX) makes every padded token
+    exactly 0 through every block, each LayerNorm sits at variance 0, where
+    its backward scales by rsqrt(eps) = 316, and training blows up
+    (``tests/test_torch_swin.py::test_zero_biases_blow_up_on_the_padding``;
+    JAX's math is the same)."""
+    import torch
+
+    from lvc_tpu_torch.utils.init import damped_init
+
+    damped_init(model, seed=seed)
+    if kind == "swin":
+        gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed + 1)
+        with torch.no_grad():
+            for name, t in model.state_dict().items():
+                if name.startswith("backbone.bottom_up.") and name.endswith(".bias"):
+                    t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * 0.02)
+    return model
+
+
+def backbone_serving(kind: str, kernels, tag, B: int = 8):
+    """bf16 serving of ``backbone_cfg(kind)`` at B=``B`` on 832x1344 from
+    seeded weights (``backbone_init``), score threshold 0.001, with POOLER_IMPL
+    pallas_fast (K1) and auto (K2): a warm-up and 3 timed forwards each with
+    every count set to 0 just before and read just after (one pool a
+    forward), the peak memory, and one more forward recorded, its pool held
+    to its plain version and timed (``check_recorded_pool``)."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import roi_align as ra
+
+    batch = serving_batch(B)
+    B = len(batch["image"])
+    parts = []
+    for impl, name in (("pallas_fast", "roi_align_band"), ("auto", "roi_align_paired")):
+        cfg = backbone_cfg(kind, impl)
+        cfg.MODEL.DTYPE = "bfloat16"
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+        model = backbone_init(kind, build_model(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        model(batch)
+        torch.cuda.synchronize()
+        ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dets = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        n = ra.roi_align_band.launches, ra.roi_align_paired.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if n != ((3, 0) if impl == "pallas_fast" else (0, 3)):
+            raise AssertionError(f"{kind} serving {impl}: K1/K2 launches {n} over 3 forwards")
+        check_detections(dets, B)
+        if not dets.valid.any(dim=1).all():
+            raise AssertionError(f"{kind} serving {impl}: an image kept no detection")
+        rec = PoolRecorder()
+        with rec:
+            model(batch)
+        times = check_recorded_pool(f"{kind} serving {impl} (B={B}, bf16)", rec, tag, timed=True)
+        key = "K1" if impl == "pallas_fast" else "K2"
+        add_launches(kernels, name, n[0] + n[1], times[key], rec.max_err[key])
+        parts.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), K1/K2 {n[0]}/{n[1]}, peak memory "
+                     f"{peak:.2f} GiB, valid detections {dets.valid.sum(dim=1).tolist()}")
+        del model, rec
+        torch.cuda.empty_cache()
+    print(f"{kind} serving: {BACKBONE_NAMES[kind]} bf16 B={B} at 832x1344 (TF32 convolutions): " + "; ".join(parts)
+          + f" {tag}")
+
+
+def recorded_train_pool(what, trainer, kernels, tag):
+    """One more step of a CLI's trainer recorded (``PoolRecorder``): its K2
+    and K3 calls held to their plain versions and timed, their times added
+    to the kernels line."""
+    with PoolRecorder() as rec:
+        trainer.run_step()
+    if len(rec.fwd) != 1 or len(rec.bwd) != 1:
+        raise AssertionError(f"{what}: recorded {len(rec.fwd)}/{len(rec.bwd)} K2/K3 calls in one step")
+    times = check_recorded_pool(what, rec, tag, timed=True)
+    for key, name in (("K2", "roi_align_paired"), ("K3", "roi_align_paired_bwd")):
+        add_launches(kernels, name, 0, times[key], rec.max_err[key])
+
+
+def swin_train_net(tag, kernels):
+    """Phase 40b: the Swin-T Faster R-CNN through ``train_net.main`` in this
+    process (``backbone_cfg("swin")`` on Base-RCNN-FPN.yaml: IMS_PER_BATCH 16
+    at 832x1344, AMP, POOLER_IMPL auto) from a ``backbone_init`` ``.pth``,
+    ``TASK_ITERS`` iterations on phase 17's seeded tree
+    (``coco_trainval_base``, 60 classes), then its evaluation of
+    ``coco_test_base`` at score threshold 0: ms/iter, data_time and peak
+    memory as phase 17 reports them, K2/K3 1/1 every iteration; then one
+    more step recorded (``recorded_train_pool``). The CLI's K2/K3 launches
+    (training and evaluation) go to the kernels line."""
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.tools import train_net
+
+    cfg = backbone_cfg("swin", "auto")
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 60
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = DetectionCheckpointer(backbone_init("swin", build_model(cfg)), os.path.join(tmp, "w")).save(
+            "init", iteration=0)
+        opts = [str(x) for x in backbone_opts("swin")] + [
+            "MODEL.WEIGHTS", weights, "SOLVER.IMS_PER_BATCH", "16", "SOLVER.MAX_ITER", str(TASK_ITERS),
+            "SOLVER.AMP.ENABLED", "True", "DATASETS.TRAIN", "('coco_trainval_base',)", "MODEL.ROI_HEADS.NUM_CLASSES",
+            "60", "DATASETS.TEST", "('coco_test_base',)", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "SEED", "0",
+            "OUTPUT_DIR", os.path.join(tmp, "out")]
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, n, trainer = run_cli(train_net, ["--config-file", BASE_YAML] + opts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hist = trainer.storage.histories()
+        losses = [v for k, h in hist.items() if k.startswith("loss") for v in h.values()]
+        ap = res["bbox"]["AP"]
+        if trainer.cfg.MODEL.BACKBONE.NAME != "build_swin_transformer_fpn_backbone" or \
+                len(trainer.step_s) != TASK_ITERS or set(trainer.step_launches) != {(1, 1)} or \
+                not all(math.isfinite(v) for v in losses) or not math.isfinite(ap):
+            raise AssertionError(f"swin train_net: {len(trainer.step_s)} steps, K2/K3 per iteration "
+                                 f"{sorted(set(trainer.step_launches))}, AP {ap}")
+        train_net_report(f"swin train_net: {BACKBONE_NAMES['swin']} 60 classes AMP, IMS_PER_BATCH 16 at 832x1344 "
+                         f"(TF32 convolutions)", trainer, secs, peak, 16, tag)
+        print(f"swin train_net: evaluation of coco_test_base at score threshold 0: bbox AP {ap:.4f}, "
+              f"{trainer.test_s * 1e3 / TRAIN_NET_TREE[1]:.1f} ms/img {tag}")
+        recorded_train_pool("swin train_net step (16 x 512 slots, AMP)", trainer, kernels, tag)
+        kernels["roi_align_paired"]["launches"] += n[1]
+        kernels["roi_align_paired_bwd"]["launches"] += n[2]
+
+
+def swin_path(tag, kernels):
+    """Phase 40: the Swin-T Faster R-CNN's bf16 serving
+    (``backbone_serving``) and its training CLI (``swin_train_net``) on
+    phase 17's tree (``coco_root``)."""
+    with cli_tf32():
+        backbone_serving("swin", kernels, tag)
+        swin_train_net(tag, kernels)
+
+
+def write_pseudo_annotations(src_json: str, out_json: str, seed: int = 0) -> int:
+    """A pseudo-annotation file as the chain's retrain reads one
+    (``DATASETS.DT_PATH``): ``src_json``'s images and boxes, each box
+    jittered by up to 10% of its size, with a score, and one in four marked
+    ``ignore_qe`` (an ignore region for the training loader). Returns the
+    number of ignore regions."""
+    import numpy as np
+
+    with open(src_json) as f:
+        data = json.load(f)
+    rng = np.random.RandomState(seed)
+    n_ignore = 0
+    for a in data["annotations"]:
+        x, y, w, h = a["bbox"]
+        dx, dy, dw, dh = rng.uniform(-0.1, 0.1, 4)
+        a["bbox"] = [max(x + dx * w, 0.0), max(y + dy * h, 0.0), w * (1 + dw), h * (1 + dh)]
+        a["area"] = a["bbox"][2] * a["bbox"][3]
+        a["score"] = float(rng.uniform(0.5, 1.0))
+        a["ignore_qe"] = int(rng.rand() < 0.25)
+        n_ignore += a["ignore_qe"]
+    with open(out_json, "w") as f:
+        json.dump(data, f)
+    return n_ignore
+
+
+def clip_update_check(trainer, tag):
+    """On the card, from the gradients of the retrain's last step: the
+    update one SGD step gives a bottom-up parameter under the CLIP optimizer
+    is CLIP_LR / BASE_LR times the plain optimizer's, and a head
+    parameter's equal, for the run's CLIP_LR and for a tenth of BASE_LR. The
+    steps run on a float64 copy of the model (its weights and gradients), so
+    no float32 rounding of the weights hides the ratio; held to rel 1e-6
+    (the clipped updates are ~1e-9 of weights ~1e-2, so float64's rounding
+    of the weights is ~1e-9 of them)."""
+    import copy
+
+    import torch
+
+    from lvc_tpu_torch.solver.build import build_clip_optimizer, build_optimizer
+
+    model = trainer.model.module if hasattr(trainer.model, "module") else trainer.model
+    twin = copy.deepcopy(model).double()
+    grads = {n: p.grad.double() for n, p in model.named_parameters() if p.grad is not None}
+    start = {n: p.detach().clone() for n, p in twin.named_parameters()}
+    names = ("backbone.bottom_up.res3.0.conv2.weight", "roi_heads.box_head.fc1.weight")
+    if any(n not in grads for n in names):
+        raise AssertionError(f"clip update: no gradient for {[n for n in names if n not in grads]}")
+    parts = []
+    for clip_lr in (trainer.cfg.SOLVER.CLIP_LR, trainer.cfg.SOLVER.BASE_LR / 10):
+        cfg = trainer.cfg.clone()
+        cfg.defrost()
+        cfg.SOLVER.CLIP_LR = clip_lr
+        moved = {}
+        for build in (build_clip_optimizer, build_optimizer):
+            with torch.no_grad():
+                for n, p in twin.named_parameters():
+                    p.copy_(start[n])
+                    p.grad = grads[n].clone() if n in grads else None
+            build(cfg, twin).step()
+            moved[build] = {n: dict(twin.named_parameters())[n].detach() - start[n] for n in names}
+        ratio = clip_lr / cfg.SOLVER.BASE_LR
+        errs = []
+        for n, want_ratio in zip(names, (ratio, 1.0)):
+            a, b = moved[build_clip_optimizer][n], moved[build_optimizer][n]
+            err = float((a - want_ratio * b).norm() / (want_ratio * b).norm().clamp(min=1e-300))
+            if not err <= 1e-6 or float(b.norm()) == 0:
+                raise AssertionError(f"clip update {n}: CLIP step against {want_ratio} x the plain one, rel {err}")
+            errs.append(f"{n} ratio {float(a.norm() / b.norm()):.6f} (want {want_ratio:g}, rel {err:.1e})")
+        parts.append(f"CLIP_LR {clip_lr:g} / BASE_LR {cfg.SOLVER.BASE_LR:g}: " + ", ".join(errs))
+    print("resnet_d clip update on the card (one SGD step from the retrain's last gradients, float64): "
+          + "; ".join(parts) + f" {tag}")
+
+
+def retrain_cfg():
+    """Phase 41's model: faster_rcnn_R_50_FPN_ft_all_30shot_aug_ftmore_dropout.yaml
+    with MODEL.RESNETS.D."""
+    from lvc_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, FT_ALL_YAML))
+    cfg.MODEL.RESNETS.D = True
+    return cfg
+
+
+class FusedRecorder:
+    """While in use, stands in for the fused GEMM's wrapper in
+    ``ops.fused_matmul``: keeps each call's arguments and passes the call
+    on."""
+
+    def __init__(self):
+        from lvc_tpu_torch.ops import fused_matmul
+
+        self.module, self.kernel, self.calls = fused_matmul, fused_matmul.matmul_affine_residual, []
+
+    def __call__(self, x, w, scale, shift, residual, relu=True):
+        self.calls.append((x, w, scale, shift, residual, relu))
+        return self.kernel(x, w, scale, shift, residual, relu)
+
+    def __enter__(self):
+        self.module.matmul_affine_residual = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.matmul_affine_residual = self.kernel
+
+
+def resnet_d_fused_serving(tag, kernels, model_path: str, B: int = 8):
+    """One bf16 serving batch of the retrained ResNet-D model with
+    LVC_TPU_FUSED_RESIDUAL=1: the fused GEMM runs every bottleneck conv3
+    and the FPN laterals (``fused_calls``); each call's own tensors held to
+    the plain version (``fused_error``), the largest timed against its
+    bound. A second forward counts the launches alone."""
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.layers import fused_residual
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual as kernel
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual_plain as plain
+
+    cfg = retrain_cfg()
+    cfg.MODEL.DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    model = build_model(cfg)
+    DetectionCheckpointer(model).load(model_path)
+    batch = serving_batch(B)
+    B = len(batch["image"])
+    per_forward = fused_calls(model)[0]
+    with fused_residual(True), torch.no_grad():
+        with FusedRecorder() as rec:
+            model(batch)
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        dets = model(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = kernel.launches
+    check_detections(dets, B)
+    if len(rec.calls) != per_forward or n != per_forward:
+        raise AssertionError(f"resnet_d fused serving: {len(rec.calls)} recorded calls, {n} launches, want "
+                             f"{per_forward}")
+    kernel.launches = 0
+    max_err = 0.0
+    for args in rec.calls:
+        got = kernel(*args[:5], relu=args[5])
+        want = plain(*args[:5], relu=args[5])
+        ok, err, _, _, _ = fused_error(got, want, *args[:5])
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"resnet_d fused serving: a call {tuple(args[0].shape)} x {tuple(args[1].shape)} "
+                                 f"differs from its plain version, max abs err {err}")
+        max_err = max(max_err, err)
+    if kernel.launches != len(rec.calls):
+        raise AssertionError(f"resnet_d fused serving: {kernel.launches} launches for {len(rec.calls)} checks")
+    big = max(rec.calls, key=lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])
+    M, K, N = big[0].shape[0], big[0].shape[1], big[1].shape[1]
+    k_ms = cuda_ms(lambda: kernel(*big[:5], relu=big[5]), 20)
+    p_ms = cuda_ms(lambda: plain(*big[:5], relu=big[5]), 3)
+    bound_ms, bound_by, _, _ = fused_bound(M, K, N)
+    add_launches(kernels, "matmul_affine_residual", n, (k_ms, p_ms, bound_ms, bound_by), max_err)
+    print(f"resnet_d fused serving: ResNet-D R-50-FPN bf16 B={B} at 832x1344 with LVC_TPU_FUSED_RESIDUAL=1, "
+          f"{ms:.2f} ms/batch, {n} fused launches a forward (want {per_forward}: every conv3 and 3 laterals); "
+          f"all {len(rec.calls)} calls on their own tensors within 1 bf16 ulp + 1e-5 * S of the plain version, "
+          f"max abs err {max_err:.3e}; the largest (M, K, N) ({M}, {K}, {N}): {k_ms:.4f} ms (plain "
+          f"{p_ms:.3f} ms), bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / k_ms:.3f} {tag}")
+    del model, rec
+    torch.cuda.empty_cache()
+
+
+def resnet_d_path(tag, kernels):
+    """Phase 41, ResNet-D in LVC's retrain: ``train_net_qe_ig.main`` in this
+    process on faster_rcnn_R_50_FPN_ft_all_30shot_aug_ftmore_dropout.yaml as
+    coco_full_run's step 18 runs it (80 classes, the cosine head, the
+    backbone trained, IMS_PER_BATCH 16 at 832x1344) with MODEL.RESNETS.D,
+    AMP, the CLIP optimizer at the defaults' SOLVER.CLIP_LR, gradient
+    clipping at norm 1 and score threshold 0 as phase 22's chain, from a
+    damped-init ``.pth``, ``TASK_ITERS`` iterations on a ``write_chain_tree``
+    tree with a pseudo-annotation file (``write_pseudo_annotations``) in
+    DATASETS.DT_PATH: ms/iter, data_time, peak memory, K2/K3 1/1 every
+    iteration, the optimizer's bottom-up groups at CLIP_LR; one more step
+    recorded (``recorded_train_pool``), the CLIP update on the card
+    (``clip_update_check``), then one bf16 serving batch of the model with
+    the fused path on (``resnet_d_fused_serving``)."""
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.tools import coco_full_run, train_net_qe_ig
+    from lvc_tpu_torch.utils.init import damped_init
+
+    with cli_tf32(), tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        write_chain_tree(root, *CHAIN_TREE, sizes=((480, 640), (640, 480)), seed=0, max_boxes=8)
+        pseudo = os.path.join(tmp, "pseudo_wbase.json")
+        n_ignore = write_pseudo_annotations(os.path.join(root, "cocosplit", "datasplit", "trainvalno5k.json"), pseudo)
+        weights = DetectionCheckpointer(damped_init(build_model(retrain_cfg()), seed=0), os.path.join(tmp, "w")).save(
+            "init", iteration=0)
+        opts = ["MODEL.RESNETS.D", "True", "MODEL.WEIGHTS", weights, "SOLVER.MAX_ITER", str(TASK_ITERS),
+                "SOLVER.AMP.ENABLED", "True", "DATASETS.DT_PATH", f"('{pseudo}',)", "QUERY_EXPAND.ENABLED", "True",
+                "MODEL.BACKBONE.FREEZE", "False", "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+                "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "SEED", "0", "OUTPUT_DIR", os.path.join(tmp, "out")]
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            coco_full_run.use_datasets(root)
+            torch.cuda.reset_peak_memory_stats()
+            res, secs, n, trainer = run_cli(train_net_qe_ig, ["--config-file", os.path.join(REPO, FT_ALL_YAML)] + opts,
+                                            trainer="TrainerQEIgnore")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            os.chdir(cwd)
+        c = trainer.cfg
+        bottom_up = {id(p) for name, p in trainer.model.named_parameters() if ".bottom_up." in name}
+        lrs = {(any(id(p) in bottom_up for p in g["params"]), g["initial_lr"]) for g in trainer.optimizer.param_groups}
+        want_lrs = {(True, c.SOLVER.CLIP_LR), (False, c.SOLVER.BASE_LR)}
+        if not c.MODEL.RESNETS.D or len(trainer.step_s) != TASK_ITERS or set(trainer.step_launches) != {(1, 1)} \
+                or lrs != want_lrs:
+            raise AssertionError(f"resnet_d retrain: D {c.MODEL.RESNETS.D}, {len(trainer.step_s)} steps, K2/K3 per "
+                                 f"iteration {sorted(set(trainer.step_launches))}, group learning rates {lrs}")
+        train_net_report(f"resnet_d retrain: train_net_qe_ig ResNet-D R-50-FPN 80 classes (cosine head, backbone "
+                         f"trained, CLIP_LR {c.SOLVER.CLIP_LR:g} at BASE_LR {c.SOLVER.BASE_LR:g}) AMP, IMS_PER_BATCH "
+                         f"16 at 832x1344 with {n_ignore} ignore regions in the pseudo-annotations (TF32 "
+                         f"convolutions)", trainer, secs, peak, 16, tag)
+        recorded_train_pool("resnet_d retrain step (16 x 512 slots, AMP)", trainer, kernels, tag)
+        kernels["roi_align_paired"]["launches"] += n[1]
+        kernels["roi_align_paired_bwd"]["launches"] += n[2]
+        clip_update_check(trainer, tag)
+        model_path = last_checkpoint(os.path.join(tmp, "out"))
+        del trainer
+        torch.cuda.empty_cache()
+        resnet_d_fused_serving(tag, kernels, model_path)
+
+
+def dcn_path(tag, kernels):
+    """Phase 42, the deformable R-50 (``task_cfg("dcn")``, detectron2's
+    Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml on Base-RCNN-FPN.yaml):
+    ``task_serving`` at B=8 in bf16 (K1 twice a forward, then K2 twice) and
+    ``task_train`` at IMS_PER_BATCH 16, AMP, ``TASK_ITERS`` steps (K2/K3
+    twice a step), with its peak memory."""
+    with cli_tf32():
+        task_serving("dcn", kernels, tag)
+        task_train("dcn", kernels, tag, B=16, amps=(True,))
+
+
+def polygon_iou(a, b) -> float:
+    """IoU of two XYWHA boxes by Sutherland-Hodgman clipping in float64 on
+    the host: an independent witness of the rotated IoU."""
+    import numpy as np
+
+    def corners(box):
+        cx, cy, w, h, ang = box
+        t = np.deg2rad(ang)
+        c, s = np.cos(t), np.sin(t)
+        return [np.array([cx + dx * c + dy * s, cy - dx * s + dy * c])
+                for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2))]
+
+    def area(poly):
+        return 0.5 * abs(sum(p[0] * q[1] - q[0] * p[1] for p, q in zip(poly, poly[1:] + poly[:1])))
+
+    def cross(u, v):
+        return u[0] * v[1] - u[1] * v[0]
+
+    p, q = corners(a), corners(b)
+    sign = 1.0 if cross(q[1] - q[0], q[2] - q[1]) >= 0 else -1.0
+    out = p
+    for e0, e1 in zip(q, q[1:] + q[:1]):
+        inp, out = out, []
+        for i, cur in enumerate(inp):
+            nxt = inp[(i + 1) % len(inp)]
+            cin = sign * cross(e1 - e0, cur - e0) >= 0
+            nin = sign * cross(e1 - e0, nxt - e0) >= 0
+            if cin:
+                out.append(cur)
+            if cin != nin:
+                d = nxt - cur
+                t = cross(e1 - e0, e0 - cur) / cross(e1 - e0, d)
+                out.append(cur + t * d)
+        if not out:
+            return 0.0
+    inter = area(out)
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def rotated_batch(B, G, P, H, W, seed, device, num_classes=80):
+    """Seeded rotated gt (B, G, 5): G boxes an image of 32-400 px sides,
+    aspect up to 4, any angle, inside the H x W image, and P proposals an
+    image jittered about them (centre by 20% of the size, sides by
+    exp(N(0, 0.25)), angle by N(0, 12) degrees)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    w = rng.uniform(32, 400, (B, G))
+    h = np.clip(w / rng.uniform(0.25, 4.0, (B, G)), 24, 400)
+    r = np.hypot(w, h) / 2
+    cx = rng.uniform(r, W - r)
+    cy = rng.uniform(np.minimum(r, H / 2 - 1), np.maximum(H - r, H / 2 + 1))
+    gt = np.stack([cx, cy, w, h, rng.uniform(-180, 180, (B, G))], -1).astype(np.float32)
+    src = gt[np.arange(B)[:, None], rng.randint(0, G, (B, P))]
+    noise = rng.normal(0, 1, (B, P, 5))
+    props = np.stack([src[..., 0] + 0.2 * src[..., 2] * noise[..., 0], src[..., 1] + 0.2 * src[..., 3] * noise[..., 1],
+                      src[..., 2] * np.exp(0.25 * noise[..., 2]), src[..., 3] * np.exp(0.25 * noise[..., 3]),
+                      src[..., 4] + 12 * noise[..., 4]], -1).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return {"gt_boxes": t(gt), "gt_classes": t(rng.randint(0, num_classes, (B, G))),
+            "gt_valid": t(np.ones((B, G), bool)), "proposals": t(props), "proposal_valid": t(np.ones((B, P), bool)),
+            "image_size": t(np.array([[H, W]] * B, np.int32))}
+
+
+def rroi_heads_cfg_args(num_classes: int = 80, **kw):
+    """``RROIHeads``' options from Base-RCNN-FPN.yaml's ROI heads (p2-p5, box
+    head 2 fc 1024, 512 samples an image at 25% positives) with
+    detectron2's rotated box weights (10, 10, 5, 5, 1)."""
+    args = dict(num_classes=num_classes, batch_size_per_image=512, positive_fraction=0.25, fc_dim=1024,
+                score_thresh_test=0.05, detections_per_image=100)
+    args.update(kw)
+    return args
+
+
+def rotated_evaluation(tag, gt, classes, device):
+    """``RotatedCOCOEvaluator`` on oracle detections (the gt boxes, score 1:
+    AP 100) and on the gt turned by ``ROTATED_TURN`` degrees, scored by
+    their host-side IoU with their gt (``polygon_iou``), so that the AP is
+    known: in each class, at each IoU threshold t, the detections at IoU >=
+    t rank first, and AP_t is the share of the 101 recall points at or below
+    their fraction; the mean over classes and thresholds must equal the
+    measured AP, and lie in ``ROTATED_AP``."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.data.builtin_meta import COCO_CATEGORIES, _get_builtin_metadata
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.meta_coco import register_meta_coco
+    from lvc_tpu_torch.evaluation.rotated_coco_evaluation import RotatedCOCOEvaluator
+    from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
+
+    B, G = classes.shape
+    meta = _get_builtin_metadata("coco")
+    rev = {v: k for k, v in meta["thing_dataset_id_to_contiguous_id"].items()}
+    g = gt.cpu().numpy().astype(np.float64)
+    cls = classes.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        anns = [{"id": i * G + j + 1, "image_id": i + 1, "category_id": rev[int(cls[i, j])], "bbox": list(g[i, j]),
+                 "area": float(g[i, j, 2] * g[i, j, 3]), "iscrowd": 0} for i in range(B) for j in range(G)]
+        path = os.path.join(tmp, "rotated.json")
+        with open(path, "w") as f:
+            json.dump({"images": [{"id": i + 1, "file_name": f"{i}.jpg", "height": 832, "width": 1344}
+                                  for i in range(B)], "annotations": anns,
+                       "categories": [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]}, f)
+        name = "rotated_oracle_test"
+        if name in DatasetCatalog:
+            DatasetCatalog.remove(name)
+        register_meta_coco(name, meta, tmp, path)
+        turned = gt.clone()
+        turned[..., 4] += ROTATED_TURN
+        ious = np.array([[polygon_iou(g[i, j], turned[i, j].cpu().numpy().astype(np.float64)) for j in range(G)]
+                         for i in range(B)])
+        predicted = 100 * np.mean([[(np.floor(np.mean(ious[cls == c] >= t) * 100 + 1e-9) + 1) / 101
+                                    if (ious[cls == c] >= t).any() else 0.0 for t in np.linspace(0.5, 0.95, 10)]
+                                   for c in np.unique(cls)])
+        aps = {}
+        metas = [{"image_id": i + 1, "image_size": (832, 1344), "orig_size": (832, 1344)} for i in range(B)]
+        for what, boxes, scores in (("oracle", gt, torch.ones(B, G, device=device)),
+                                    (f"turned {ROTATED_TURN:g} degrees", turned,
+                                     torch.from_numpy(ious.astype(np.float32)).to(device))):
+            ev = RotatedCOCOEvaluator(name)
+            ev.reset()
+            t0 = time.perf_counter()
+            ev.process_detections(Detections(boxes, scores, classes, torch.ones_like(classes, dtype=torch.bool),
+                                              torch.zeros_like(classes)), metas)
+            aps[what] = (ev.evaluate()["bbox"]["AP"], time.perf_counter() - t0)
+    oracle, turned_ap = aps["oracle"][0], aps[f"turned {ROTATED_TURN:g} degrees"][0]
+    if abs(oracle - 100.0) > 1e-9 or abs(turned_ap - predicted) > 1e-6 or \
+            not ROTATED_AP[0] <= turned_ap <= ROTATED_AP[1]:
+        raise AssertionError(f"rotated evaluation: oracle AP {oracle}, turned AP {turned_ap} (host prediction "
+                             f"{predicted}, predicted range {ROTATED_AP})")
+    print(f"rotated evaluation: RotatedCOCOEvaluator on {B} x {G} rotated gt of {B} 832x1344 images: oracle AP "
+          f"{oracle:.4f} in {aps['oracle'][1]:.2f} s; turned {ROTATED_TURN:g} degrees (IoU with their gt "
+          f"{ious.min():.3f}-{ious.max():.3f}, mean {ious.mean():.3f}) AP {turned_ap:.4f}, the host's prediction "
+          f"{predicted:.4f}, inside the predicted {ROTATED_AP} {tag}")
+
+
+def rroi_heads_path(tag):
+    """Phase 43: ``RROIHeads`` at full width (``rroi_heads_cfg_args``: 80
+    classes, 256-channel p2-p5 of a damped R-50-FPN's bf16 forward of a
+    B=8 832x1344 batch), ``ROTATED_PROPOSALS`` rotated proposals an image
+    jittered about ``ROTATED_G`` seeded rotated gts (``rotated_batch``):
+    ``TASK_ITERS`` AMP training steps of the heads (bf16 features, SGD on the
+    heads' float32 parameters) after a warm-up, ms/step and peak memory,
+    every loss finite; inference at score threshold 0, so that 2,048
+    candidates an image reach the class-aware rotated NMS (recorded), 3
+    timed forwards, detections (8, 100, 5) finite; then
+    ``rotated_evaluation``. No TPU kernel runs here: the rotated pool is
+    torch ops, as it is XLA in JAX."""
+    import torch
+
+    from lvc_tpu_torch.config import get_cfg
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.modeling.roi_heads import rotated_fast_rcnn as rfr
+    from lvc_tpu_torch.modeling.sampling import per_image_generators
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.utils.init import damped_init
+
+    B, G, P = ROTATED_B, ROTATED_G, ROTATED_PROPOSALS
+    cfg = get_cfg()
+    cfg.merge_from_file(BASE_YAML)
+    cfg.MODEL.DTYPE = "bfloat16"
+    detector = damped_init(build_model(cfg), seed=0)
+    with torch.no_grad(), cli_tf32():
+        feats = {k: v.detach() for k, v in detector.backbone_features(serving_batch(B)).items()}
+    del detector
+    torch.cuda.empty_cache()
+    data = rotated_batch(B, G, P, 832, 1344, seed=0, device=CARD)
+    strides = {"p2": 4, "p3": 8, "p4": 16, "p5": 32}
+    heads = rfr.RROIHeads(tuple(strides), strides, 256, **rroi_heads_cfg_args()).to(CARD)
+    damped_init(heads, seed=0)
+    gt = {"boxes": data["gt_boxes"], "classes": data["gt_classes"], "valid": data["gt_valid"]}
+    opt = torch.optim.SGD(heads.parameters(), lr=0.02, momentum=0.9)
+    ra.roi_align_band.launches = ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
+
+    def step(i):
+        heads.train()
+        losses = heads(feats, data["proposals"], data["proposal_valid"], data["image_size"], gt,
+                       per_image_generators(i, B, CARD))
+        opt.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        opt.step()
+        return {k: float(v) for k, v in losses.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    first = step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(i + 1) for i in range(TASK_ITERS)]
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / TASK_ITERS
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if set(first) != {"loss_cls", "loss_box_reg"} or not all(math.isfinite(v) for m in metrics for v in m.values()) \
+            or abs(first["loss_cls"] - math.log(81)) > 0.05 or first["loss_box_reg"] <= 0:
+        raise AssertionError(f"rroi heads training: first {first}, last {metrics[-1]}")
+    heads.eval()
+    heads.score_thresh = 0.0
+    seen, nms = [], rfr.batched_nms_rotated_mask
+    rfr.batched_nms_rotated_mask = lambda *a: seen.append(a[3].sum(1).tolist()) or nms(*a)
+    try:
+        with torch.no_grad():
+            heads(feats, data["proposals"], data["proposal_valid"], data["image_size"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                dets = heads(feats, data["proposals"], data["proposal_valid"], data["image_size"])
+            torch.cuda.synchronize()
+    finally:
+        rfr.batched_nms_rotated_mask = nms
+    infer_ms = (time.perf_counter() - t0) * 1e3 / 3
+    infer_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = ra.roi_align_band.launches, ra.roi_align_paired.launches, ra.roi_align_paired_bwd.launches
+    if tuple(dets.boxes.shape) != (B, 100, 5) or not torch.isfinite(dets.boxes).all() or \
+            not dets.valid.all() or any(c != [2048] * B for c in seen) or n != (0, 0, 0):
+        raise AssertionError(f"rroi heads inference: boxes {tuple(dets.boxes.shape)}, valid "
+                             f"{dets.valid.sum(1).tolist()}, NMS candidates {seen[:1]}, K1/K2/K3 {n}")
+    print(f"rroi heads: RROIHeads 80 classes on a damped R-50-FPN's bf16 p2-p5 of B={B} 832x1344, {P} rotated "
+          f"proposals and {G} gt an image: AMP training (bf16 features) {train_ms:.2f} ms/step over {TASK_ITERS} "
+          f"steps, peak memory {train_peak:.2f} GiB, loss_cls {first['loss_cls']:.5f} (ln 81 = {math.log(81):.5f}) "
+          f"to {metrics[-1]['loss_cls']:.5f}, loss_box_reg {first['loss_box_reg']:.5f} to "
+          f"{metrics[-1]['loss_box_reg']:.5f}; inference at score threshold 0: {infer_ms:.2f} ms/batch "
+          f"({B * 1e3 / infer_ms:.2f} img/s), peak memory {infer_peak:.2f} GiB, rotated NMS over "
+          f"{seen[0][0]} candidates an image, detections {tuple(dets.boxes.shape)}; K1/K2/K3 0/0/0 {tag}")
+    rotated_evaluation(tag, data["gt_boxes"], data["gt_classes"], CARD)
+
+
+def variant_reference_cfg(kind: str, device: str):
+    """Phase 44's narrow detectors: phase 25's narrow R-50-FPN
+    (``extra_heads_cfg("StandardROIHeads")`` without DEBUG: float32,
+    exhaustive sampling, POOLER_IMPL pallas_train) with ``backbone_opts``'s
+    backbone (Swin-T whole; the R-50s at phase 25's widths)."""
+    cfg = extra_heads_cfg("StandardROIHeads", device)
+    cfg.DEBUG = False
+    cfg.merge_from_list(backbone_opts(kind))
+    return cfg
+
+
+def rroi_reference_run(heads, feats, data, train: bool):
+    """One training forward and backward (losses, float64 gradients of every
+    parameter and of the features) or one eval forward (detections on the
+    CPU) of narrow ``RROIHeads``; float64 heads run under
+    ``float64_witness``."""
+    import contextlib
+
+    import torch
+
+    witness = next(heads.parameters()).dtype == torch.float64
+    feats = {k: v.clone().requires_grad_(train) for k, v in feats.items()}
+    gt = {"boxes": data["gt_boxes"], "classes": data["gt_classes"], "valid": data["gt_valid"]}
+    with float64_witness() if witness else contextlib.nullcontext():
+        if not train:
+            heads.eval()
+            with torch.no_grad():
+                return to_cpu(heads(feats, data["proposals"], data["proposal_valid"], data["image_size"]))
+        heads.train()
+        heads.zero_grad(set_to_none=True)
+        losses = heads(feats, data["proposals"], data["proposal_valid"], data["image_size"], gt,
+                       torch.Generator().manual_seed(0))
+        sum(losses.values()).backward()
+    grads = {n: p.grad.detach().cpu().double() for n, p in heads.named_parameters()}
+    grads.update({f"feature {k}": v.grad.detach().cpu().double() for k, v in feats.items()})
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def rroi_reference_check(tag):
+    """Phase 44b: narrow ``RROIHeads`` (p2-p5 of a B=2 128x160 canvas, 16
+    channels, FC 32, 6 classes, exhaustive sampling) at float32 on the card
+    and on the CPU from the same weights (``damped_init`` with the
+    predictor scaled up for spread scores), each held to its float64
+    witness on the CPU (``witness_lines``): one training step's losses and
+    the gradients of every parameter and of the features, then the
+    detections (5-dim boxes, px, and scores; ``detection_errors``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.roi_heads.rotated_fast_rcnn import RROIHeads
+    from lvc_tpu_torch.utils.init import damped_init
+
+    strides = {"p2": 4, "p3": 8, "p4": 16, "p5": 32}
+    rng = np.random.RandomState(0)
+    feats = {k: torch.from_numpy(rng.randn(2, 16, 128 // s, 160 // s).astype(np.float32)).contiguous(
+        memory_format=torch.channels_last) for k, s in strides.items()}
+    data = rotated_batch(2, 4, 40, 128, 160, seed=1, device="cpu", num_classes=6)
+    args = rroi_heads_cfg_args(num_classes=6, batch_size_per_image=128, positive_fraction=0.999, fc_dim=32,
+                               score_thresh_test=0.01, detections_per_image=12)
+    cpu = damped_init(RROIHeads(tuple(strides), strides, 16, **args), seed=0)
+    with torch.no_grad():
+        cpu.box_head.fc1.weight.mul_(20.0)
+        cpu.box_head.fc2.weight.mul_(20.0)
+        cpu.box_predictor.cls_score.weight.mul_(100.0)
+        cpu.box_predictor.bbox_pred.weight.mul_(10.0)
+    witness = copy.deepcopy(cpu).double()
+    gpu = copy.deepcopy(cpu).to(CARD)
+    card = lambda d: {k: (v.to(CARD) if hasattr(v, "to") else v) for k, v in d.items()}  # noqa: E731
+    f64 = {k: v.double() for k, v in feats.items()}
+    runs = {"cpu": (cpu, feats, data), "f64": (witness, f64, data), "gpu": (gpu, card(feats), card(data))}
+    train = {k: rroi_reference_run(m, f, d, True) for k, (m, f, d) in runs.items()}
+    dets = {k: rroi_reference_run(m, f, d, False) for k, (m, f, d) in runs.items()}
+    lines = witness_lines("rroi heads", tuple(train[k][0] for k in ("f64", "cpu", "f64", "gpu")),
+                          tuple(train[k][1] for k in ("f64", "cpu", "f64", "gpu")))
+    n, c_box, c_score = detection_errors("rroi heads CPU vs float64", dets["f64"], dets["cpu"])
+    _, g_box, g_score = detection_errors("rroi heads card vs float64", dets["f64"], dets["gpu"])
+    if g_box > witness_limit("box", c_box) or g_score > witness_limit("score", c_score):
+        raise AssertionError(f"rroi heads reference: card boxes {g_box:.3e} px, scores {g_score:.3e} from float64 "
+                             f"(the CPU's {c_box:.3e}, {c_score:.3e})")
+    print(f"rroi heads reference (card and CPU float32 against CPU float64, narrow): " + "; ".join(lines) +
+          f"; eval {n} valid detections {tuple(dets['gpu'].boxes.shape)}, boxes card {g_box:.3e} px CPU {c_box:.3e} "
+          f"(limit {witness_limit('box', c_box):.3e}), scores card {g_score:.3e} CPU {c_score:.3e} {tag}")
+
+
+def variant_reference_check(tag, kinds=("swin", "resnet_d", "dcn", "dcn_v2"), rotated=True):
+    """Phase 44: the narrow Swin-FPN, ResNet-D (its step with the CLIP
+    optimizer), DCN v1 and DCN v2 detectors (``variant_reference_cfg``) at
+    float32 on the card and on the CPU from the same weights
+    (``calibrated_init``), each held to its float64 witness on the CPU
+    (``witness_lines``, ``witness_limit``): one training step's losses and
+    trainable gradients (K2/K3 1/1 on the card), then the eval forward's
+    detections (K2 1); then (``rotated``) ``rroi_reference_check``. The
+    deformable offset
+    convs are scaled to 0.05 of ``calibrated_init``'s: offsets of a few
+    tenths of a pixel (at its scale they are several pixels in each of 13
+    stacked blocks, and float32 on the CPU alone then strays from float64
+    in the backbone's gradients and in which detections it keeps)."""
+    import copy
+
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.solver.build import build_clip_optimizer, build_optimizer
+
+    batch = train_batch(2, 128, 192, 4, seed=3, device="cpu", num_classes=5, n_gt=(3, 3), size=(24, 100))
+    for kind in kinds:
+        cfg = variant_reference_cfg(kind, "cpu")
+        cfg.SOLVER.CLIP_LR = cfg.SOLVER.BASE_LR / 10
+        optimizer = build_clip_optimizer if kind == "resnet_d" else build_optimizer
+        cpu = build_model(cfg, device="cpu")
+        calibrated_init(cpu, seed=0)
+        with torch.no_grad():
+            for name, t in cpu.state_dict().items():
+                if "_offset." in name:
+                    t.mul_(0.05)
+        witness = copy.deepcopy(cpu).double()
+        witness.compute_dtype = torch.float64
+        gpu_cfg = cfg.clone()
+        gpu_cfg.MODEL.DEVICE = CARD
+        gpu = build_model(gpu_cfg, device=CARD)
+        gpu.load_state_dict(cpu.state_dict())
+        res = {key: extra_heads_run(model, cfg, batch, True, optimizer=optimizer)
+               for key, model in (("cpu", cpu), ("f64", witness), ("gpu", gpu))}
+        (c_loss, c_grad, c_dets, _, _), (w_loss, w_grad, w_dets, _, _), (g_loss, g_grad, g_dets, g_step, g_eval) = (
+            res["cpu"], res["f64"], res["gpu"])
+        if (g_step, g_eval) != ((1, 1), (0, 1)):
+            raise AssertionError(f"{kind} reference: card launches {g_step}/{g_eval}")
+        lines = witness_lines(kind, (w_loss, c_loss, w_loss, g_loss), (w_grad, c_grad, w_grad, g_grad))
+        n, c_box, c_score = detection_errors(f"{kind} CPU vs float64", w_dets, c_dets)
+        _, g_box, g_score = detection_errors(f"{kind} card vs float64", w_dets, g_dets)
+        if g_box > witness_limit("box", c_box) or g_score > witness_limit("score", c_score):
+            raise AssertionError(f"{kind} reference: card boxes {g_box:.3e} px, scores {g_score:.3e} from float64 "
+                                 f"(the CPU's {c_box:.3e}, {c_score:.3e})")
+        clip = ""
+        if kind == "resnet_d":
+            lrs = sorted({g["lr"] for g in build_clip_optimizer(cfg, gpu).param_groups})
+            clip = f"; the step's optimizer: build_clip_optimizer, group learning rates {lrs}"
+        print(f"{kind} reference ({BACKBONE_NAMES[kind]}, card and CPU float32 against CPU float64, narrow): "
+              + "; ".join(lines) + f"; eval {n} valid detections, boxes card {g_box:.3e} px CPU {c_box:.3e}, scores "
+              f"card {g_score:.3e} CPU {c_score:.3e}; K2/K3 a step {g_step[0]}/{g_step[1]}, K2 an eval "
+              f"{g_eval[1]}{clip} {tag}")
+    if rotated:
+        rroi_reference_check(tag)
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -6289,7 +7119,7 @@ def context_phases(run):
 
 
 def phase_table():
-    """(number, function name, call on the run's state) for phases 2-39 in
+    """(number, function name, call on the run's state) for phases 2-44 in
     the order ``main`` runs them; phase 1 (the build) always runs."""
     def k(run):
         return run["kernels"]
@@ -6335,6 +7165,11 @@ def phase_table():
         (37, "panoptic_path", lambda r: panoptic_path(r["tag"], k(r))),
         (38, "semantic_path", lambda r: semantic_path(r["tag"])),
         (39, "dense_reference_phase", lambda r: dense_reference_phase(r["tag"])),
+        (40, "swin_path", lambda r: coco_root(r) and swin_path(r["tag"], k(r))),
+        (41, "resnet_d_path", lambda r: resnet_d_path(r["tag"], k(r))),
+        (42, "dcn_path", lambda r: dcn_path(r["tag"], k(r))),
+        (43, "rroi_heads_path", lambda r: rroi_heads_path(r["tag"])),
+        (44, "variant_reference_check", lambda r: variant_reference_check(r["tag"])),
     ]
 
 

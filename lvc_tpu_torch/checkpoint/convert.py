@@ -40,6 +40,23 @@ blocks ``sem_seg_head/{f}_conv{k}`` (and their ``GroupNorm_0``) in flax and
 here. JAX's ``torch_to_flax`` sends ``head.cls_subnet.2.weight`` to
 ``head/cls_subnet/2/conv/kernel``, which its tree does not hold, so JAX
 cannot load a detectron2 RetinaNet or semantic head.
+The Swin bottom-up (``backbone/bottom_up``) keeps the public Swin names
+here: flax's ``patch_embed/{kernel,bias}`` (a bare ``nn.Conv``),
+``patch_norm`` and ``out_norm{i}`` are ``patch_embed.proj``,
+``patch_embed.norm`` and ``norm{i}``; LayerNorm ``scale`` is ``weight``;
+flax's dotted module names (``layers.0.blocks.1``, ``mlp.fc1``,
+``layers.0.downsample``) are the same dotted paths. JAX's ``torch_to_flax``
+cannot load such a state dict: it sends ``patch_embed.proj.weight`` to
+``patch_embed/proj/conv/kernel``, ``layers.0.blocks.1.attn.qkv.weight`` to
+``layers/0/blocks/1/attn/qkv/kernel`` and a LayerNorm's ``weight`` to
+``weight`` rather than ``scale``, none of which its tree holds. A
+deformable block's 3x3 is ``conv2/offset_conv`` (a bare ``nn.Conv``),
+``conv2/weight`` (HWIO, no ``conv`` child) and the block's own
+``FrozenBatchNorm_0`` (or ``GroupNorm_0``) in flax, detectron2's
+``conv2_offset``, ``conv2.weight`` and ``conv2.norm`` here; JAX's
+``torch_to_flax`` sends ``conv2.weight`` to ``conv2/conv/kernel`` and
+``conv2.norm`` to ``conv2/FrozenBatchNorm_0``, so it cannot load a
+detectron2 DCN checkpoint either.
 ``vit_from_flax`` and ``vit_to_flax`` do the same for the DINO verifier
 ViT. All work on plain nested dicts of numpy
 arrays, so the port needs neither flax nor jax.
@@ -65,6 +82,9 @@ _DENSE_PARTS = (  # flax module name -> the port's dotted path, for RetinaNet, t
     (re.compile(r"^top_block_(p\d+)$"), lambda m: f"top_block.{m[1]}"),
 )
 _TOWERS = ("cls_subnet", "bbox_subnet")
+_SWIN_TOP = re.compile(r"^(patch_embed|patch_norm|out_norm\d+|layers\.\d+\.(blocks\.\d+|downsample))$")
+_SWIN_KEY = re.compile(r"^(.*bottom_up)\.(patch_embed\..*|norm\d+\..*|layers\.\d+\.(blocks\.\d+|downsample)\..*)$")
+_SWIN_MODULE = re.compile(r"^(layers\.\d+\.(?:blocks\.\d+|downsample))\.(.*)$")
 
 
 def _part_to_torch(part: str) -> str:
@@ -105,10 +125,50 @@ def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     return tree
 
 
+def _swin_from_flax(path, v):
+    """(port key, value) of a Swin bottom-up leaf, else None."""
+    if "bottom_up" not in path:
+        return None
+    i = path.index("bottom_up") + 1
+    if i >= len(path) - 1 or not _SWIN_TOP.match(path[i]):
+        return None
+    head, top, rest, leaf = list(path[:i]), path[i], list(path[i + 1:-1]), path[-1]
+    if top == "patch_embed":
+        mod = ["patch_embed", "proj"]
+        v = v.transpose(3, 2, 0, 1) if leaf == "kernel" else v
+    else:
+        mod = [{"patch_norm": "patch_embed.norm"}.get(top, top.replace("out_norm", "norm"))] + rest
+        v = v.T if leaf == "kernel" else v
+    return ".".join(head + mod + [{"kernel": "weight", "scale": "weight"}.get(leaf, leaf)]), v
+
+
+def _deform_from_flax(flat):
+    """Moves a flax deformable block's leaves to detectron2's places:
+    ``conv2/offset_conv`` -> ``conv2_offset`` (a bare conv), ``conv2/weight``
+    -> ``conv2/conv/kernel``, the block's ``FrozenBatchNorm_0`` /
+    ``GroupNorm_0`` -> ``conv2``'s."""
+    blocks = {p[:-3] for p in flat if len(p) > 3 and p[-3:-1] == ("conv2", "offset_conv")}
+    out = {}
+    for path, v in flat.items():
+        if path[:-3] in blocks and path[-3:-1] == ("conv2", "offset_conv"):
+            path = path[:-3] + ("conv2_offset", path[-1])
+        elif path[:-2] in blocks and path[-2:] == ("conv2", "weight"):
+            path = path[:-2] + ("conv2", "conv", "kernel")
+        elif path[:-2] in blocks and path[-2] in ("FrozenBatchNorm_0", "GroupNorm_0"):
+            path = path[:-2] + ("conv2",) + path[-2:]
+        out[path] = v
+    return out
+
+
 def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    for path, v in _flatten(variables.get("params", {})).items():
+    params = _flatten(variables.get("params", {}))
+    for path, v in _deform_from_flax(params).items():
+        swin = _swin_from_flax(path, v)
+        if swin is not None:
+            out[swin[0]] = swin[1]
+            continue
         parts = [_part_to_torch(p) for p in _twin_to_torch(path)]
         if parts[-1] == "kernel" and parts[-2] == "conv":
             out[".".join(parts[:-2]) + ".weight"] = v.transpose(3, 2, 0, 1)
@@ -130,6 +190,8 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts)] = v
     for path, v in _flatten(variables.get("batch_stats", {})).items():
         path = _twin_to_torch(path)
+        if path[-2] == "FrozenBatchNorm_0" and path[:-2] + ("conv2", "offset_conv", "kernel") in params:
+            path = path[:-2] + ("conv2",) + path[-2:]  # a deformable block's norm
         if path[-2] != "FrozenBatchNorm_0":
             raise KeyError(f"unexpected batch_stats entry {'/'.join(path)}")
         out[".".join(path[:-2]) + ".norm." + path[-1]] = v
@@ -142,10 +204,21 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     FrozenBN; one without them is GroupNorm (``GroupNorm_0/{scale,bias}``)."""
     params: Dict[Tuple[str, ...], np.ndarray] = {}
     stats: Dict[Tuple[str, ...], np.ndarray] = {}
+    deform = {k[: -len(".conv2_offset.weight")] for k in state_dict if k.endswith(".conv2_offset.weight")}
     for key, val in state_dict.items():
         if key in ("pixel_mean", "pixel_std"):
             continue
         v = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        swin = _SWIN_KEY.match(key)
+        if swin:
+            path, v = _swin_to_flax(swin[1].split("."), swin[2], v)
+            params[path] = v
+            continue
+        block, _, rest = key.rpartition(".conv2")
+        if block in deform and (rest in (".weight", "_offset.weight", "_offset.bias") or rest.startswith(".norm.")):
+            path, kind = _deform_to_flax(_block_parts(block), rest, key, state_dict)
+            (stats if kind == "stats" else params)[path] = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v
+            continue
         parts = []
         for p in key.split("."):
             # flax names stage blocks "res2.0": re-fuse stage and block index
@@ -196,6 +269,50 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     if stats:
         out["batch_stats"] = _unflatten(stats)
     return out
+
+
+def _block_parts(block: str):
+    """A block's port path as flax parts (``res3.0`` fused)."""
+    parts = []
+    for p in block.split("."):
+        if parts and _RES_STAGE.fullmatch(parts[-1]) and p.isdigit():
+            parts[-1] = parts[-1] + "." + p
+        else:
+            parts.append(p)
+    return parts
+
+
+def _deform_to_flax(block, rest: str, key: str, state_dict):
+    """(flax path, "params" or "stats") of a deformable block's 3x3 leaf
+    (``rest``: what follows ``conv2`` in ``key``)."""
+    if rest == ".weight":
+        return tuple(block + ["conv2", "weight"]), "params"
+    if rest.startswith("_offset."):
+        return tuple(block + ["conv2", "offset_conv", {"weight": "kernel"}.get(rest[8:], rest[8:])]), "params"
+    leaf = rest[len(".norm."):]
+    if key.rsplit(".", 1)[0] + ".running_var" not in state_dict:
+        return tuple(block + ["GroupNorm_0", {"weight": "scale"}.get(leaf, leaf)]), "params"
+    return tuple(block + ["FrozenBatchNorm_0", leaf]), "stats" if leaf.startswith("running_") else "params"
+
+
+def _swin_to_flax(head, rest: str, v):
+    """(flax path, value) of a Swin bottom-up key: ``head`` the parts up to
+    ``bottom_up``, ``rest`` the key after it."""
+    mod, leaf = rest.rsplit(".", 1)
+    if mod == "patch_embed.proj":
+        return tuple(head + ["patch_embed", {"weight": "kernel"}.get(leaf, leaf)]), (
+            v.transpose(2, 3, 1, 0) if leaf == "weight" else v)
+    m = _SWIN_MODULE.match(mod)
+    if m:
+        path = m[2].split(".")
+        if path[0] == "mlp":  # flax names the MLP's layers "mlp.fc1", "mlp.fc2"
+            path = [f"mlp.{path[1]}"] + path[2:]
+        path = [m[1]] + path
+    else:
+        path = [{"patch_embed.norm": "patch_norm"}.get(mod, mod.replace("norm", "out_norm"))]
+    if leaf == "weight" and v.ndim == 2:
+        return tuple(head + path + ["kernel"]), v.T
+    return tuple(head + path + [{"weight": "scale"}.get(leaf, leaf)]), v
 
 
 # ---------------------------------------------------------------------------

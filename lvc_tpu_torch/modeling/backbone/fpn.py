@@ -8,6 +8,9 @@ Counterpart of ``lvc_tpu/modeling/backbone/fpn.py`` (FPN:25, fpn_strides:95):
 RetinaNet's ``LastLevelP6P7`` (two stride-2 3x3 convs, p7 from ``relu(p6)``,
 the source ``res5`` or with ``p6p7_from_res5=False`` the top FPN output),
 under detectron2's names ``top_block.p6`` and ``top_block.p7``; ``""``, none.
+``build_swin_fpn_backbone`` (``lvc_tpu/modeling/backbone/swin.py:183-207``)
+puts the FPN on a Swin Transformer: always ``res2``..``res5``, whatever
+``FPN.IN_FEATURES`` says, with ``embed_dim * 2**i`` input channels.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lvc_tpu_torch.modeling.backbone.resnet import ResNet, build_resnet, resnet_out_channels
+from lvc_tpu_torch.modeling.backbone.swin import build_swin, swin_out_channels
 from lvc_tpu_torch.modeling.layers import Conv2d
 
 
@@ -108,6 +112,17 @@ def build_resnet_fpn_backbone(cfg) -> FPN:
         bottom_up=build_resnet(cfg),
         in_channels=resnet_out_channels(cfg),
         in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
+        out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
+        norm=cfg.MODEL.FPN.NORM,
+        fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
+    )
+
+
+def build_swin_fpn_backbone(cfg) -> FPN:
+    return FPN(
+        bottom_up=build_swin(cfg),
+        in_channels=swin_out_channels(cfg),
+        in_features=("res2", "res3", "res4", "res5"),
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
         norm=cfg.MODEL.FPN.NORM,
         fuse_type=cfg.MODEL.FPN.FUSE_TYPE,

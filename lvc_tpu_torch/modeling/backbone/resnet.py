@@ -1,14 +1,25 @@
 """ResNet backbone (PyTorch).
 
 Counterpart of ``lvc_tpu/modeling/backbone/resnet.py`` (BasicStem:24,
-BottleneckBlock:52, ResNet:208, RESNET_STAGE_STRIDES:307,
-resnet_out_channels:310, build_resnet:319): same topology, stride placement (STRIDE_IN_1X1) and
+BottleneckBlock:52, BottleneckBlockCLIP:116, DeformBottleneckBlock:159,
+ResNet:208, RESNET_STAGE_STRIDES:307, resnet_out_channels:310,
+build_resnet:319): same topology, stride placement (STRIDE_IN_1X1) and
 FrozenBN default, with detectron2's module names (``stem.conv1``,
-``res{2..5}.{i}.conv{1..3}``, ``shortcut``). Only the
-bottleneck depths 50/101/152 exist; the deformable and CLIP blocks are not
-ported yet. ``remat`` (``MODEL.BACKBONE.REMAT``, default True) recomputes each
-bottleneck block in the backward pass instead of keeping its activations, in
-training only (``resnet.py:229-232,294-295``).
+``res{2..5}.{i}.conv{1..3}``, ``shortcut``, and a deformable block's
+``conv2_offset``). Only the bottleneck depths 50/101/152 exist. ``remat``
+(``MODEL.BACKBONE.REMAT``, default True) recomputes each block in the
+backward pass instead of keeping its activations, in training only
+(``resnet.py:229-232,294-295``).
+
+``MODEL.RESNETS.D`` builds every block as ``BottleneckBlockCLIP`` (ResNet-D:
+every conv at stride 1, a stride-s average pool after ``conv2`` and before
+the shortcut's 1x1); it takes precedence over ``DEFORM_ON_PER_STAGE`` and
+ignores ``STRIDE_IN_1X1`` and ``DROPOUT``, and the stem stays the
+``BasicStem`` (``resnet.py:279-292``). ``DEFORM_ON_PER_STAGE`` makes a
+stage's blocks ``DeformBottleneckBlock`` (``DEFORM_MODULATED``: DCNv2);
+``DEFORM_NUM_GROUPS`` and ``DEFORM_INTERVAL`` are not read, as in JAX. Every
+block's ``conv3`` takes its residual through ``Conv2d``, so
+``LVC_TPU_FUSED_RESIDUAL=1`` fuses it as JAX's rule does.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from lvc_tpu_torch.modeling.layers import Conv2d, max_pool_torch
+from lvc_tpu_torch.ops.deform_conv import DeformConv
 
 
 class BasicStem(nn.Module):
@@ -78,6 +90,95 @@ class BottleneckBlock(nn.Module):
         return self.conv3(out, residual=shortcut)
 
 
+class BottleneckBlockCLIP(nn.Module):
+    """ResNet-D bottleneck: all convs at stride 1; with stride > 1 the main
+    path average-pools after ``conv2`` and the shortcut before its 1x1."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        bottleneck_channels: int,
+        stride: int = 1,
+        num_groups: int = 1,
+        norm: str = "FrozenBN",
+        dilation: int = 1,
+        has_shortcut: bool = False,
+    ):
+        super().__init__()
+        self.stride = stride
+        self.shortcut = (
+            Conv2d(in_channels, out_channels, kernel_size=1, bias=False, norm=norm) if has_shortcut else None
+        )
+        self.conv1 = Conv2d(in_channels, bottleneck_channels, kernel_size=1, bias=False, norm=norm,
+                            activation=F.relu)
+        self.conv2 = Conv2d(
+            bottleneck_channels, bottleneck_channels, kernel_size=3, padding=dilation, dilation=dilation,
+            groups=num_groups, bias=False, norm=norm, activation=F.relu,
+        )
+        self.conv3 = Conv2d(bottleneck_channels, out_channels, kernel_size=1, bias=False, norm=norm,
+                            activation=F.relu)
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(x, self.stride, self.stride) if self.stride > 1 else x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._pool(self.conv2(self.conv1(x)))
+        shortcut = x if self.shortcut is None else self.shortcut(self._pool(x))
+        return self.conv3(out, residual=shortcut)
+
+
+class DeformBottleneckBlock(nn.Module):
+    """Bottleneck whose 3x3 is deformable: ``conv2_offset`` (zero-initialised,
+    so the block starts as a plain bottleneck) predicts the offsets (and,
+    modulated, the DCNv2 mask), ``conv2`` samples and applies its norm, then
+    ReLU."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        bottleneck_channels: int,
+        stride: int = 1,
+        num_groups: int = 1,
+        norm: str = "FrozenBN",
+        stride_in_1x1: bool = True,
+        dilation: int = 1,
+        has_shortcut: bool = False,
+        deform_modulated: bool = False,
+    ):
+        super().__init__()
+        stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.modulated = deform_modulated
+        self.shortcut = (
+            Conv2d(in_channels, out_channels, kernel_size=1, stride=stride, bias=False, norm=norm)
+            if has_shortcut
+            else None
+        )
+        self.conv1 = Conv2d(in_channels, bottleneck_channels, kernel_size=1, stride=stride_1x1, bias=False,
+                            norm=norm, activation=F.relu)
+        self.conv2_offset = Conv2d(
+            bottleneck_channels, 27 if deform_modulated else 18, kernel_size=3, stride=stride_3x3,
+            padding=dilation, dilation=dilation,
+        )
+        nn.init.zeros_(self.conv2_offset.weight)
+        nn.init.zeros_(self.conv2_offset.bias)
+        self.conv2 = DeformConv(bottleneck_channels, bottleneck_channels, 3, stride=stride_3x3, padding=dilation,
+                                dilation=dilation, norm=norm)
+        self.conv3 = Conv2d(bottleneck_channels, out_channels, kernel_size=1, bias=False, norm=norm,
+                            activation=F.relu)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        out = self.conv1(x)
+        off = self.conv2_offset(out)
+        mask = None
+        if self.modulated:
+            off, mask = off[:, :18], 2.0 * torch.sigmoid(off[:, 18:])
+        out = F.relu(self.conv2(out, off, mask))
+        return self.conv3(out, residual=shortcut)
+
+
 class ResNet(nn.Module):
     """Returns a dict of stage outputs restricted to ``out_features``."""
 
@@ -101,6 +202,9 @@ class ResNet(nn.Module):
         norm: str = "FrozenBN",
         out_features: Sequence[str] = ("res4",),
         remat: bool = False,
+        clip_block: bool = False,
+        deform_on_per_stage: Sequence[bool] = (False, False, False, False),
+        deform_modulated: bool = False,
     ):
         super().__init__()
         self.out_features = tuple(out_features)
@@ -119,15 +223,18 @@ class ResNet(nn.Module):
             first_stride = 1 if idx == 0 or (stage_idx == 5 and dilation == 2) else 2
             blocks = []
             for b in range(self.stage_blocks(depth)[idx]):
-                blocks.append(
-                    BottleneckBlock(
-                        in_channels, out_channels, bottleneck_channels,
-                        stride=first_stride if b == 0 else 1,
-                        num_groups=num_groups, norm=norm,
-                        stride_in_1x1=stride_in_1x1, dilation=dilation,
-                        has_shortcut=(b == 0),
-                    )
-                )
+                common = dict(stride=first_stride if b == 0 else 1, num_groups=num_groups, norm=norm,
+                              dilation=dilation, has_shortcut=(b == 0))
+                if clip_block:
+                    block = BottleneckBlockCLIP(in_channels, out_channels, bottleneck_channels, **common)
+                elif deform_on_per_stage[idx]:
+                    block = DeformBottleneckBlock(in_channels, out_channels, bottleneck_channels,
+                                                  stride_in_1x1=stride_in_1x1, deform_modulated=deform_modulated,
+                                                  **common)
+                else:
+                    block = BottleneckBlock(in_channels, out_channels, bottleneck_channels,
+                                            stride_in_1x1=stride_in_1x1, **common)
+                blocks.append(block)
                 in_channels = out_channels
             name = f"res{stage_idx}"
             self.add_module(name, nn.Sequential(*blocks))
@@ -161,11 +268,6 @@ def resnet_out_channels(cfg) -> Dict[str, int]:
 def build_resnet(cfg) -> ResNet:
     """Config-driven constructor (``build_resnet``, resnet.py:319)."""
     r = cfg.MODEL.RESNETS
-    if r.D or any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError(
-            "CLIP/ResNet-D and deformable blocks are not ported yet "
-            "(ROADMAP.md queue 1, item 10)"
-        )
     return ResNet(
         depth=r.DEPTH,
         num_groups=r.NUM_GROUPS,
@@ -177,4 +279,7 @@ def build_resnet(cfg) -> ResNet:
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
         remat=cfg.MODEL.BACKBONE.REMAT,
+        clip_block=r.D,
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
     )

@@ -29,13 +29,16 @@ count is not the number of levels, when each level gets the three octaves
 ``stride * 4 * 2**(o / 3)`` (JAX's rule, ``:318-326``: Base-RCNN-FPN's five
 one-size entries give 3 anchors a location, the RetinaNet yaml's 9). The
 RPN and the ROI heads take the channel count of the backbone's output
-feature. The Swin backbone is not ported (``_unported``).
+feature. The backbones are ``build_resnet_fpn_backbone``,
+``build_resnet_backbone`` and ``build_swin_transformer_fpn_backbone``
+(Swin-T/S/B under an FPN of res2-res5); another name raises ``ValueError``,
+as JAX's ``build_backbone`` does (``:31``).
 """
 from __future__ import annotations
 
 import torch
 
-from lvc_tpu_torch.modeling.backbone.fpn import FPN, build_resnet_fpn_backbone, fpn_strides
+from lvc_tpu_torch.modeling.backbone.fpn import FPN, build_resnet_fpn_backbone, build_swin_fpn_backbone, fpn_strides
 from lvc_tpu_torch.modeling.backbone.resnet import RESNET_STAGE_STRIDES, build_resnet, resnet_out_channels
 from lvc_tpu_torch.modeling.meta_arch.rcnn import (
     GeneralizedRCNN,
@@ -77,10 +80,6 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 _META_ARCHS = {
     "GeneralizedRCNN": GeneralizedRCNN,
     "GeneralizedRCNNRegOnly": GeneralizedRCNNRegOnly,
@@ -104,8 +103,11 @@ def build_backbone(cfg):
     m = cfg.MODEL
     if m.BACKBONE.NAME == "build_resnet_backbone":
         return build_resnet(cfg), dict(RESNET_STAGE_STRIDES), resnet_out_channels(cfg)
+    if m.BACKBONE.NAME == "build_swin_transformer_fpn_backbone":
+        strides = fpn_strides(("res2", "res3", "res4", "res5"))
+        return build_swin_fpn_backbone(cfg), strides, {f: m.FPN.OUT_CHANNELS for f in strides}
     if m.BACKBONE.NAME != "build_resnet_fpn_backbone":
-        _unported(f"backbone {m.BACKBONE.NAME!r}", "queue 1, item 10")
+        raise ValueError(f"Unknown backbone: {m.BACKBONE.NAME}")
     strides = fpn_strides(m.FPN.IN_FEATURES)
     return build_resnet_fpn_backbone(cfg), strides, {f: m.FPN.OUT_CHANNELS for f in strides}
 

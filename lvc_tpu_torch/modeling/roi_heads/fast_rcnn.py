@@ -22,13 +22,14 @@ from lvc_tpu_torch.structures import boxes as box_ops
 
 
 class FastRCNNOutputLayers(nn.Module):
-    """Linear classifier (K+1) + box regressor (4K, or 4 class-agnostic). The
-    linears run in the input dtype and hand float32 to decode and softmax."""
+    """Linear classifier (K+1) + box regressor (``box_dim`` K, or
+    ``box_dim`` class-agnostic; 5 for rotated boxes). The linears run in the
+    input dtype and hand float32 to decode and softmax."""
 
-    def __init__(self, in_features: int, num_classes: int, cls_agnostic_bbox_reg: bool = False):
+    def __init__(self, in_features: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
         super().__init__()
         self.cls_score = nn.Linear(in_features, num_classes + 1)
-        self.bbox_pred = nn.Linear(in_features, (1 if cls_agnostic_bbox_reg else num_classes) * 4)
+        self.bbox_pred = nn.Linear(in_features, (1 if cls_agnostic_bbox_reg else num_classes) * box_dim)
 
     def forward(self, x: torch.Tensor):
         x = x.reshape(x.shape[0], -1)

@@ -53,6 +53,8 @@ __all__ = [
     "pool_band",
     "pool_paired",
     "pool_paired_train",
+    "roi_align_rotated",
+    "multilevel_roi_align_rotated",
 ]
 
 
@@ -214,6 +216,126 @@ def batched_multilevel_roi_align(
             weighted.sum(dim=(0, 4, 5)) / count[s : s + chunk, None, None, None]
         ).to(dtype)
     return out.reshape(B, R, P, P, C)
+
+
+# ---------------------------------------------------------------------------
+# Rotated RoIAlign (``roi_align_rotated``, XLA in JAX: no Pallas site)
+# ---------------------------------------------------------------------------
+
+
+def _rotated_pool(flat, rois, scale, h_l, w_l, off_l, output_size, sampling_ratio, max_grid, aligned, chunk):
+    """(n, P, P, C) in ``flat``'s dtype: each box (cx, cy, w, h, angle) of
+    ``rois`` (n, 5) pooled from the plane of ``flat`` (rows, C) that starts
+    at its ``off_l`` and is ``h_l`` x ``w_l`` at ``scale``."""
+    n, C, dtype, device = rois.shape[0], flat.shape[-1], flat.dtype, rois.device
+    P = output_size
+    offset = 0.5 if aligned else 0.0
+    cx = rois[:, 0] * scale - offset
+    cy = rois[:, 1] * scale - offset
+    roi_w = rois[:, 2] * scale
+    roi_h = rois[:, 3] * scale
+    if not aligned:
+        roi_w, roi_h = roi_w.clamp(min=1.0), roi_h.clamp(min=1.0)
+    theta = rois[:, 4] * (math.pi / 180.0)
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    bin_h, bin_w = _div(roi_h, P), _div(roi_w, P)
+    if sampling_ratio > 0:
+        G = sampling_ratio
+        grid_h, grid_w = torch.full_like(bin_h, G), torch.full_like(bin_w, G)
+    else:
+        G = max_grid
+        grid_h, grid_w = torch.ceil(bin_h).clamp(1, G), torch.ceil(bin_w).clamp(1, G)
+    count = torch.clamp(grid_h * grid_w, min=1.0)
+    ph = torch.arange(P, dtype=rois.dtype, device=device)
+    g = torch.arange(G, dtype=rois.dtype, device=device)
+    # the box-frame lattice, origin at the box centre, rotated into the image
+    yy = -roi_h[:, None, None] / 2.0 + ph[None, :, None] * bin_h[:, None, None] + (
+        g[None, None, :] + 0.5) * bin_h[:, None, None] / grid_h[:, None, None]
+    xx = -roi_w[:, None, None] / 2.0 + ph[None, :, None] * bin_w[:, None, None] + (
+        g[None, None, :] + 0.5) * bin_w[:, None, None] / grid_w[:, None, None]
+    shape = (n, P, P, G, G)
+    yf = yy[:, :, None, :, None].expand(shape)
+    xf = xx[:, None, :, None, :].expand(shape)
+    active = ((g[None, None, :] < grid_h[:, None, None])[:, :, None, :, None]
+              & (g[None, None, :] < grid_w[:, None, None])[:, None, :, None, :]).expand(shape)
+    c5, s5 = cos_t[:, None, None, None, None], sin_t[:, None, None, None, None]
+    y = yf * c5 - xf * s5 + cy[:, None, None, None, None]
+    x = yf * s5 + xf * c5 + cx[:, None, None, None, None]
+    pos, w = _bilinear_params(y, x, h_l[:, None, None, None, None], w_l[:, None, None, None, None])
+    w = torch.where(active[None], w, torch.zeros_like(w))
+    pos = pos.long() + off_l[None, :, None, None, None, None]
+    outs = []
+    for s in range(0, n, chunk):
+        p = pos[:, s:s + chunk]
+        vals = flat[p.reshape(-1)].reshape(p.shape + (C,))
+        weighted = vals * w[:, s:s + chunk, ..., None].to(dtype)
+        outs.append(weighted.sum(dim=(0, 4, 5)) / count[s:s + chunk, None, None, None].to(dtype))
+    return torch.cat(outs) if outs else flat.new_zeros((0, P, P, C))
+
+
+def roi_align_rotated(
+    feature: torch.Tensor,  # (B, H, W, C) one level
+    rois: torch.Tensor,  # (B, R, 5) (cx, cy, w, h, angle_deg) in image coordinates
+    spatial_scale: float,
+    output_size: int = 7,
+    sampling_ratio: int = 0,
+    max_grid: int = 4,
+    aligned: bool = True,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """RoIAlign over rotated boxes on one level (``roi_align.py:750``): the
+    RoIAlign lattice in the box frame (``aligned`` half-pixel offset, the
+    adaptive ``ceil(bin)`` grid capped at ``max_grid`` with the unused
+    samples masked) rotated by the box angle about its centre, then the
+    bilinear gather with ROIAlign's edge rules. (B, R, P, P, C) in the
+    feature dtype."""
+    B, H, W, C = feature.shape
+    R = rois.shape[1]
+    device = rois.device
+    n = B * R
+    flat = feature.reshape(B * H * W, C)
+    off = torch.arange(B, device=device).repeat_interleave(R) * (H * W)
+    out = _rotated_pool(flat, rois.reshape(n, 5), spatial_scale, torch.full((n,), float(H), device=device),
+                        torch.full((n,), float(W), device=device), off, output_size, sampling_ratio, max_grid,
+                        aligned, chunk)
+    return out.reshape(B, R, output_size, output_size, C)
+
+
+def multilevel_roi_align_rotated(
+    features: Sequence[torch.Tensor],  # per-level (B, H, W, C)
+    rois: torch.Tensor,  # (B, R, 5)
+    strides: Tuple[int, ...],
+    levels: torch.Tensor,  # (B, R) level of each box, offsets from the first
+    output_size: int = 7,
+    sampling_ratio: int = 0,
+    max_grid: int = 4,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Each box pooled by ``roi_align_rotated`` on its own level only. JAX
+    pools every box on every level and keeps its level's result
+    (``rotated_fast_rcnn.py:221-237``); a box's result does not depend on
+    the other levels, so this is the same function at a level's cost.
+    (B, R, P, P, C)."""
+    B, R = rois.shape[:2]
+    C = features[0].shape[-1]
+    device = rois.device
+    shapes = [tuple(f.shape[1:3]) for f in features]
+    sizes = [h * w for h, w in shapes]
+    total = sum(sizes)
+    flat = torch.cat([f.reshape(B, -1, C) for f in features], dim=1).reshape(B * total, C)
+    starts = [0]
+    for s in sizes[:-1]:
+        starts.append(starts[-1] + s)
+    lv = levels.reshape(-1).long()
+    img = torch.arange(B, device=device).repeat_interleave(R)
+    off = torch.tensor(starts, device=device)[lv] + img * total
+    dt = rois.dtype
+    scale = torch.tensor([1.0 / s for s in strides], dtype=dt, device=device)[lv]
+    h_l = torch.tensor([float(h) for h, _ in shapes], dtype=dt, device=device)[lv]
+    w_l = torch.tensor([float(w) for _, w in shapes], dtype=dt, device=device)[lv]
+    out = _rotated_pool(flat, rois.reshape(B * R, 5), scale, h_l, w_l, off, output_size, sampling_ratio,
+                        max_grid, True, chunk)
+    return out.reshape(B, R, output_size, output_size, C)
 
 
 # ---------------------------------------------------------------------------

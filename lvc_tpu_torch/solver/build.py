@@ -10,6 +10,12 @@ the learning rate; the clipping runs on the raw gradients in ``step`` before
 that; frozen parameters get ``requires_grad=False`` and stay out of the
 optimizer. The schedule is a ``LambdaLR`` whose factor at count 0 is the
 JAX schedule at count 0, which optax uses for the first update.
+
+``build_clip_optimizer`` (``build.py:195-208``, the ResNet-D retrain of
+``train_net_qe_ig``) scales the whole SGD update of ``backbone.bottom_up``
+by ``CLIP_LR / max(BASE_LR, 1e-12)``. With dampening 0 the momentum buffer
+is in gradient units, so that is the same as those parameters' groups
+stepping at the scaled learning rate, which is what it builds.
 """
 from __future__ import annotations
 
@@ -88,13 +94,21 @@ def trainability_mask(model: nn.Module, cfg) -> Dict[str, bool]:
     return {name: decide(name) for name, _ in model.named_parameters()}
 
 
-def _wd_group(name: str) -> str:
-    """d2's weight-decay groups (``build.py:133-149``)."""
-    if ".norm." in f".{name}":
-        return "norm"
-    if name.endswith(".bias"):
-        return "bias"
-    return "other"
+def wd_groups(model: nn.Module) -> Dict[str, str]:
+    """parameter name -> its weight-decay group by JAX's path rule
+    (``_wd_group_masks``, ``build.py:133-149``): "norm" for a GroupNorm's
+    parameters (JAX: the path holds ``GroupNorm``; FrozenBN holds buffers
+    here and BatchNorm is not ported); "bias" for any other ``bias`` (JAX: a
+    path ending in ``/bias`` without ``Norm``, which takes Swin's LayerNorm
+    biases, flax-named ``norm1`` and the like); "other" for the rest, Swin's
+    LayerNorm scales among them."""
+    from lvc_tpu_torch.modeling.layers import GroupNorm
+
+    norm = {id(p) for m in model.modules() if isinstance(m, GroupNorm) for p in m.parameters(recurse=False)}
+    return {
+        name: "norm" if id(p) in norm else "bias" if name.endswith(".bias") or name == "bias" else "other"
+        for name, p in model.named_parameters()
+    }
 
 
 # ---------------------------------------------------------------- optimizer
@@ -132,19 +146,24 @@ class SGD(torch.optim.SGD):
         return super().step(closure)
 
 
-def build_optimizer(cfg, model: nn.Module) -> SGD:
+def build_optimizer(cfg, model: nn.Module, lr_scale=None) -> SGD:
     """SGD with momentum, d2's weight-decay groups and the freeze mask:
-    frozen parameters get ``requires_grad=False`` and no group."""
+    frozen parameters get ``requires_grad=False`` and no group.
+    ``lr_scale``: name -> a factor on that parameter's learning rate (its
+    groups are split from the others')."""
     s = cfg.SOLVER
     mask = trainability_mask(model, cfg)
     decay = {"other": s.WEIGHT_DECAY, "bias": s.WEIGHT_DECAY_BIAS, "norm": s.WEIGHT_DECAY_NORM}
-    groups: Dict[str, list] = {k: [] for k in decay}
+    wd = wd_groups(model)
+    groups: Dict[tuple, list] = {}
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
-            groups[_wd_group(name)].append(p)
+            scale = 1.0 if lr_scale is None else lr_scale(name)
+            groups.setdefault((wd[name], scale), []).append(p)
     param_groups = [
-        {"params": ps, "weight_decay": decay[k]} for k, ps in groups.items() if ps
+        {"params": ps, "weight_decay": decay[k], "lr": s.BASE_LR * scale}
+        for (k, scale), ps in sorted(groups.items(), key=lambda kv: (kv[0][1] != 1.0, list(decay).index(kv[0][0])))
     ]
     clip = s.CLIP_GRADIENTS
     return SGD(
@@ -155,3 +174,12 @@ def build_optimizer(cfg, model: nn.Module) -> SGD:
         momentum=s.MOMENTUM,
         nesterov=s.NESTEROV,
     )
+
+
+def build_clip_optimizer(cfg, model: nn.Module) -> SGD:
+    """``build_optimizer`` whose ``backbone.bottom_up`` parameters step at
+    ``CLIP_LR``: their learning rate scaled by ``CLIP_LR / max(BASE_LR,
+    1e-12)`` (JAX scales their whole update by it; see the module
+    docstring)."""
+    ratio = cfg.SOLVER.CLIP_LR / max(cfg.SOLVER.BASE_LR, 1e-12)
+    return build_optimizer(cfg, model, lambda name: ratio if name.startswith("backbone.bottom_up.") else 1.0)

@@ -10,11 +10,11 @@
 (``keep_ignore=True``: crowd and ``ignore_qe`` boxes become ``gt_ignores``),
 over the training sets merged with the ``QUERY_EXPAND`` pseudo-annotation
 files that ``register_results`` registers. Since the loader is given that
-mapper, ``INPUT.MOSAIC`` does not apply here, as in JAX. A ResNet-D
-backbone (``MODEL.RESNETS.D``, which JAX fine-tunes with its CLIP
-optimizer) raises when the model is built: ResNet-D is not ported
-(ROADMAP.md queue 1, item 10). It runs on the card; ``MODEL.DEVICE cpu``
-asks for the CPU.
+mapper, ``INPUT.MOSAIC`` does not apply here, as in JAX. With a ResNet-D
+backbone (``MODEL.RESNETS.D True``) the trainer builds the CLIP optimizer
+(``solver.build.build_clip_optimizer``: ``backbone.bottom_up`` steps at
+``SOLVER.CLIP_LR``), as JAX's does (``tools/train_net_qe_ig.py:31-39``). It
+runs on the card; ``MODEL.DEVICE cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from lvc_tpu_torch.data.utils import register_results
 from lvc_tpu_torch.engine.defaults import DefaultTrainer, default_argument_parser
 from lvc_tpu_torch.engine.launch import launch
 from lvc_tpu_torch.evaluation.testing import verify_results
+from lvc_tpu_torch.solver.build import build_clip_optimizer
 from lvc_tpu_torch.tools.train_net import setup
 from lvc_tpu_torch.utils import comm
 
@@ -35,6 +36,12 @@ class TrainerQEIgnore(DefaultTrainer):
         rank, world_size = comm.get_rank(), comm.get_world_size()
         mapper = DatasetMapper(cfg, is_train=True, keep_ignore=True, seed=max(cfg.SEED, 0) + rank)
         return build_detection_train_loader(cfg, mapper=mapper, rank=rank, world_size=world_size)
+
+    @classmethod
+    def build_optimizer(cls, cfg, model):
+        if cfg.MODEL.RESNETS.D:
+            return build_clip_optimizer(cfg, model)
+        return super().build_optimizer(cfg, model)
 
 
 def main(args):

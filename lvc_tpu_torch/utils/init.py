@@ -4,16 +4,27 @@
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 from torch import nn
 
 
+_NORM_WEIGHT = re.compile(r"(^|\.)norm\d*\.weight$")  # <conv>.norm, and Swin's LayerNorms (norm1, norm2, norm{i})
+
+
 def _starts_at_one(name: str, leaf: str) -> bool:
-    """Norm weights (``<conv>.norm.weight``, FrozenBN or GN), ``running_var``
-    and the cosine classifier's learnable ``scale`` start at one, as JAX's
+    """Norm weights (``<conv>.norm.weight``, FrozenBN or GN, and the Swin
+    LayerNorms' ``norm``/``norm1``/``norm2``/``norm{i}``), ``running_var`` and
+    the cosine classifier's learnable ``scale`` start at one, as JAX's
     ``materialize_variables`` fills them."""
-    return leaf in ("running_var", "scale") or (leaf == "weight" and ".norm." in f".{name}")
+    return leaf in ("running_var", "scale") or bool(_NORM_WEIGHT.search(name))
+
+
+def _starts_at_zero(name: str) -> bool:
+    """A deformable block's offset conv starts at zero, so the block starts
+    as a plain bottleneck (JAX's ``offset_conv`` initialisers)."""
+    return ".conv2_offset." in f".{name}"
 
 
 @torch.no_grad()
@@ -28,6 +39,8 @@ def he_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if _starts_at_one(name, leaf):
             t.fill_(1.0)
+        elif _starts_at_zero(name):
+            t.zero_()
         elif leaf == "weight" and t.dim() == 4:
             std = math.sqrt(2.0 / (t.shape[0] * t.shape[2] * t.shape[3]))
             t.copy_(torch.randn(t.shape, generator=generator, device=t.device, dtype=t.dtype) * std)
@@ -51,7 +64,7 @@ def damped_init(model: nn.Module, seed: int = 0) -> nn.Module:
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, t in tensors.items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("bias", "running_mean"):
+        if leaf in ("bias", "running_mean") or _starts_at_zero(name):
             t.zero_()
         elif _starts_at_one(name, leaf):
             t.fill_(1.0)
