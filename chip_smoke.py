@@ -277,8 +277,21 @@ Phases, each of which raises (non-zero exit) on failure:
    RotatedCOCOEvaluator on oracle boxes (AP 100) and on them turned 15
    degrees (the AP the boxes' geometry predicts); no TPU kernel;
 44. the narrow Swin-FPN, ResNet-D (CLIP optimizer), DCN v1 and v2 detectors
-   and narrow RROIHeads on the card and the CPU against float64 witnesses.
-Phases 1-11 and 16-44 run with the fused path off, whatever the environment
+   and narrow RROIHeads on the card and the CPU against float64 witnesses;
+45. test-time augmentation: phase 4's R-101-FPN (bf16, POOLER_IMPL auto,
+   seeded damped weights) on one seeded 480x640 image at TEST.AUG's nine
+   default scales x {identity, flip} = 18 variants, on canvas buckets that
+   hold them (TTA_BUCKETS), K2 once a variant; each identity variant equal
+   to the plain eval forward on its canvas, the merge on the card equal to
+   the same merge on the host; a narrow model's TTA on the card and the CPU
+   against a float64 witness; ms an image and the merge's share;
+46. export: phase 4's serving forward (R-101-FPN bf16 pallas_fast, B=8 at
+   832x1344), DINO ViT-S/8 bf16 at B=64 and one fused GEMM call through
+   torch.export, each saved to a .pt2, loaded and run: K1, the attention and
+   the fused GEMM launched from the loaded programs, outputs equal to the
+   eager calls', export and load seconds, the loaded program's ms against
+   the eager forward's.
+Phases 1-11 and 16-46 run with the fused path off, whatever the environment
 says (spawned ranks inherit it), but for phase 41's fused serving batch.
 The last three lines are the kernels' JSON, the card's name and power limit,
 and {"ok": true, "device": ...}. Float32 comparisons run with TF32 off for
@@ -354,6 +367,19 @@ def host_us(fn, iters: int = 100) -> float:
     us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def route_host_us(wrapper, op, *args, rounds: int = 3):
+    """The host's microseconds per call of a hand kernel's two routes on the
+    same inputs: the wrapper (eager calls, straight to its ``launch``) and
+    its custom op through the dispatcher (what an exported program calls,
+    landing in the same ``launch``); the least of ``rounds`` alternating
+    means of 100 calls each."""
+    direct, through_op = [], []
+    for _ in range(rounds):
+        direct.append(host_us(lambda: wrapper(*args)))
+        through_op.append(host_us(lambda: op(*args)))
+    return min(direct), min(through_op)
 
 
 def bf16_ulp(x):
@@ -513,6 +539,8 @@ def kernel_phase(tag):
             raise AssertionError(f"{case}: two calls differ")
         ms = cuda_ms(lambda: kernel(feats, taps), 50)
         plain_ms = cuda_ms(lambda: ra.roi_align_taps_plain(feats, taps, kernel.paired), 3)
+        op = getattr(torch.ops.lvc_tpu_torch, kernel.symbol)
+        wrapper_us, op_us = route_host_us(lambda *_: kernel(feats, taps), op, list(feats), *taps)
         bound_ms, bound_by, nbytes, ops = bound(feats, taps)
         # feature bytes: the union of the boxes' pixels (in the bound) against
         # the sum of each box's window, what a per-box design fetches from L2
@@ -525,8 +553,9 @@ def kernel_phase(tag):
             results[name] = dict(
                 name=name, route="cuda", source=KERNEL_SOURCE[name], replaces=KERNEL_REPLACES[name],
                 launches=0, max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, host_us=wrapper_us, op_host_us=op_us,
             )
+        print(f"kernel {case}: host us per call, wrapper {wrapper_us:.1f}, custom op {op_us:.1f} {tag}")
         print(f"kernel {case}: boxes {taps.lvl.numel()} max_abs_err {float(err.max())} "
               f"(tolerance 1 bf16 ulp; two calls bit-equal) ms {ms:.4f} plain_ms {plain_ms:.3f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, {ops} ops) share "
@@ -1284,6 +1313,9 @@ def attention_kernel_phase(tag):
             peak_text += f", against float64: kernel {vs64[0]:.3e}, plain {vs64[1]:.3e}"
         ms = cuda_ms(lambda: flash_attention(qkv, scale), 20)
         plain_ms = cuda_ms(lambda: flash_attention_plain(qkv, scale), 3)
+        wrapper_us, op_us = route_host_us(flash_attention, torch.ops.lvc_tpu_torch.flash_attention_fwd, qkv, scale)
+        print(f"kernel flash_attention_fwd {name}: host us per call, wrapper {wrapper_us:.1f}, custom op "
+              f"{op_us:.1f} {tag}")
         q, k, v = (t.transpose(1, 2).contiguous() for t in qkv.unbind(2))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
         bound_ms, bound_by, nbytes, ops = attention_bound(B, N, H, d, qkv.element_size(), rate)
@@ -1297,11 +1329,12 @@ def attention_kernel_phase(tag):
             name="flash_attention_fwd", route="cuda", source="lvc_tpu_torch/ops/csrc/flash_attention_fwd.cu",
             replaces="lvc_tpu/modeling/backbone/vit.py:80", launches=0, max_abs_err=max_abs_err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-            dtype=name,
+            dtype=name, host_us=wrapper_us, op_host_us=op_us,
         )
         del qkv, q, k, v
     torch.cuda.empty_cache()
-    bf16 = {key: rows["bfloat16"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    bf16 = {key: rows["bfloat16"][key]
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "host_us", "op_host_us")}
     return dict(rows["float32"], bfloat16=bf16)
 
 
@@ -1798,7 +1831,7 @@ def fused_kernel_phase(tag):
     from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual_plain as plain
 
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, unfused_ms=0.0, matmul_ms=0.0)
-    max_err, shapes, host = 0.0, [], []
+    max_err, shapes, host, op_host = 0.0, [], [], []
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, B, H, W, K, N, relu, calls in FUSED_SHAPES:
         x = torch.randn(B, H, W, K, generator=g, device="cuda").to(torch.bfloat16)
@@ -1826,7 +1859,8 @@ def fused_kernel_phase(tag):
                   f"tolerance 1 ulp + 1e-5 * S) {tag}")
             del got, want
         ms = cuda_ms(lambda: kernel(x2d, w_kn, scale, shift, res2d, relu=relu), 20)
-        wrapper_us = host_us(lambda: kernel(x2d, w_kn, scale, shift, res2d, relu=relu))
+        wrapper_us, op_us = route_host_us(kernel, torch.ops.lvc_tpu_torch.matmul_affine_residual,
+                                          x2d, w_kn, scale, shift, res2d, relu)
         plain_ms = cuda_ms(lambda: plain(x2d, w_kn, scale, shift, res2d, relu=relu), 3)
         matmul_ms = cuda_ms(lambda: torch.matmul(x2d, w_kn), 20)
         conv = (Conv2d(K, N, kernel_size=1, bias=False, norm="FrozenBN", activation=F.relu) if relu
@@ -1845,26 +1879,29 @@ def fused_kernel_phase(tag):
         print(f"kernel matmul_affine_residual {name} (M, K, N) ({M}, {K}, {N}) x{calls} per R-101 forward: "
               f"ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, "
               f"{ops} flops) share of bound {bound_ms / ms:.3f}; unfused Conv2d tail ms {unfused_ms:.4f}, "
-              f"torch.matmul product alone ms {matmul_ms:.4f}; wrapper host us per call {wrapper_us:.1f} {tag}")
+              f"torch.matmul product alone ms {matmul_ms:.4f}; host us per call, wrapper {wrapper_us:.1f}, custom op "
+              f"{op_us:.1f} {tag}")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                        ("unfused_ms", unfused_ms), ("matmul_ms", matmul_ms)):
             total[key] += calls * v
         host.append(wrapper_us)
+        op_host.append(op_us)
         shapes.append(dict(shape=[M, K, N], calls=calls, ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
-                           unfused_ms=unfused_ms, host_us=wrapper_us))
+                           unfused_ms=unfused_ms, host_us=wrapper_us, op_host_us=op_us))
         del x, w, res, x2d, res2d, w_kn, conv, x_nchw, res_nchw
         torch.cuda.empty_cache()
-    host_mean = sum(host) / len(host)
+    host_mean, op_host_mean = sum(host) / len(host), sum(op_host) / len(op_host)
     print(f"kernel matmul_affine_residual, the 36 calls of one R-101-FPN forward: ms {total['ms']:.4f} "
           f"bound_ms {total['bound_ms']:.4f} share of bound "
           f"{total['bound_ms'] / total['ms']:.3f} plain_ms {total['plain_ms']:.3f} unfused Conv2d tails ms "
-          f"{total['unfused_ms']:.4f} torch.matmul products ms {total['matmul_ms']:.4f}; wrapper host us per "
-          f"call {host_mean:.1f} (mean of the seven shapes) {tag}")
+          f"{total['unfused_ms']:.4f} torch.matmul products ms {total['matmul_ms']:.4f}; host us per call, "
+          f"wrapper {host_mean:.1f}, custom op {op_host_mean:.1f} (means of the seven shapes) {tag}")
     return dict(
         name="matmul_affine_residual", route="cuda", source=FUSED_SOURCE, replaces=FUSED_REPLACES,
         launches=0, max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=total["bound_ms"], bound_by="bytes", library_ms=None,
-        host_us=host_mean, work="the 36 calls of one R-101-FPN forward at 8x832x1344 (times summed)",
+        host_us=host_mean, op_host_us=op_host_mean,
+        work="the 36 calls of one R-101-FPN forward at 8x832x1344 (times summed)",
         shapes=shapes,
     )
 
@@ -3297,7 +3334,7 @@ def finetune_reference_check(tag):
 
 CHAIN_TREE = (32, 8, 8)  # training, test and unlabeled images
 CHAIN_FT_NOVEL = "checkpoints/coco/faster_rcnn/faster_rcnn_R_50_FPN_ft_novel_30shot/model_final.pth"  # step 3's
-CHAIN_ITERS = 10  # a training run of the chain: few, so that the whole script stays well inside its time limit
+CHAIN_ITERS = 6  # a training run of the chain: few, so that the whole script stays well inside its time limit
 # K2/K3 launches of every iteration of the chain's training runs
 CHAIN_LAUNCHES = {"1": (1, 1), "3": (1, 0), "5": (1, 0), "8": (3, 3), "9": (3, 0), "18": (1, 1)}
 
@@ -7062,6 +7099,331 @@ def variant_reference_check(tag, kinds=("swin", "resnet_d", "dcn", "dcn_v2"), ro
         rroi_reference_check(tag)
 
 
+# phase 45's canvases: TEST.AUG.MIN_SIZES' nine short sides on a 480x640 image
+# (400x533 ... 1200x1600), each rounded up to a multiple of 32; the default
+# PAD.CANVAS_BUCKETS hold none past 1008 wide, where the mapper raises, as JAX's
+TTA_BUCKETS = [[416, 544], [512, 672], [608, 800], [704, 960], [800, 1088], [928, 1216], [1024, 1344],
+               [1120, 1472], [1216, 1600]]
+
+
+def tta_path(tag, kernels):
+    """Phase 45: ``GeneralizedRCNNWithTTA`` around phase 4's R-101-FPN with
+    POOLER_IMPL auto (bf16, seeded damped weights, score threshold 0.001) on
+    a seeded 480x640 image: TEST.AUG's defaults, 9 scales x 2 flips = 18
+    variants on ``TTA_BUCKETS``. A warm-up call, then 3 timed calls with
+    every count set to 0 just before and read just after (K2 18 times a
+    call); the variants' forwards and the merge timed apart; each identity
+    variant against the plain eval forward on its canvas and the card's
+    merge against the host's, bit for bit; then ``tta_reference_check``."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.modeling.test_time_augmentation import (
+        GeneralizedRCNNWithTTA, _boxes_to_original, merge_tta_detections,
+    )
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.utils.init import damped_init
+
+    cfg = serving_cfg("auto")
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
+    cfg.PAD.CANVAS_BUCKETS = TTA_BUCKETS
+    model = damped_init(build_model(cfg), seed=0)
+    image = (np.random.RandomState(0).rand(480, 640, 3) * 255).astype(np.uint8)
+    tta = GeneralizedRCNNWithTTA(cfg, model)
+    variants = tta.tta_mapper(image)
+    if len(variants) != 18:
+        raise AssertionError(f"TTA: {len(variants)} variants, want 18")
+    tta(image)  # warm-up: every canvas once
+    torch.cuda.synchronize()
+    ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        boxes, scores, classes, ok = tta(image)  # numpy: synchronised
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    n = ra.roi_align_band.launches, ra.roi_align_paired.launches
+    if n != (0, 18 * iters):
+        raise AssertionError(f"TTA: K1/K2 launches {n} over {iters} calls, want (0, {18 * iters})")
+    add_launches(kernels, "roi_align_paired", n[1])
+    if boxes.shape != (100, 4) or not np.isfinite(boxes).all() or not ok.any():
+        raise AssertionError(f"TTA: merged boxes {boxes.shape}, {int(ok.sum())} kept")
+
+    t0 = time.perf_counter()
+    (vb, vs, vc, vv), device = tta.variant_detections(image)
+    t1 = time.perf_counter()
+    merged = merge_tta_detections(*(torch.from_numpy(x).to(device) for x in (vb, vs, vc, vv)),
+                                  tta.nms_thresh, tta.topk)
+    merged = [t.cpu() for t in merged]
+    t2 = time.perf_counter()
+    host = merge_tta_detections(*(torch.from_numpy(x) for x in (vb, vs, vc, vv)), tta.nms_thresh, tta.topk)
+    for name, a, b in zip(("boxes", "scores", "classes", "ok"), merged, host):
+        if not torch.equal(a, b):
+            raise AssertionError(f"TTA: the card's merge differs from the host's in {name}")
+    D = cfg.TEST.DETECTIONS_PER_IMAGE
+    scale_ms = []
+    for i, v in enumerate(variants):
+        if v["tta_flip"]:
+            continue
+        batch = {"image": torch.from_numpy(v["image"][None]).to(device),
+                 "image_size": torch.from_numpy(v["image_size"][None]).to(device)}
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        dets = model(batch)
+        torch.cuda.synchronize()
+        scale_ms.append(f"{int(v['image_size'][0])}: {(time.perf_counter() - s0) * 1e3:.1f}")
+        rows = slice(i * D, (i + 1) * D)
+        same = (np.array_equal(vb[rows], _boxes_to_original(dets.boxes[0].cpu().numpy(), v["tta_scale"], False,
+                                                            v["tta_width"]))
+                and np.array_equal(vs[rows], dets.scores[0].cpu().numpy())
+                and np.array_equal(vc[rows], dets.classes[0].cpu().numpy())
+                and np.array_equal(vv[rows], dets.valid[0].cpu().numpy()))
+        if not same:
+            raise AssertionError(f"TTA: identity variant at {tuple(v['image_size'])} differs from the plain forward")
+    print(f"tta: R-101-FPN bf16 auto, 1 image 480x640, 18 variants (9 scales 400-1200 x flip, canvases "
+          f"{TTA_BUCKETS[0]}..{TTA_BUCKETS[-1]}): {ms:.2f} ms an image, K1/K2 {n[0]}/{n[1]} over {iters} calls; "
+          f"variants {(t1 - t0) * 1e3:.2f} ms, merge {(t2 - t1) * 1e3:.2f} ms (share "
+          f"{(t2 - t1) / (t2 - t0):.4f}); {int(vv.sum())} variant detections -> {int(ok.sum())} kept; identity "
+          f"variants equal to the plain forward and the card's merge to the host's, bit for bit {tag}")
+    print(f"tta: one identity variant's forward (B=1, from a copied canvas), ms by short side: "
+          f"{', '.join(scale_ms)} {tag}")
+    del model
+    torch.cuda.empty_cache()
+    tta_reference_check(tag)
+
+
+def tta_reference_check(tag):
+    """The narrow R-50-FPN (``calibrated_init``, float32, POOLER_IMPL auto)
+    through TTA on a seeded 96x128 image (scales 96, 128 and 160 x flip on
+    one 160x224 canvas): the card's and the CPU's merged detections each
+    against a float64 witness of the same weights on the CPU, the card
+    within ``witness_limit`` of the CPU's distance; kept slots and classes
+    equal."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.modeling.test_time_augmentation import GeneralizedRCNNWithTTA
+
+    cfg = narrow_cfg("auto")
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 200
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 100
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    cfg.TEST.AUG.MIN_SIZES = (96, 128, 160)
+    cfg.PAD.CANVAS_BUCKETS = [[160, 224]]
+    image = (np.random.RandomState(5).rand(96, 128, 3) * 255).astype(np.uint8)
+    cpu = build_model(cfg, device="cpu")
+    calibrated_init(cpu, seed=0)
+    card = build_model(cfg)
+    card.load_state_dict(cpu.state_dict())
+    wit = build_model(cfg, device="cpu").double()
+    wit.load_state_dict(cpu.state_dict())
+    wit.compute_dtype = torch.float64
+
+    def witness(batch):
+        with float64_witness():
+            return wit({"image": torch.from_numpy(batch["image"]).double(), "image_size": batch["image_size"]})
+
+    out = {}
+    for key, fn in (("card", card), ("cpu", cpu), ("witness", witness)):
+        out[key] = GeneralizedRCNNWithTTA(cfg, fn)(image)
+    ref = out["witness"]
+    ok = ref[3]
+    errs = {}
+    for key in ("card", "cpu"):
+        b, s, c, k = out[key]
+        if not np.array_equal(k, ok) or not np.array_equal(c[ok], ref[2][ok]) or int(ok.sum()) < 10:
+            raise AssertionError(f"TTA reference: the {key}'s kept slots or classes differ from the witness's")
+        errs[key] = (float(np.abs(b[ok].astype(np.float64) - ref[0][ok]).max()),
+                     float(np.abs(s[ok].astype(np.float64) - ref[1][ok]).max()))
+    (cb, cs), (pb, ps) = errs["card"], errs["cpu"]
+    if cb > witness_limit("box", pb) or cs > witness_limit("score", ps):
+        raise AssertionError(f"TTA reference: card box/score err {cb:.3e}/{cs:.3e} against the CPU's {pb:.3e}/{ps:.3e}")
+    print(f"tta reference: narrow R-50-FPN float32 auto, 6 variants, {int(ok.sum())} kept; from the float64 witness "
+          f"box err card {cb:.3e} CPU {pb:.3e} (limit {witness_limit('box', pb):.1e}), score err card {cs:.3e} CPU "
+          f"{ps:.3e} (limit {witness_limit('score', ps):.1e}) {tag}")
+
+
+def exported_equal(what, got, want):
+    """An exported program's outputs against the eager call's: bit for bit,
+    or else within 1e-3 px and 1e-4 with classes and validity equal (the
+    fields that differ are named). Returns a description."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        got, want = {"out": got}, {"out": want}
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if not differ:
+        return "equal bit for bit"
+    if "valid" in want:
+        v = want["valid"]
+        if not torch.equal(got["valid"], v) or not torch.equal(got["classes"][v], want["classes"][v]):
+            raise AssertionError(f"{what}: validity or classes differ from the eager forward")
+        box = float((got["boxes"][v].double() - want["boxes"][v].double()).abs().max())
+        score = float((got["scores"][v].double() - want["scores"][v].double()).abs().max())
+        if box > 1e-3 or score > 1e-4:
+            raise AssertionError(f"{what}: {differ} differ from the eager forward, box {box:.3e} score {score:.3e}")
+        return f"{differ} differ: box {box:.3e} px (tol 1e-3), score {score:.3e} (tol 1e-4)"
+    raise AssertionError(f"{what}: {differ} differ from the eager call")
+
+
+def export_layout(program, batch):
+    """The layout of a loaded program's hand-kernel ops: one run of its graph
+    on ``batch`` through ``torch.fx.Interpreter``, holding each node's real
+    output strides against those of the fake tensor the trace recorded.
+    Returns the count of tensor nodes, of those whose strides differ (with
+    up to 5 of their ops), of the copies (``aten.clone``, ``contiguous``)
+    that feed a ``lvc_tpu_torch`` op, of the copies whose real input already
+    had the real output's strides (a copy an eager run skips: the trace
+    recorded it for a fake layout; up to 5 named), each op's tensor inputs
+    as (fake, real) strides where they differ, and the graph's copying nodes
+    by op."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    def strides(v):
+        return tuple(v.stride()) if isinstance(v, torch.Tensor) and v.layout == torch.strided else None
+
+    ops = [n for n in program.graph.nodes if n.op == "call_function" and str(n.target).startswith("lvc_tpu_torch.")]
+    copies = sum(1 for n in ops for a in pytree.tree_leaves(n.args)
+                 if isinstance(a, torch.fx.Node) and str(a.target).split(".")[1:2] in (["clone"], ["contiguous"]))
+    copy_ops = {}
+    for n in program.graph.nodes:
+        if n.op == "call_function" and any(w in str(n.target) for w in ("clone", "copy", "contiguous")):
+            copy_ops[str(n.target)] = copy_ops.get(str(n.target), 0) + 1
+    seen = dict(nodes=0, differ=0, first=[], copies_into_ops=copies, needless_copies=0, needless=[], op_inputs=[],
+                copy_ops=copy_ops)
+
+    class Run(torch.fx.Interpreter):
+        def run_node(self, n):
+            out = super().run_node(n)
+            fake = n.meta.get("val")
+            if strides(out) is not None and strides(fake) is not None:
+                seen["nodes"] += 1
+                if strides(out) != strides(fake) and out.numel() > 1:
+                    seen["differ"] += 1
+                    if len(seen["first"]) < 5:
+                        seen["first"].append(f"{n.target} {tuple(out.shape)}: fake {strides(fake)}, "
+                                             f"real {strides(out)}")
+            if str(n.target).split(".")[1:2] in (["clone"], ["contiguous"]) and isinstance(n.args[0], torch.fx.Node):
+                src = n.args[0]
+                if strides(self.env[src]) == strides(out):
+                    seen["needless_copies"] += 1
+                    if len(seen["needless"]) < 5:
+                        seen["needless"].append(f"{n.target} of {src.target} {tuple(out.shape)}")
+            if n in ops:
+                for a in pytree.tree_leaves(n.args):
+                    if isinstance(a, torch.fx.Node) and strides(self.env[a]) != strides(a.meta.get("val")):
+                        seen["op_inputs"].append(f"{n.target} <- {a.target}: fake {strides(a.meta.get('val'))}, "
+                                                 f"real {strides(self.env[a])}")
+            return out
+
+    with torch.no_grad():
+        Run(program).run(*pytree.tree_leaves(batch))
+    return seen
+
+
+def export_path(tag, kernels):
+    """Phase 46: ``lvc_tpu_torch.export`` on the card. Phase 4's serving
+    forward (R-101-FPN bf16 pallas_fast, B=8 at 832x1344, seeded damped
+    weights), DINO ViT-S/8 bf16 at B=64 and one fused GEMM call (the R-101's
+    res4 conv3 shape) are exported, saved to a .pt2, loaded and run: a
+    warm-up, then 3 timed calls of the eager model and of the loaded
+    program, every count set to 0 just before and read just after each (K1
+    once a forward, the attention 12 times, the fused GEMM once), and one
+    profiled R-101 forward of each; outputs against the eager calls'
+    (``exported_equal``)."""
+    import torch
+
+    from lvc_tpu_torch.export import export_model, load_exported, save_exported
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.ops import fused_matmul
+    from lvc_tpu_torch.ops import roi_align as ra
+    from lvc_tpu_torch.ops.attention import flash_attention
+    from lvc_tpu_torch.pipeline.verification import build_dino
+    from lvc_tpu_torch.utils.init import damped_init
+
+    def fused(x, w, scale, shift, res):
+        return fused_matmul.conv1x1_affine_residual(x, w, scale, shift, res)
+
+    class Fused(torch.nn.Module):
+        def forward(self, args):
+            return fused(*args)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    M, K, N = 8 * 52 * 84, 256, 1024
+    fused_args = (torch.randn(8, 52, 84, K, generator=g, device="cuda").to(torch.bfloat16),
+                  (torch.randn(N, K, generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16).t(),
+                  torch.rand(N, generator=g, device="cuda") + 0.5, torch.randn(N, generator=g, device="cuda"),
+                  torch.randn(8, 52, 84, N, generator=g, device="cuda").to(torch.bfloat16))
+    crops = torch.randn(64, 224, 224, 3, generator=g, device="cuda")
+    cases = (
+        ("R-101-FPN serving bf16 pallas_fast B=8 832x1344", lambda: damped_init(build_model(serving_cfg("pallas_fast")),
+                                                                               seed=0),
+         serving_batch(8), {"roi_align_band": (ra.roi_align_band, 1)}),
+        ("DINO ViT-S/8 bf16 B=64", lambda: build_dino("dino_vits8", compute_dtype=torch.bfloat16), crops,
+         {"flash_attention_fwd": (flash_attention, 12)}),
+        (f"fused GEMM ({M} x {K} x {N}, bf16)", Fused, fused_args,
+         {"matmul_affine_residual": (fused_matmul.matmul_affine_residual, 1)}),
+    )
+    iters = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, make, batch, counted in cases:
+            model = make()
+            t0 = time.perf_counter()
+            ep = export_model(model, batch)
+            t1 = time.perf_counter()
+            path = os.path.join(tmp, "program.pt2")
+            save_exported(ep, path)
+            t2 = time.perf_counter()
+            program = load_exported(path).module()
+            t3 = time.perf_counter()
+            times, launched = {}, {}
+            with torch.no_grad():
+                for key, fn in (("eager", model), ("exported", program)):
+                    out = fn(batch)  # warm-up
+                    torch.cuda.synchronize()
+                    for wrapper, _ in counted.values():
+                        wrapper.launches = 0
+                    ra.roi_align_paired.launches = 0
+                    s0 = time.perf_counter()
+                    for _ in range(iters):
+                        out = fn(batch)
+                    torch.cuda.synchronize()
+                    times[key] = (time.perf_counter() - s0) * 1e3 / iters
+                    launched[key] = {name: w.launches for name, (w, _) in counted.items()}
+                    if ra.roi_align_paired.launches:
+                        raise AssertionError(f"export {what} {key}: K2 launched")
+                    for name, (w, per_call) in counted.items():
+                        if w.launches != per_call * iters:
+                            raise AssertionError(f"export {what} {key}: {name} launched {w.launches} times, "
+                                                 f"want {per_call * iters}")
+                    if what.startswith("R-101"):
+                        profile_call(lambda: fn(batch), times[key], f"{key} R-101 serving forward", tag)
+                    if key == "eager":
+                        want = out._asdict() if hasattr(out, "_asdict") else out
+                        if isinstance(want, dict):
+                            want = {k: v for k, v in want.items() if v is not None}
+                got = out
+            verdict = exported_equal(f"export {what}", got, want)
+            for name in counted:
+                add_launches(kernels, name, launched["exported"][name])
+            layout = export_layout(program, batch)
+            if layout["copies_into_ops"]:
+                raise AssertionError(f"export {what}: {layout['copies_into_ops']} copies feed the hand-kernel ops")
+            print(f"export {what}: graph layout, {layout['nodes']} tensor nodes, the trace's fake strides differ "
+                  f"from the run's at {layout['differ']} {layout['first']}; copies feeding the hand-kernel ops "
+                  f"{layout['copies_into_ops']}; copies of tensors already in the copy's layout "
+                  f"{layout['needless_copies']} {layout['needless']}; copying nodes {layout['copy_ops']}; "
+                  f"op inputs whose fake strides differ {layout['op_inputs']} {tag}")
+            print(f"export {what}: export {t1 - t0:.1f} s, save {t2 - t1:.1f} s ({os.path.getsize(path) / 2 ** 20:.1f} "
+                  f"MiB), load {t3 - t2:.1f} s; loaded program {times['exported']:.2f} ms against eager "
+                  f"{times['eager']:.2f} ms a call; launches from the loaded program {launched['exported']} over "
+                  f"{iters} calls; outputs {verdict} {tag}")
+            del model, ep, program
+            torch.cuda.empty_cache()
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -7076,7 +7438,7 @@ FT_NOVEL_YAML = "configs/COCO-detection/faster_rcnn_R_50_FPN_ft_novel_30shot.yam
 HANDOFFS = {"base": ("base.pth", 17, TRAIN_NET_YAML), "gate": ("gate.pth", 18, None),
             "ubbr": ("ubbr.pth", 20, UBBR_YAML), "ft_novel": ("ft_novel.pth", 22, FT_NOVEL_YAML)}
 # phases that need another phase's run (its kernels entry, its time or its trained model), added when not selected
-REQUIRES = {4: (2,), 7: (2, 5), 10: (8,), 14: (4, 12), 15: (7, 12), 28: (18,)}
+REQUIRES = {4: (2,), 7: (2, 5), 10: (8,), 14: (4, 12), 15: (7, 12), 28: (18,), 45: (2,), 46: (2, 8, 12)}
 FUSED_PHASES = (12, 13, 14, 15)  # the rest run with the fused path off, whatever the environment says
 
 
@@ -7119,7 +7481,7 @@ def context_phases(run):
 
 
 def phase_table():
-    """(number, function name, call on the run's state) for phases 2-44 in
+    """(number, function name, call on the run's state) for phases 2-46 in
     the order ``main`` runs them; phase 1 (the build) always runs."""
     def k(run):
         return run["kernels"]
@@ -7170,6 +7532,8 @@ def phase_table():
         (42, "dcn_path", lambda r: dcn_path(r["tag"], k(r))),
         (43, "rroi_heads_path", lambda r: rroi_heads_path(r["tag"])),
         (44, "variant_reference_check", lambda r: variant_reference_check(r["tag"])),
+        (45, "tta_path", lambda r: tta_path(r["tag"], k(r))),
+        (46, "export_path", lambda r: export_path(r["tag"], k(r))),
     ]
 
 

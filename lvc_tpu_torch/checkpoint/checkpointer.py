@@ -15,7 +15,9 @@ start iteration from ``last_checkpoint`` when asked to resume; otherwise it
 loads the model weights of ``MODEL.WEIGHTS``. A ``.pth`` or ``.pkl`` state
 dict of detectron2 names loads by name and partially, with the JAX
 package's messages for missing and unexpected keys and its shape check. A
-JAX checkpoint (``.ckpt``, flax msgpack) raises: reading it needs flax.
+JAX checkpoint (``.ckpt``, flax msgpack) is read with ``msgpack`` and numpy
+(``convert.load_flax_checkpoint``) and mapped by ``convert.from_flax``, as
+``tools/convert_reference_ckpt.py`` converts it.
 """
 from __future__ import annotations
 
@@ -29,15 +31,14 @@ from torch import nn
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` (``torch.save``) or ``.pkl`` (detectron2 model zoo) file ->
-    its flat state dict on the CPU; ``{"model": ...}`` wrappers and a
-    ``model.`` key prefix are taken off."""
+    """A ``.pth`` (``torch.save``), ``.pkl`` (detectron2 model zoo) or
+    ``.ckpt`` (the JAX package's flax msgpack) file -> its flat state dict of
+    detectron2 names on the CPU; ``{"model": ...}`` wrappers and a ``model.``
+    key prefix are taken off."""
     if path.endswith(".ckpt"):
-        raise ValueError(
-            f"{path} is a JAX checkpoint (flax msgpack), which the port cannot read: "
-            "export it as a .pth state dict with lvc_tpu.checkpoint.convert.flax_to_torch "
-            "where the JAX package runs"
-        )
+        from lvc_tpu_torch.checkpoint.convert import from_flax, load_flax_checkpoint
+
+        return from_flax(load_flax_checkpoint(path))
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = pickle.load(f, encoding="latin1")
@@ -53,13 +54,16 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+# detectron2 state-dict entries that are no weights of the port's models
+IGNORED_KEYS = ("num_batches_tracked", "anchor_generator.cell_anchors", "pixel_mean", "pixel_std")
+
+
 def load_into_model(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     """Copy the tensors of ``sd`` whose names ``model`` has into it. Unexpected
     and missing keys are printed, as the JAX package's partial load does
     (missing ones keep their initial values); a shape that differs raises."""
     target = model.state_dict()
-    skip = ("num_batches_tracked", "anchor_generator.cell_anchors", "pixel_mean", "pixel_std")
-    incoming = {k: v for k, v in sd.items() if not any(s in k for s in skip)}
+    incoming = {k: v for k, v in sd.items() if not any(s in k for s in IGNORED_KEYS)}
     for k in incoming.keys() - target.keys():
         print(f"[checkpoint] unexpected key in model: {k}")
     for k in sorted(target.keys() - incoming.keys()):

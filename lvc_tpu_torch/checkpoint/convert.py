@@ -59,12 +59,14 @@ deformable block's 3x3 is ``conv2/offset_conv`` (a bare ``nn.Conv``),
 detectron2 DCN checkpoint either.
 ``vit_from_flax`` and ``vit_to_flax`` do the same for the DINO verifier
 ViT. All work on plain nested dicts of numpy
-arrays, so the port needs neither flax nor jax.
+arrays, so the port needs neither flax nor jax. ``load_flax_checkpoint`` reads
+the JAX checkpointer's ``.ckpt`` files (flax's msgpack) into such a dict with
+``msgpack`` and numpy alone.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +87,61 @@ _TOWERS = ("cls_subnet", "bbox_subnet")
 _SWIN_TOP = re.compile(r"^(patch_embed|patch_norm|out_norm\d+|layers\.\d+\.(blocks\.\d+|downsample))$")
 _SWIN_KEY = re.compile(r"^(.*bottom_up)\.(patch_embed\..*|norm\d+\..*|layers\.\d+\.(blocks\.\d+|downsample)\..*)$")
 _SWIN_MODULE = re.compile(r"^(layers\.\d+\.(?:blocks\.\d+|downsample))\.(.*)$")
+
+
+def _flax_ndarray(data: bytes) -> np.ndarray:
+    """flax's ndarray ext payload: msgpack of (shape, dtype name, C-order
+    bytes). numpy has no bfloat16: such arrays come back as float32, exactly."""
+    import msgpack
+
+    shape, dtype, buffer = msgpack.unpackb(data, raw=True)
+    if dtype == b"bfloat16":
+        bits = np.frombuffer(buffer, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype.decode())).reshape(shape).copy()
+
+
+def _flax_ext(code: int, data: bytes):
+    """flax's msgpack ext types for arrays (``flax.serialization._MsgpackExtType``):
+    1 an ndarray, 3 a numpy scalar."""
+    if code == 1:
+        return _flax_ndarray(data)
+    if code == 3:
+        return _flax_ndarray(data)[()]
+    raise ValueError(f"flax msgpack ext type {code} holds no array")
+
+
+def _unchunk(tree: Any) -> Any:
+    """flax stores an array over its chunk size as ``{"__msgpack_chunked_array__",
+    "shape", "chunks"}`` with tuples as ``{"0": ..., "1": ...}`` dicts."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def load_flax_checkpoint(path: str) -> Dict:
+    """A ``.ckpt`` that the JAX package wrote (``DetectionCheckpointer.save``:
+    ``flax.serialization.to_bytes`` of a ``TrainState``, or the
+    variables-only file of ``tools/convert_reference_ckpt.py``) -> its
+    ``{"params", "batch_stats"}`` as nested dicts of numpy arrays, for
+    ``from_flax``. Reads flax's msgpack with ``msgpack`` and numpy alone."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f"reading the JAX checkpoint {path} needs the msgpack package, which this "
+            "environment lacks; convert it to a .pth with "
+            "lvc_tpu_torch.tools.convert_reference_ckpt where msgpack is installed"
+        ) from e
+    with open(path, "rb") as f:
+        tree = _unchunk(msgpack.unpackb(f.read(), ext_hook=_flax_ext, raw=False))
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path} holds no flax variables (no 'params' entry)")
+    return {"params": tree["params"], "batch_stats": tree.get("batch_stats") or {}}
 
 
 def _part_to_torch(part: str) -> str:

@@ -1,5 +1,6 @@
-"""Dataset inference loop (counterpart of
-``lvc_tpu/evaluation/evaluator.py``; lvc/evaluation/evaluator.py
+"""Dataset inference loop and evaluator list (counterpart of
+``lvc_tpu/evaluation/evaluator.py``: DatasetEvaluators:20,
+inference_on_dataset:43; lvc/evaluation/evaluator.py
 inference_on_dataset:85-161).
 
 An eval-mode loop with warm-up and compute timing. ``infer_fn`` runs the
@@ -15,11 +16,37 @@ from __future__ import annotations
 import datetime
 import logging
 import time
-from typing import Callable
+from typing import Callable, List
 
 import torch
 
 logger = logging.getLogger(__name__)
+
+
+class DatasetEvaluators:
+    """Several evaluators run as one: each gets every batch, and their
+    results merge into one dict (a metric key twice is an error)."""
+
+    def __init__(self, evaluators: List):
+        self._evaluators = evaluators
+
+    def reset(self):
+        for e in self._evaluators:
+            e.reset()
+
+    def process_detections(self, dets, metas):
+        for e in self._evaluators:
+            e.process_detections(dets, metas)
+
+    def evaluate(self):
+        results = {}
+        for e in self._evaluators:
+            r = e.evaluate()
+            if r:
+                for k, v in r.items():
+                    assert k not in results, f"duplicate metric key {k}"
+                    results[k] = v
+        return results
 
 
 def _device(out) -> torch.device:

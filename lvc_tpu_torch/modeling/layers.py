@@ -1,7 +1,7 @@
 """Neural-net building blocks (PyTorch, NCHW tensors in channels_last memory).
 
 Counterpart of ``lvc_tpu/modeling/layers.py`` (FrozenBatchNorm:59,
-GroupNorm:127, get_norm:131, Conv2d:257, max_pool_torch:438). Module and buffer names follow
+GroupNorm:127, get_norm:131, Conv2d:257, ASPP:401, max_pool_torch:438). Module and buffer names follow
 detectron2's ``state_dict`` (``conv1.weight``, ``conv1.norm.running_var``), so
 the weight bridge in ``lvc_tpu_torch/checkpoint/convert.py`` is a rename.
 
@@ -189,6 +189,41 @@ class Conv2d(nn.Conv2d):
         ).permute(0, 3, 1, 2)
         if self.activation is not None and not relu:
             y = self.activation(y)
+        return y
+
+
+class ASPP(nn.Module):
+    """Atrous Spatial Pyramid Pooling (detectron2/layers/aspp.py:12): a 1x1
+    conv, three dilated 3x3 convs and a global-mean branch (a 1x1 conv
+    broadcast back over the map, as JAX does instead of resizing), each with
+    ReLU, concatenated and fused by a 1x1 projection with ReLU; dropout after
+    it in training. Names are flax's (``conv1x1``, ``conv3x3_{i}``,
+    ``pool_conv``, ``project``), so ``from_flax`` carries JAX's weights. No
+    model builds it, in either package."""
+
+    def __init__(self, in_channels: int, features: int, dilations=(6, 12, 18), norm: str = "",
+                 dropout: float = 0.0):
+        super().__init__()
+        bias = norm == ""
+        self.conv1x1 = Conv2d(in_channels, features, 1, bias=bias, norm=norm, activation=F.relu)
+        for i, d in enumerate(dilations):
+            conv = Conv2d(in_channels, features, 3, padding=d, dilation=d, bias=bias, norm=norm,
+                          activation=F.relu)
+            self.add_module(f"conv3x3_{i}", conv)
+        self.num_dilations = len(dilations)
+        self.pool_conv = Conv2d(in_channels, features, 1, activation=F.relu)
+        self.project = Conv2d(features * (len(dilations) + 2), features, 1, bias=bias, norm=norm,
+                              activation=F.relu)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches = [self.conv1x1(x)]
+        branches += [getattr(self, f"conv3x3_{i}")(x) for i in range(self.num_dilations)]
+        pooled = self.pool_conv(x.mean(dim=(2, 3), keepdim=True))
+        branches.append(pooled.expand_as(branches[0]))
+        y = self.project(torch.cat(branches, dim=1))
+        if self.dropout > 0 and self.training:
+            y = F.dropout(y, self.dropout)
         return y
 
 

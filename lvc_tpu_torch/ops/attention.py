@@ -46,7 +46,13 @@ class FlashAttention:
     the kernel (building it on first use) or raises; ``launches`` counts the
     launches and nothing else. The kernel reads q, k and v in place through
     the strides of ``qkv`` (head dim 64, contiguous; every stride a multiple of
-    16 bytes, the tensor 16-byte aligned) and writes (B, N, H*d)."""
+    16 bytes, the tensor 16-byte aligned) and writes (B, N, H*d). While
+    ``torch.export`` traces it, it emits the custom op
+    ``lvc_tpu_torch::flash_attention_fwd`` (CPU: the plain version; CUDA:
+    ``launch``). Every check of what the kernel takes runs in ``launch``, on
+    the tensor it launches on: a trace's fake tensors need not carry the
+    run's strides, and ``torch.export`` guards shapes and dtypes, not
+    strides."""
 
     HEAD_DIM = 64
 
@@ -54,14 +60,28 @@ class FlashAttention:
         self.launches = 0
 
     def __call__(self, qkv: torch.Tensor, scale: float) -> torch.Tensor:
+        if torch.compiler.is_compiling():
+            return torch.ops.lvc_tpu_torch.flash_attention_fwd(qkv, float(scale))
+        if qkv.device.type == "cuda":
+            return self.launch(qkv, scale)
+        self._check(qkv)
+        return flash_attention_plain(qkv, scale)
+
+    @staticmethod
+    def _check(qkv: torch.Tensor) -> None:
+        """What any call needs: the shape, the dtype and a device. Fake
+        tensors carry these faithfully, so the op's fake implementation runs
+        it too."""
         if qkv.dim() != 5 or qkv.shape[2] != 3:
             raise ValueError(f"qkv must be (B, N, 3, H, d), got {tuple(qkv.shape)}")
         if qkv.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash attention: dtype {qkv.dtype}")
-        if qkv.device.type == "cpu":
-            return flash_attention_plain(qkv, scale)
-        if qkv.device.type != "cuda":
+        if qkv.device.type not in ("cpu", "cuda"):
             raise RuntimeError(f"flash attention: unsupported device {qkv.device}")
+
+    def _check_card(self, qkv: torch.Tensor) -> None:
+        """What the kernel reads through raw pointers: the head dim, the
+        strides and the alignment, checked on the tensor of the launch."""
         B, N, _, H, d = qkv.shape
         sb, sn, s3, sh, sd = qkv.stride()
         if d != self.HEAD_DIM or sd != 1:
@@ -74,8 +94,18 @@ class FlashAttention:
             )
         if B * H > 65535:
             raise ValueError(f"kernel takes B*H <= 65535, got {B * H}")
+
+    def launch(self, qkv: torch.Tensor, scale: float) -> torch.Tensor:
+        """Check a CUDA ``qkv`` (``_check``, ``_check_card``) and launch the
+        kernel: eager calls and the op's CUDA implementation both land here,
+        so a loaded program's tensor is checked as an eager call's."""
+        self._check(qkv)
+        self._check_card(qkv)
         from lvc_tpu_torch.ops import _build
 
+        B, N, _, H, d = qkv.shape
+        sb, sn, s3, sh, _ = qkv.stride()
+        isz = qkv.element_size()
         lib = _build.load_library("flash_attention_fwd")
         out = torch.empty((B, N, H * d), dtype=qkv.dtype, device=qkv.device)
         if N == 0 or B == 0:
@@ -93,3 +123,20 @@ class FlashAttention:
 
 
 flash_attention = FlashAttention()
+
+
+@torch.library.custom_op("lvc_tpu_torch::flash_attention_fwd", mutates_args=(), device_types="cpu")
+def _flash_attention_op(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    return flash_attention_plain(qkv, scale)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(qkv, scale):
+    return flash_attention.launch(qkv, scale)
+
+
+@_flash_attention_op.register_fake
+def _(qkv, scale):
+    FlashAttention._check(qkv)
+    B, N, _, H, d = qkv.shape
+    return qkv.new_empty((B, N, H * d))

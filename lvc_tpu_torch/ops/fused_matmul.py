@@ -57,7 +57,13 @@ class MatmulAffineResidual:
     launches and nothing else. The kernel takes bf16 x (M, K), w (K, N) whose
     transpose is contiguous, residual (M, N), all contiguous and 16-byte
     aligned, K and N multiples of 8, and scale and shift 8-byte aligned where
-    they are float32 on x's device; it never copies x or the residual."""
+    they are float32 on x's device; it never copies x or the residual. While
+    ``torch.export`` traces it, it emits the custom op
+    ``lvc_tpu_torch::matmul_affine_residual`` (CPU: the plain version; CUDA:
+    ``launch``). Every check of what the kernel takes runs in ``launch``, on
+    the tensors it launches on: a trace's fake tensors need not carry the
+    run's strides, and ``torch.export`` guards shapes and dtypes, not
+    strides."""
 
     def __init__(self):
         self.launches = 0
@@ -71,6 +77,17 @@ class MatmulAffineResidual:
         residual: torch.Tensor,
         relu: bool = True,
     ) -> torch.Tensor:
+        if torch.compiler.is_compiling():
+            return torch.ops.lvc_tpu_torch.matmul_affine_residual(x, w, scale, shift, residual, relu)
+        if x.device.type == "cuda":
+            return self.launch(x, w, scale, shift, residual, relu)
+        self._check(x, w, scale, shift, residual)
+        return matmul_affine_residual_plain(x, w, scale, shift, residual, relu)
+
+    @staticmethod
+    def _check(x, w, scale, shift, residual) -> None:
+        """What any call needs: shapes and a device. Fake tensors carry
+        these faithfully, so the op's fake implementation runs it too."""
         if x.dim() != 2 or w.dim() != 2:
             raise ValueError(f"x and w must be 2-D, got {tuple(x.shape)} and {tuple(w.shape)}")
         M, K = x.shape
@@ -79,10 +96,14 @@ class MatmulAffineResidual:
             raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, residual {tuple(residual.shape)}")
         if tuple(scale.shape) != (N,) or tuple(shift.shape) != (N,):
             raise ValueError(f"scale and shift must be ({N},), got {tuple(scale.shape)}, {tuple(shift.shape)}")
-        if x.device.type == "cpu":
-            return matmul_affine_residual_plain(x, w, scale, shift, residual, relu)
-        if x.device.type != "cuda":
+        if x.device.type not in ("cpu", "cuda"):
             raise RuntimeError(f"fused matmul: unsupported device {x.device}")
+
+    @staticmethod
+    def _check_card(x, w, scale, shift, residual) -> None:
+        """What the kernel reads through raw pointers: dtypes, layouts and
+        alignment, checked on the tensors of the launch."""
+        K, N = w.shape
         if not (x.dtype == w.dtype == residual.dtype == torch.bfloat16):
             raise TypeError(f"fused matmul kernel takes bf16 x, w, residual; got {x.dtype}, {w.dtype}, {residual.dtype}")
         if K % 8 or N % 8:
@@ -99,6 +120,16 @@ class MatmulAffineResidual:
         for t in (scale, shift):
             if t.device == x.device and t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 8:
                 raise ValueError("kernel needs 8-byte aligned float32 scale and shift")
+
+    def launch(self, x, w, scale, shift, residual, relu: bool = True) -> torch.Tensor:
+        """Check the CUDA operands (``_check``, ``_check_card``) and launch
+        the kernel: eager calls and the op's CUDA implementation both land
+        here, so a loaded program's tensors are checked as an eager call's."""
+        self._check(x, w, scale, shift, residual)
+        self._check_card(x, w, scale, shift, residual)
+        M, K = x.shape
+        N = w.shape[1]
+        wt = w.t()
         from lvc_tpu_torch.ops import _build
 
         lib = _build.load_library("fused_matmul")
@@ -119,6 +150,25 @@ class MatmulAffineResidual:
 
 
 matmul_affine_residual = MatmulAffineResidual()
+
+
+@torch.library.custom_op("lvc_tpu_torch::matmul_affine_residual", mutates_args=(), device_types="cpu")
+def _matmul_affine_residual_op(
+    x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+    residual: torch.Tensor, relu: bool,
+) -> torch.Tensor:
+    return matmul_affine_residual_plain(x, w, scale, shift, residual, relu)
+
+
+@_matmul_affine_residual_op.register_kernel("cuda")
+def _(x, w, scale, shift, residual, relu):
+    return matmul_affine_residual.launch(x, w, scale, shift, residual, relu)
+
+
+@_matmul_affine_residual_op.register_fake
+def _(x, w, scale, shift, residual, relu):
+    MatmulAffineResidual._check(x, w, scale, shift, residual)
+    return residual.new_empty((x.shape[0], w.shape[1]))
 
 
 class MatmulAffineResidualFn(torch.autograd.Function):

@@ -58,13 +58,26 @@ def _nms_core(boxes, scores, valid, iou_threshold: float, iou_fn, rows: int = 0)
     upper = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
     sup = (iou > iou_threshold) & upper  # sup[..., i, j]: rank i suppresses rank j > i
 
-    cur = v
+    return torch.zeros_like(valid).scatter(-1, order, nms_fixpoint(sup, v))
+
+
+@torch.library.custom_op("lvc_tpu_torch::nms_fixpoint", mutates_args=())
+def nms_fixpoint(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Iterate ``x[j] = valid[j] & not any_i(sup[i, j] & x[i])`` from
+    ``x = valid`` to its fixpoint: (..., N, N) and (..., N) bool in rank
+    order. A custom op, so that ``torch.export`` records the loop, which
+    reads one bool back a round, as one node."""
+    cur = valid.clone()
     while True:
-        nxt = v & ~(sup & cur[..., :, None]).any(dim=-2)
+        nxt = valid & ~(sup & cur[..., :, None]).any(dim=-2)
         if torch.equal(nxt, cur):  # one host sync per round
-            break
+            return cur
         cur = nxt
-    return torch.zeros_like(valid).scatter(-1, order, cur)
+
+
+@nms_fixpoint.register_fake
+def _(sup, valid):
+    return torch.empty_like(valid)
 
 
 def nms_mask(

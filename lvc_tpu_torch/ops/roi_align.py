@@ -715,7 +715,12 @@ class RoiAlignKernel:
 
     On CPU tensors it returns the plain version. On CUDA tensors it launches
     the kernel (building it on first use) or raises; ``launches`` counts the
-    launches and nothing else."""
+    launches and nothing else. While ``torch.export`` traces it, it emits the
+    custom op ``lvc_tpu_torch::<symbol>`` instead, whose CPU implementation is
+    the plain version and whose CUDA implementation is ``launch``. Every
+    check of what the kernel takes runs in ``launch``, on the tensors it
+    launches on: a trace's fake tensors need not carry the run's strides,
+    and ``torch.export`` guards shapes and dtypes, not strides."""
 
     def __init__(self, symbol: str, paired: bool):
         self.symbol = symbol
@@ -723,17 +728,24 @@ class RoiAlignKernel:
         self.launches = 0
 
     def __call__(self, levels: Sequence[torch.Tensor], taps: RoiTaps) -> torch.Tensor:
+        if torch.compiler.is_compiling():
+            return getattr(torch.ops.lvc_tpu_torch, self.symbol)(list(levels), *taps)
+        if levels[0].device.type == "cuda":
+            return self.launch(levels, taps)
         self._check(levels, taps)
-        feat = levels[0]
-        if feat.device.type == "cpu":
-            return roi_align_taps_plain(levels, taps, self.paired)
-        if feat.device.type != "cuda":
-            raise RuntimeError(f"RoIAlign kernel: unsupported device {feat.device}")
+        return roi_align_taps_plain(levels, taps, self.paired)
+
+    def launch(self, levels: Sequence[torch.Tensor], taps: RoiTaps) -> torch.Tensor:
+        """Check CUDA levels and taps (``_check``) and launch the kernel:
+        eager calls and the op's CUDA implementation both land here, so a
+        loaded program's tensors are checked as an eager call's."""
         import ctypes
 
         from lvc_tpu_torch.ops import _build
 
+        self._check(levels, taps)
         lib = _build.load_library()
+        feat = levels[0]
         B, _, _, C = feat.shape
         n, P, NR = taps.rows.shape
         NT = taps.tcol.shape[-1]
@@ -760,6 +772,8 @@ class RoiAlignKernel:
         if not 1 <= len(levels) <= _MAX_LEVELS:
             raise ValueError(f"RoIAlign kernel takes 1..{_MAX_LEVELS} levels, got {len(levels)}")
         feat = levels[0]
+        if feat.device.type not in ("cpu", "cuda"):
+            raise RuntimeError(f"RoIAlign kernel: unsupported device {feat.device}")
         witness = _plain_float64(feat, taps)
         if feat.dtype not in (torch.float32, torch.bfloat16) and not witness:
             raise TypeError(f"RoIAlign kernel: feature dtype {feat.dtype}")
@@ -797,6 +811,33 @@ class RoiAlignKernel:
 
 roi_align_band = RoiAlignKernel("roi_align_band_fwd", paired=False)
 roi_align_paired = RoiAlignKernel("roi_align_paired_fwd", paired=True)
+
+
+def _register_op(kernel: RoiAlignKernel) -> None:
+    """``lvc_tpu_torch::<symbol>(levels, lvl, xs, inv, rows, wy, tcol, wx)``:
+    the kernel as one node of an exported graph, with a fake implementation
+    for tracing."""
+
+    def plain(levels: List[torch.Tensor], lvl: torch.Tensor, xs: torch.Tensor, inv: torch.Tensor,
+              rows: torch.Tensor, wy: torch.Tensor, tcol: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+        return roi_align_taps_plain(levels, RoiTaps(lvl, xs, inv, rows, wy, tcol, wx), kernel.paired)
+
+    op = torch.library.custom_op(
+        f"lvc_tpu_torch::{kernel.symbol}", plain, mutates_args=(), device_types="cpu"
+    )
+
+    @op.register_kernel("cuda")
+    def _(levels, lvl, xs, inv, rows, wy, tcol, wx):
+        return kernel.launch(levels, RoiTaps(lvl, xs, inv, rows, wy, tcol, wx))
+
+    @op.register_fake
+    def _(levels, lvl, xs, inv, rows, wy, tcol, wx):
+        n, P, _ = rows.shape
+        return levels[0].new_empty((n, P, P, levels[0].shape[-1]))
+
+
+_register_op(roi_align_band)
+_register_op(roi_align_paired)
 
 
 # ---------------------------------------------------------------------------

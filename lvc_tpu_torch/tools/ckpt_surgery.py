@@ -15,8 +15,8 @@
                             twin heads
 
 Inputs are state dicts of detectron2 names: the port's ``.pth`` checkpoints
-(``{"model": state_dict, ...}``) or a detectron2 ``.pkl``. A JAX ``.ckpt``
-(flax msgpack) raises, since reading it needs flax. The result is written as
+(``{"model": state_dict, ...}``), a detectron2 ``.pkl`` or a JAX ``.ckpt``
+(flax msgpack, mapped by ``from_flax``). The result is written as
 ``<save-dir>/<tar-name>_<suffix>.pth``, ``{"model": state_dict,
 "iteration": 0}``. ``randinit`` draws from ``np.random.RandomState(0)`` in
 the order JAX's tool does, so both tools write the same arrays.

@@ -3,8 +3,9 @@ the port keeps its own copy of the parts the trainer uses).
 
 Counterpart of detectron2/utils/events.py (EventStorage:232, JSONWriter:40,
 CommonMetricPrinter:154, TensorboardXWriter:109). The JAX module's image and
-histogram queues, name scopes and global storage stack have no caller in
-either package and are left out.
+histogram queues and name scopes have no caller in either package and are
+left out. ``get_event_storage`` returns the storage of the innermost
+``with EventStorage(...)`` block (the running trainer's), as JAX's does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ from collections import defaultdict, deque
 from typing import Dict
 
 logger = logging.getLogger(__name__)
+
+_CURRENT_STORAGE_STACK = []
+
+
+def get_event_storage() -> "EventStorage":
+    """The ``EventStorage`` of the innermost open ``with`` block."""
+    assert _CURRENT_STORAGE_STACK, "get_event_storage() called outside a storage context"
+    return _CURRENT_STORAGE_STACK[-1]
 
 
 class HistoryBuffer:
@@ -68,10 +77,12 @@ class EventStorage:
         }
 
     def __enter__(self):
+        _CURRENT_STORAGE_STACK.append(self)
         return self
 
     def __exit__(self, *args):
-        pass
+        assert _CURRENT_STORAGE_STACK[-1] is self
+        _CURRENT_STORAGE_STACK.pop()
 
 
 class JSONWriter:

@@ -1,8 +1,9 @@
 """The port stands alone: importing it and building a model (the detector, the
 box corrector, the proposal network, the cosine fine-tune detector, the verifier
 ViT and the CLIs, the LVC chain's included, and the data-parallel layer:
-``utils/comm.py``, ``engine/launch.py``, the DDP step) pulls in neither
-jax nor the JAX package, no file of the port (or chip_smoke.py) imports them,
+``utils/comm.py``, ``engine/launch.py``, the DDP step, and the export, model
+zoo, TTA, converter and utils modules) pulls in neither jax nor the JAX
+package (nor ``__graft_entry__``), no file of the port (or chip_smoke.py) imports them,
 and without a GPU the entry points refuse to run unless asked for the CPU."""
 import ast
 import os
@@ -34,7 +35,7 @@ def test_no_jax_imports(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "lvc_tpu"), f"{path}: imports {name}"
+            assert top not in ("jax", "jaxlib", "flax", "lvc_tpu", "__graft_entry__"), f"{path}: imports {name}"
 
 
 def test_import_and_build_leave_jax_out():
@@ -66,7 +67,11 @@ def test_import_and_build_leave_jax_out():
         "from lvc_tpu_torch.ops.knn import sharded_knn_vote\n"
         "from lvc_tpu_torch.pipeline.verification import build_dino\n"
         "build_dino('dino_vits16', device='cpu')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu')]\n"
+        "import lvc_tpu_torch.export, lvc_tpu_torch.model_zoo, lvc_tpu_torch.modeling.test_time_augmentation\n"
+        "import lvc_tpu_torch.tools.convert_reference_ckpt\n"
+        "from lvc_tpu_torch.utils import analysis, colormap, env, file_io, logger, memory, registry, serialize\n"
+        "from lvc_tpu_torch.utils import video_visualizer, visualizer\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lvc_tpu', '__graft_entry__')]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

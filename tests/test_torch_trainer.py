@@ -38,6 +38,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from flax import serialization as flax_serialization
 
 import chip_smoke
 from lvc_tpu.checkpoint.checkpointer import DetectionCheckpointer as JaxCheckpointer
@@ -298,8 +299,16 @@ def test_checkpointer_partial_load_and_refusals(runs, tmp_path, capsys):
     torch.save(sd, path)
     with pytest.raises(ValueError, match="shape mismatch for roi_heads.box_predictor.cls_score.weight"):
         DetectionCheckpointer(model).load(path)
-    with pytest.raises(ValueError, match="JAX checkpoint"):
-        DetectionCheckpointer(model).load(str(tmp_path / "model_final.ckpt"))
+    # a JAX checkpoint (a whole TrainState in flax msgpack) loads its
+    # variables through from_flax, with no flax in the port
+    jax_ckpt = out / "jax" / "model_0000002.ckpt"
+    DetectionCheckpointer(model).load(str(jax_ckpt))
+    restored = flax_serialization.msgpack_restore(jax_ckpt.read_bytes())
+    want = from_flax({"params": restored["params"], "batch_stats": restored["batch_stats"]})
+    got = model.state_dict()
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 def test_trainer_refusals(tree, tmp_path):
