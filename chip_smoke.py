@@ -89,8 +89,9 @@ Phases, each of which raises (non-zero exit) on failure:
    COCOeval were built; last, 10 float32 iterations with TF32 off and with
    PyTorch's default TF32 convolutions, timed;
 18. the synthetic-AP gate (lvc_tpu_torch.tools.verify_synthetic_ap): a
-   GroupNorm R-50-FPN trained from scratch for 600 iterations on drawn
-   shapes, float32 and AMP; each must pass verify_results (AP50 >= 60); the
+   GroupNorm R-50-FPN trained from scratch on drawn shapes, float32 for 450
+   iterations and AMP for 400 (the JAX gate's 600, cut for the script's
+   time limit); each must pass verify_results (AP50 >= 60); the
    float32 model evaluated again with TF32 convolutions and without, its
    result rows compared.
 19. corrector reference check: a narrow cascade UBBR model (3 stages,
@@ -561,6 +562,12 @@ def kernel_phase(tag):
               f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes} bytes, {ops} ops) share "
               f"{bound_ms / ms:.3f}; feature bytes: union {union}, sum of per-box windows {fetch} "
               f"({fetch_ms:.4f} ms with them at the memory rate, share {fetch_ms / ms:.3f}) {tag}")
+    # the float32 instantiations, which a SyncBN model's float32 FPN levels take in its bf16 forward (phase 47)
+    feats, boxes = kernel_inputs(torch.float32)
+    rec = PoolRecorder()
+    rec.band = [(feats, ra.band_taps(ra.tiled_prep_band(shapes, B, boxes, STRIDES), shapes, B, 32, True))]
+    rec.fwd = [(feats, ra.paired_taps(ra.tiled_prep_2d(shapes, B, boxes, STRIDES), shapes, 48))]
+    check_recorded_pool("kernel float32 (K1 and K2 at the serving shapes, 8 x 1000 boxes)", rec, tag, timed=True)
     return results
 
 
@@ -2481,11 +2488,13 @@ def train_net_path(tag, keep: str):
               f"{losses['TF32 on']:.6f} with TF32 convolutions {tag}")
 
 
-GATE_ITERS = 600
+# the synthetic-AP gate's iterations a mode: the JAX gate runs 600 in each; cut so that the whole script
+# stays well inside its time limit (float32 keeps more: phase 28 evaluates its model)
+GATE_ITERS = {"f32": 450, "amp": 400}
 
 
 def synthetic_ap_gate(tag, keep=None):
-    """``lvc_tpu_torch.tools.verify_synthetic_ap`` at the JAX gate's 600
+    """``lvc_tpu_torch.tools.verify_synthetic_ap`` at ``GATE_ITERS``
     iterations, float32 and AMP: R-50-FPN with GroupNorm trained from the
     damped x0.65 init on drawn shapes (256x256, batch 8), then evaluated on
     its held-out 60 images by the trainer's final evaluation hook. Fails
@@ -2503,9 +2512,9 @@ def synthetic_ap_gate(tag, keep=None):
         gate.register(gate.build_dataset(tmp))
         for mode in ("f32", "amp"):
             ra.roi_align_paired.launches = ra.roi_align_paired_bwd.launches = 0
-            bbox, ok, t_train, t_eval, ms_iter, trainer = gate.run_mode(mode, GATE_ITERS, tmp)
+            bbox, ok, t_train, t_eval, ms_iter, trainer = gate.run_mode(mode, GATE_ITERS[mode], tmp)
             print(f"synthetic AP gate [{mode}]: AP {bbox['AP']:.2f} AP50 {bbox['AP50']:.2f} AP75 "
-                  f"{bbox['AP75']:.2f}, {GATE_ITERS} iterations, train {t_train:.1f} s ({ms_iter:.1f} "
+                  f"{bbox['AP75']:.2f}, {GATE_ITERS[mode]} iterations, train {t_train:.1f} s ({ms_iter:.1f} "
                   f"ms/iter, the median `time` scalar), eval {t_eval:.1f} s of 60 images, verify_results "
                   f"{'PASS' if ok else 'FAIL'}; K2/K3 launches {ra.roi_align_paired.launches}/"
                   f"{ra.roi_align_paired_bwd.launches} {tag}")
@@ -4589,7 +4598,7 @@ def voc_gate_check(tag, gate_pth: str):
         t0 = time.perf_counter()
         voc, coco, lvis = gate_voc_tree(gate.build_dataset(os.path.join(tmp, "synth")), os.path.join(tmp, "voc"))
         tree_s = time.perf_counter() - t0
-        cfg = gate.make_cfg(False, GATE_ITERS, os.path.join(tmp, "out"))
+        cfg = gate.make_cfg(False, GATE_ITERS["f32"], os.path.join(tmp, "out"))
         cfg.DATASETS.TEST = (voc,)
         model = build_model(cfg)
         model.load_state_dict(torch.load(gate_pth, map_location="cuda"))
@@ -5180,7 +5189,8 @@ SHIFTED_AP = (50.0, 85.0)  # the same masks moved 3 px right and down: segm AP i
 MASK_ROW_IOU = 0.99  # phase 35: a card detection's pasted mask against the CPU's, RLE IoU at least this
 CARD = "cuda"  # the device of phases 32-39's card runs
 TASK_NAMES = {"mask": "Mask R-CNN R-50-FPN", "keypoint": "Keypoint R-CNN R-50-FPN", "panoptic": "Panoptic FPN R-50",
-              "dcn": "Mask R-CNN R-50-FPN DCN c3-c5"}
+              "dcn": "Mask R-CNN R-50-FPN DCN c3-c5", "syncbn": "Mask R-CNN R-50-FPN SyncBN"}
+MASK_KINDS = ("mask", "panoptic", "dcn", "syncbn")  # the task kinds with a mask head
 
 
 def task_cfg(kind: str, impl: str = "pallas_fast"):
@@ -5194,7 +5204,8 @@ def task_cfg(kind: str, impl: str = "pallas_fast"):
     head 8 convs 512 wide at P=14, 17 keypoints on 56 x 56 heatmaps);
     ``retinanet``, ``panoptic`` and ``semantic`` are ``dense_opts``'s;
     ``dcn`` is Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml: ``mask`` with
-    deformable 3x3s in res3-res5 (DEFORM_ON_PER_STAGE F,T,T,T, DCN v1)."""
+    deformable 3x3s in res3-res5 (DEFORM_ON_PER_STAGE F,T,T,T, DCN v1);
+    ``syncbn`` is Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml (``syncbn_opts``)."""
     from lvc_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
@@ -5204,6 +5215,8 @@ def task_cfg(kind: str, impl: str = "pallas_fast"):
         opts += ["MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80]
         if kind == "dcn":
             opts += backbone_opts("dcn")
+    elif kind == "syncbn":
+        opts += syncbn_opts()
     elif kind == "keypoint":
         opts += ["MODEL.KEYPOINT_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 1, "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", 0.5,
                  "MODEL.RPN.POST_NMS_TOPK_TRAIN", 1500]
@@ -5261,6 +5274,62 @@ def dense_opts(kind: str, narrow: bool = False):
     return opts
 
 
+def syncbn_opts(narrow: bool = False):
+    """detectron2's model zoo Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml on
+    Base-RCNN-FPN.yaml, for either package's config: R-50 (STRIDE_IN_1X1),
+    MASK_ON, 80 classes, ``NORM "SyncBN"`` in the ResNet, the FPN, a
+    FastRCNNConvFCHead box head of 4 convs 256 wide and 1 fc of 1024, and
+    the mask head (``ROI_MASK_HEAD.NORM``, which neither package reads),
+    and ``TEST.PRECISE_BN.ENABLED``; its 3x schedule and ImageNet weights are
+    not taken. ``narrow``: phase 48's and the CPU tests' widths (res2 64,
+    FPN 64, 5 classes, the box head 2 convs 32 wide and an fc of 64, the
+    mask head 2 convs 32 wide, small top-k sizes, exhaustive sampling)."""
+    opts = ["MODEL.RESNETS.DEPTH", 50, "MODEL.MASK_ON", True, "MODEL.ROI_HEADS.NUM_CLASSES", 80,
+            "MODEL.RESNETS.NORM", "SyncBN", "MODEL.RESNETS.STRIDE_IN_1X1", True, "MODEL.FPN.NORM", "SyncBN",
+            "MODEL.ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead", "MODEL.ROI_BOX_HEAD.NUM_CONV", 4,
+            "MODEL.ROI_BOX_HEAD.CONV_DIM", 256, "MODEL.ROI_BOX_HEAD.NUM_FC", 1, "MODEL.ROI_BOX_HEAD.FC_DIM", 1024,
+            "MODEL.ROI_BOX_HEAD.NORM", "SyncBN", "MODEL.ROI_MASK_HEAD.NORM", "SyncBN", "TEST.PRECISE_BN.ENABLED", True]
+    if narrow:
+        opts += ["MODEL.RESNETS.RES2_OUT_CHANNELS", 64, "MODEL.RESNETS.WIDTH_PER_GROUP", 16, "MODEL.FPN.OUT_CHANNELS", 64,
+                 "MODEL.ROI_HEADS.NUM_CLASSES", 5, "MODEL.ROI_BOX_HEAD.NUM_CONV", 2, "MODEL.ROI_BOX_HEAD.CONV_DIM", 32,
+                 "MODEL.ROI_BOX_HEAD.FC_DIM", 64, "MODEL.ROI_MASK_HEAD.NUM_CONV", 2, "MODEL.ROI_MASK_HEAD.CONV_DIM", 32,
+                 "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 200, "MODEL.RPN.POST_NMS_TOPK_TRAIN", 100,
+                 "MODEL.RPN.BATCH_SIZE_PER_IMAGE", 8192, "MODEL.RPN.POSITIVE_FRACTION", 0.999,
+                 "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 128, "MODEL.ROI_HEADS.POSITIVE_FRACTION", 0.999,
+                 "MODEL.RPN.PRE_NMS_TOPK_TEST", 200, "MODEL.RPN.POST_NMS_TOPK_TEST", 100,
+                 "TEST.DETECTIONS_PER_IMAGE", 30]
+    return opts
+
+
+def syncbn_stats(rng, n: int):
+    """Seeded SyncBN statistics and affine for ``n`` channels (numpy
+    float32): ``running_var`` in (0.5, 2) and ``running_mean`` N(0, 0.1),
+    never the init's 1 and 0, so that a swapped or unused statistic shows;
+    ``weight`` sqrt(var) times U(0.9, 1.1), so that each norm scales by
+    about 1 whatever its variance, and ``bias`` N(0, 0.05)."""
+    var = rng.uniform(0.5, 2.0, n).astype("float32")
+    return {"running_mean": rng.normal(0, 0.1, n).astype("float32"), "running_var": var,
+            "weight": (var ** 0.5 * rng.uniform(0.9, 1.1, n)).astype("float32"),
+            "bias": rng.normal(0, 0.05, n).astype("float32")}
+
+
+def seed_syncbn(model, seed: int = 0):
+    """``syncbn_stats`` into every ``SyncBatchNorm`` of the port's ``model``,
+    in module order."""
+    import numpy as np
+    import torch
+
+    from lvc_tpu_torch.modeling.layers import SyncBatchNorm
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SyncBatchNorm):
+                for k, v in syncbn_stats(rng, m.num_features).items():
+                    getattr(m, k).copy_(torch.from_numpy(v))
+    return model
+
+
 @contextlib.contextmanager
 def cli_tf32():
     """TF32 convolutions inside the block, PyTorch's default and the
@@ -5316,7 +5385,8 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
     one more forward of each recorded, its P=14 pool held to its plain
     version (``check_recorded_pool``, timed) and all its calls too. Returns
     the last auto forward's output (Panoptic FPN's dict, else its
-    detections) and the recorded P=14 times."""
+    detections) and the recorded P=14 times. A SyncBN model's norms get
+    ``seed_syncbn``'s statistics on top of the damped weights."""
     import torch
 
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
@@ -5331,9 +5401,10 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         cfg = task_cfg(kind, impl)
         cfg.MODEL.DTYPE = "bfloat16"
         cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.001
-        model = damped_init(build_model(cfg), seed=0)
+        model = seed_syncbn(damped_init(build_model(cfg), seed=0))
         model(batch)  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ra.roi_align_band.launches = ra.roi_align_paired.launches = 0
         iters = 3
         t0 = time.perf_counter()
@@ -5341,6 +5412,7 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
             dets = model(batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / iters
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n = ra.roi_align_band.launches, ra.roi_align_paired.launches
         if n != ((2 * iters, 0) if impl == "pallas_fast" else (0, 2 * iters)):
             raise AssertionError(f"{kind} serving {impl}: K1/K2 launches {n} over {iters} forwards")
@@ -5353,7 +5425,7 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         check_detections(dets, B)
         if not dets.valid.any(dim=1).all():
             raise AssertionError(f"{kind} serving {impl}: an image kept no detection")
-        if kind in ("mask", "panoptic", "dcn"):
+        if kind in MASK_KINDS:
             m = dets.masks
             if tuple(m.shape) != (B, 100, 28, 28) or m.dtype != torch.float32 or not torch.isfinite(m).all() \
                     or float(m.min()) < 0 or float(m.max()) > 1 or dets.keypoints is not None:
@@ -5385,8 +5457,8 @@ def task_serving(kind: str, kernels, tag, B: int = 8):
         key = "K1" if impl == "pallas_fast" else "K2"
         times[key] = t[key]
         add_launches(kernels, name, n[0] + n[1], t[key], sub.max_err[key])
-        parts.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), K1/K2 {n[0]}/{n[1]}, valid detections "
-                     f"{dets.valid.sum(dim=1).tolist()}, {shown}")
+        parts.append(f"{impl} {ms:.2f} ms/batch ({B * 1e3 / ms:.2f} img/s), peak memory {peak:.2f} GiB, K1/K2 "
+                     f"{n[0]}/{n[1]}, valid detections {dets.valid.sum(dim=1).tolist()}, {shown}")
         del model
         torch.cuda.empty_cache()
     name = TASK_NAMES[kind]
@@ -5454,7 +5526,7 @@ def task_train(kind: str, kernels, tag, B: int, amps=(False, True)):
                             sem_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, n_gt=(4, 16), size=(32, 500))
     else:
         batch = train_batch(B, 832, 1344, 16, seed=0, device=CARD, num_classes=classes, n_gt=(4, 16), size=(32, 500))
-    if kind in ("mask", "panoptic", "dcn"):
+    if kind in MASK_KINDS:
         batch.setdefault("gt_masks", box_masks(batch["gt_boxes"], batch["gt_valid"], 832, 1344))
         task_loss = "loss_mask"
     else:
@@ -5482,7 +5554,7 @@ def task_train(kind: str, kernels, tag, B: int, amps=(False, True)):
             raise AssertionError(f"{kind} training: K2/K3 launches {n} over {TASK_ITERS} steps")
         if task_loss not in first or not all(math.isfinite(float(v)) for m in metrics for v in m.values()):
             raise AssertionError(f"{kind} training: {task_loss} missing or a loss not finite: {first}, {last}")
-        if kind in ("mask", "panoptic", "dcn") and abs(first["loss_mask"] - math.log(2)) > 0.05:
+        if kind in MASK_KINDS and abs(first["loss_mask"] - math.log(2)) > 0.05:
             raise AssertionError(f"{kind} training: first loss_mask {first['loss_mask']}, want ln 2 within 0.05")
         sem = ""
         if kind == "panoptic":
@@ -5535,10 +5607,14 @@ def keypoint_path(tag, kernels):
 def task_reference_cfg(kind: str, device: str):
     """Phase 35's narrow models: phase 25's narrow R-50-FPN (exhaustive
     sampling, float32, POOLER_IMPL pallas_train, 5 classes) with the mask
-    or the keypoint head 2 convs 32 wide (``narrow_task_heads``)."""
+    or the keypoint head 2 convs 32 wide (``narrow_task_heads``); phase
+    48's ``syncbn``: the mask model with ``syncbn_opts(narrow=True)``'s
+    SyncBN norms and box head."""
     cfg = extra_heads_cfg("StandardROIHeads", device)
     cfg.DEBUG = False
-    return narrow_task_heads(cfg, mask=kind == "mask", keypoint=kind == "keypoint")
+    if kind == "syncbn":
+        cfg.merge_from_list(syncbn_opts(narrow=True))
+    return narrow_task_heads(cfg, mask=kind in ("mask", "syncbn"), keypoint=kind == "keypoint")
 
 
 @contextlib.contextmanager
@@ -5620,8 +5696,9 @@ def witness_lines(kind, losses, grads):
     return lines
 
 
-def task_reference_check(tag):
-    """Phase 35a: the narrow Mask R-CNN and Keypoint R-CNN
+def task_reference_check(tag, kinds=("mask", "keypoint")):
+    """Phase 35a (and 48, ``kinds`` ("syncbn",): its norms' statistics and
+    affines from ``seed_syncbn``): the narrow Mask R-CNN and Keypoint R-CNN
     (``task_reference_cfg``) at float32 on the card and on the CPU from the
     same weights (``calibrated_init``), both held against a float64 witness
     on the CPU as phase 25 holds its heads (``witness_limit``): one training
@@ -5642,10 +5719,11 @@ def task_reference_check(tag):
     batch["gt_masks"] = box_masks(batch["gt_boxes"], batch["gt_valid"], 128, 192)
     batch["gt_keypoints"] = box_keypoints(batch["gt_boxes"], batch["gt_valid"], seed=3)
     out = None
-    for kind in ("mask", "keypoint"):
+    for kind in kinds:
         cfg = task_reference_cfg(kind, "cpu")
         cpu = build_model(cfg, device="cpu")
         calibrated_init(cpu, seed=0)
+        seed_syncbn(cpu)
         with torch.no_grad():  # toward detectron2's N(0, 0.001) mask predictor: mask logits O(1)
             for name, t in cpu.state_dict().items():
                 if name.startswith("roi_heads.mask_head.predictor."):
@@ -5667,7 +5745,7 @@ def task_reference_check(tag):
         (c_loss, c_grad, c_dets, _, _), (g_loss, g_grad, g_dets, g_step, g_eval) = res["cpu"], res["gpu"]
         # each run against its own witness; the CPU's witness is the reference of the detections
         (w_loss, w_grad, w_dets, _, _), (v_loss, v_grad, _, _, _) = res["f64 cpu"], res["f64 gpu"]
-        task_loss = "loss_mask" if kind == "mask" else "loss_keypoint"
+        task_loss = "loss_keypoint" if kind == "keypoint" else "loss_mask"
         if (g_step, g_eval) != ((2, 2), (0, 2)) or task_loss not in g_loss or set(c_loss) != set(g_loss) \
                 or set(c_grad) != set(g_grad):
             raise AssertionError(f"{kind} reference: card launches {g_step}/{g_eval} or losses {sorted(g_loss)}")
@@ -5675,7 +5753,7 @@ def task_reference_check(tag):
         n, c_box, c_score = detection_errors(f"{kind} CPU vs float64", w_dets, c_dets)
         _, g_box, g_score = detection_errors(f"{kind} card vs float64", w_dets, g_dets)
         v = w_dets.valid
-        if kind == "mask":
+        if kind != "keypoint":
             field, want_t = "masks", w_dets.masks[v]
             c_task, g_task = [float((d.masks[v].double() - want_t).abs().max()) for d in (c_dets, g_dets)]
             limit = witness_limit("score", c_task)
@@ -7424,6 +7502,225 @@ def export_path(tag, kernels):
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# BatchNorm, SyncBN and PreciseBN: detectron2's SyncBN Mask R-CNN (phases 47-48)
+# ---------------------------------------------------------------------------
+
+SYNCBN_ITERS = 8  # phase 47's training run: PreciseBN refreshes after iteration 4 and after the last
+SYNCBN_BN_ITERS = 4  # TEST.PRECISE_BN.NUM_ITER, cut from the yaml's 200
+SYNCBN_DATASET = "syncbn_mini_coco"  # write_mini_coco's instances under all 80 classes, with no few-shot merge
+
+
+def bn_stats(model):
+    """Every FrozenBN and SyncBN running statistic of ``model``, cloned."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+
+def replay_refresh(old, n: int, momentum: float = 0.9):
+    """The JAX package's refresh (``update_bn_stats``) on statistics that its
+    batches leave unchanged, in float32 on the CPU: ``(old - m * old) / (1 -
+    m)`` summed ``n`` times, over ``n``, each operation IEEE's."""
+    import torch
+
+    out = {}
+    for k, v in old.items():
+        v = v.cpu()
+        m, keep = torch.tensor(momentum, dtype=torch.float32), torch.tensor(1.0 - momentum, dtype=torch.float32)
+        raw = (v - m * v) / keep
+        acc = raw
+        for _ in range(n - 1):
+            acc = acc + raw
+        out[k] = acc / torch.tensor(float(n), dtype=torch.float32)
+    return out
+
+
+def fused_launches_check(model, batch, what):
+    """One forward of ``model`` with ``LVC_TPU_FUSED_RESIDUAL=1``: no SyncBN
+    conv fuses (as in JAX, only FrozenBN and bias-only 1x1 convs do), so the
+    fused GEMM must not launch. Returns the count (0)."""
+    import torch
+
+    from lvc_tpu_torch.modeling.layers import fused_residual
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+
+    before = matmul_affine_residual.launches
+    with fused_residual(True), torch.no_grad():
+        model(batch)
+    torch.cuda.synchronize()
+    n = matmul_affine_residual.launches - before
+    if n:
+        raise AssertionError(f"{what}: the fused GEMM launched {n} times on a SyncBN model")
+    return n
+
+
+def syncbn_train_net(tag, kernels):
+    """Phase 47b: ``train_net.main`` in this process on ``task_cfg("syncbn")``
+    (AMP, POOLER_IMPL pallas_train, IMS_PER_BATCH 16) over ``write_mini_coco``'s
+    six 160x200 images (``SYNCBN_DATASET``, 80 classes; the loader resizes
+    them to 640-800 short sides), ``SYNCBN_ITERS`` iterations with
+    ``TEST.EVAL_PERIOD`` half of them, so PreciseBN refreshes once mid-run and
+    once after the last, from ``SYNCBN_BN_ITERS`` loader batches each. The
+    trainer's ``_materialize`` gives damped weights and ``seed_syncbn``'s
+    statistics (a detectron2 ``.pth`` in MODEL.WEIGHTS would not fill SyncBN
+    norms, as in JAX). Checks: the statistics bit-unchanged by every step;
+    after each refresh equal to ``replay_refresh`` of the statistics before
+    it (the card's arithmetic against the CPU's, bit for bit); the fused GEMM
+    0 launches; every loss finite; K2/K3 1/1 an iteration; the run's last
+    checkpoint loads whole (``syncbn_checkpoint_check``). Reports ms/iter,
+    data_time, peak memory, each refresh's seconds, and one more step
+    recorded (``recorded_train_pool``)."""
+    import torch
+
+    from lvc_tpu_torch.data.builtin_meta import _get_builtin_metadata
+    from lvc_tpu_torch.data.catalog import DatasetCatalog
+    from lvc_tpu_torch.data.meta_coco import register_meta_coco
+    from lvc_tpu_torch.engine import hooks
+    from lvc_tpu_torch.ops.fused_matmul import matmul_affine_residual
+    from lvc_tpu_torch.tools import train_net
+    from lvc_tpu_torch.utils.init import damped_init
+
+    refreshes, held = [], {}
+    update_bn_stats = hooks.update_bn_stats
+
+    def checked_refresh(model, batches, momentum=0.9):
+        old = bn_stats(model)
+        changed = [k for k, v in old.items() if not torch.equal(v, held["stats"][k])]
+        if changed:
+            raise AssertionError(f"syncbn train_net: the steps moved {len(changed)} statistics ({changed[0]})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = update_bn_stats(model, batches, momentum)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        new = bn_stats(model)
+        want = replay_refresh(old, n, momentum)
+        off = [k for k in new if not torch.equal(new[k].cpu(), want[k])]
+        if n != SYNCBN_BN_ITERS or off:
+            raise AssertionError(f"syncbn train_net: a refresh of {n} batches; {len(off)} statistics differ from "
+                                 f"the CPU's float32 replay")
+        moved = sum(int((new[k] != old[k]).sum()) for k in new)
+        refreshes.append((secs, moved, sum(v.numel() for v in new.values())))
+        held["stats"] = new
+        return n
+
+    class SyncBNTrainer(train_net.Trainer):
+        def _materialize(self, model, seed):
+            seed_syncbn(damped_init(model, seed), seed)
+            held["stats"] = bn_stats(model)
+
+    saved = train_net.Trainer
+    train_net.Trainer, hooks.update_bn_stats = SyncBNTrainer, checked_refresh
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "datasets")
+            write_mini_coco(root, seed=0)
+            if SYNCBN_DATASET in DatasetCatalog:
+                DatasetCatalog.remove(SYNCBN_DATASET)
+            register_meta_coco(SYNCBN_DATASET, _get_builtin_metadata("coco_fewshot"),
+                               os.path.join(root, "coco", "trainval2014"),
+                               os.path.join(root, "cocosplit", "datasplit", "trainvalno5k.json"))
+            opts = [str(x) for x in syncbn_opts()] + [
+                "MODEL.ROI_HEADS.POOLER_IMPL", "pallas_train", "SOLVER.IMS_PER_BATCH", "16", "SOLVER.MAX_ITER",
+                str(SYNCBN_ITERS), "SOLVER.AMP.ENABLED", "True", "SOLVER.CHECKPOINT_PERIOD", "100000",
+                "DATASETS.TRAIN", f"('{SYNCBN_DATASET}',)", "DATASETS.TEST", "()", "TEST.EVAL_PERIOD",
+                str(SYNCBN_ITERS // 2), "TEST.PRECISE_BN.NUM_ITER", str(SYNCBN_BN_ITERS), "SEED", "0",
+                "OUTPUT_DIR", os.path.join(tmp, "out")]
+            fused = matmul_affine_residual.launches
+            torch.cuda.reset_peak_memory_stats()
+            _, secs, n, trainer = run_cli(train_net, ["--config-file", BASE_YAML] + opts)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            fused = matmul_affine_residual.launches - fused
+            hist = trainer.storage.histories()
+            losses = [v for k, h in hist.items() if k.startswith("loss") for v in h.values()]
+            names = [type(h).__name__ for h in trainer._hooks]
+            if len(trainer.step_s) != SYNCBN_ITERS or set(trainer.step_launches) != {(1, 1)} or fused or \
+                    len(refreshes) != 2 or not losses or not all(math.isfinite(v) for v in losses) or \
+                    names[1:4] != ["LRSchedulerHook", "PreciseBN", "PeriodicCheckpointerHook"]:
+                raise AssertionError(f"syncbn train_net: {len(trainer.step_s)} steps, K2/K3 per iteration "
+                                     f"{sorted(set(trainer.step_launches))}, fused GEMM {fused}, {len(refreshes)} "
+                                     f"refreshes, hooks {names}")
+            ms = train_net_report(f"syncbn train_net: {TASK_NAMES['syncbn']} 80 classes AMP, IMS_PER_BATCH 16 on the "
+                                  f"mini COCO tree (TF32 convolutions)", trainer, secs, peak, 16, tag)
+            print(f"syncbn train_net: PreciseBN after iterations {SYNCBN_ITERS // 2} and {SYNCBN_ITERS}, "
+                  f"{SYNCBN_BN_ITERS} batches of 16 each (float32, the build dtype): "
+                  + "; ".join(f"{t:.3f} s, {m} of {c} statistics moved by the EMA inversion's rounding"
+                              for t, m, c in refreshes)
+                  + f"; every statistic bit-unchanged by the {SYNCBN_ITERS} steps and, after each refresh, equal "
+                  f"bit for bit to the CPU's float32 replay of JAX's arithmetic; fused GEMM launches {fused}; hooks "
+                  f"{names} {tag}")
+            syncbn_checkpoint_check(trainer, tag)
+            recorded_train_pool("syncbn train_net step (16 x 512 slots, AMP)", trainer, kernels, tag)
+            kernels["roi_align_paired"]["launches"] += n[1]
+            kernels["roi_align_paired_bwd"]["launches"] += n[2]
+            del trainer
+    finally:
+        train_net.Trainer, hooks.update_bn_stats = saved, update_bn_stats
+        torch.cuda.empty_cache()
+    return ms, refreshes
+
+
+def syncbn_checkpoint_check(trainer, tag):
+    """The trained SyncBN model's last checkpoint loaded through
+    ``MODEL.WEIGHTS`` into a new model, as ``train_net --eval-only`` loads it:
+    every entry, each SyncBN weight, bias and statistic among them, bit-equal
+    to the trained model's."""
+    import torch
+
+    from lvc_tpu_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from lvc_tpu_torch.modeling.layers import SyncBatchNorm
+
+    path = trainer.checkpointer.get_checkpoint_file()
+    t0 = time.perf_counter()
+    model = type(trainer).build_model(trainer.cfg)
+    DetectionCheckpointer(model).load(path)
+    secs = time.perf_counter() - t0
+    want, got = trainer.model.state_dict(), model.state_dict()
+    off = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    n_sync = sum(isinstance(m, SyncBatchNorm) for m in model.modules())
+    print(f"syncbn checkpoint: {os.path.basename(path)} loaded through MODEL.WEIGHTS into a new model in {secs:.2f} s; "
+          f"{len(want) - len(off)} of {len(want)} entries bit-equal to the trained model's, {n_sync} SyncBN norms "
+          f"{tag}")
+    if off or not n_sync:
+        raise AssertionError(f"syncbn checkpoint: {len(off)} entries differ from the trained model's ({off[:3]})")
+    del model
+
+
+def syncbn_path(tag, kernels):
+    """Phase 47: detectron2's SyncBN Mask R-CNN at full width
+    (``task_cfg("syncbn")``, Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml): bf16
+    serving at B=8 with pallas_fast and auto (``task_serving``; the FPN
+    levels are float32, as JAX's BN promotes, so K1 and K2 run their float32
+    instantiation), one more forward with the fused path on (0 launches of
+    the fused GEMM), then ``syncbn_train_net``."""
+    import torch
+
+    from lvc_tpu_torch.modeling.meta_arch.build import build_model
+    from lvc_tpu_torch.utils.init import damped_init
+
+    with cli_tf32():
+        task_serving("syncbn", kernels, tag)
+        cfg = task_cfg("syncbn", "auto")
+        cfg.MODEL.DTYPE = "bfloat16"
+        model = seed_syncbn(damped_init(build_model(cfg), seed=0))
+        feats = model.backbone_features(serving_batch(2))
+        dtypes = sorted({str(v.dtype) for v in feats.values()})
+        n = fused_launches_check(model, serving_batch(2), "syncbn serving")
+        print(f"syncbn serving: bf16 forward with LVC_TPU_FUSED_RESIDUAL=1: fused GEMM launches {n}; FPN levels "
+              f"{dtypes} (BN promotes, as in JAX) {tag}")
+        if dtypes != ["torch.float32"]:
+            raise AssertionError(f"syncbn serving: FPN levels {dtypes}, want float32")
+        del model, feats
+        torch.cuda.empty_cache()
+        syncbn_train_net(tag, kernels)
+
+
+def syncbn_reference_phase(tag):
+    """Phase 48: ``task_reference_check`` on the narrow SyncBN Mask R-CNN
+    (``task_reference_cfg("syncbn")``, seeded statistics): card and CPU
+    float32 against their float64 witnesses."""
+    task_reference_check(tag, kinds=("syncbn",))
+
+
 def tf32_off():
     """Float32 convolutions and matmuls without TF32, in this process (the
     script's own and each rank it spawns: cuDNN allows TF32 by default)."""
@@ -7438,7 +7735,7 @@ FT_NOVEL_YAML = "configs/COCO-detection/faster_rcnn_R_50_FPN_ft_novel_30shot.yam
 HANDOFFS = {"base": ("base.pth", 17, TRAIN_NET_YAML), "gate": ("gate.pth", 18, None),
             "ubbr": ("ubbr.pth", 20, UBBR_YAML), "ft_novel": ("ft_novel.pth", 22, FT_NOVEL_YAML)}
 # phases that need another phase's run (its kernels entry, its time or its trained model), added when not selected
-REQUIRES = {4: (2,), 7: (2, 5), 10: (8,), 14: (4, 12), 15: (7, 12), 28: (18,), 45: (2,), 46: (2, 8, 12)}
+REQUIRES = {4: (2,), 7: (2, 5), 10: (8,), 14: (4, 12), 15: (7, 12), 28: (18,), 45: (2,), 46: (2, 8, 12), 47: (2, 5)}
 FUSED_PHASES = (12, 13, 14, 15)  # the rest run with the fused path off, whatever the environment says
 
 
@@ -7481,7 +7778,7 @@ def context_phases(run):
 
 
 def phase_table():
-    """(number, function name, call on the run's state) for phases 2-46 in
+    """(number, function name, call on the run's state) for phases 2-48 in
     the order ``main`` runs them; phase 1 (the build) always runs."""
     def k(run):
         return run["kernels"]
@@ -7534,6 +7831,8 @@ def phase_table():
         (44, "variant_reference_check", lambda r: variant_reference_check(r["tag"])),
         (45, "tta_path", lambda r: tta_path(r["tag"], k(r))),
         (46, "export_path", lambda r: export_path(r["tag"], k(r))),
+        (47, "syncbn_path", lambda r: syncbn_path(r["tag"], k(r))),
+        (48, "syncbn_reference_phase", lambda r: syncbn_reference_phase(r["tag"])),
     ]
 
 

@@ -2,22 +2,30 @@
 ``lvc_tpu/checkpoint/checkpointer.py:21-125``; the reference's fvcore
 Checkpointer stack, lvc/checkpoint/detection_checkpoint.py:9).
 
-The native format is ``torch.save`` of ``{"model": state_dict, "optimizer",
-"scheduler", "iteration"}`` as ``<save_dir>/<name>.pth``, plus a
-``last_checkpoint`` file naming it. ``model`` holds detectron2 names, so
+The native format is ``torch.save`` of ``{"model": state_dict, "norms",
+"optimizer", "scheduler", "iteration"}`` as ``<save_dir>/<name>.pth``, plus
+a ``last_checkpoint`` file naming it. ``model`` holds detectron2 names, so
 ``lvc_tpu/checkpoint/convert.py:149`` (``load_torch_checkpoint``) reads a
-port checkpoint into the JAX package too. ``iteration`` counts the steps
-taken, which is the iteration a resumed run starts at (the JAX state's
-``step``).
+port checkpoint into the JAX package too; ``norms`` names the flax norm of
+each norm entry (``FrozenBatchNorm_0``, ``SyncBatchNorm_0``,
+``GroupNorm_0``), which a state dict alone does not tell. ``iteration``
+counts the steps taken, which is the iteration a resumed run starts at (the
+JAX state's ``step``).
 
 ``resume_or_load`` restores the model, the optimizer, the scheduler and the
 start iteration from ``last_checkpoint`` when asked to resume; otherwise it
-loads the model weights of ``MODEL.WEIGHTS``. A ``.pth`` or ``.pkl`` state
-dict of detectron2 names loads by name and partially, with the JAX
-package's messages for missing and unexpected keys and its shape check. A
-JAX checkpoint (``.ckpt``, flax msgpack) is read with ``msgpack`` and numpy
-(``convert.load_flax_checkpoint``) and mapped by ``convert.from_flax``, as
-``tools/convert_reference_ckpt.py`` converts it.
+loads the model weights of ``MODEL.WEIGHTS`` (``load_for_model``). A
+``.pth`` or ``.pkl`` state dict of detectron2 names loads by name and
+partially, with the JAX package's messages for missing and unexpected keys
+and its shape check. A JAX checkpoint (``.ckpt``, flax msgpack) is read
+with ``msgpack`` and numpy (``convert.load_flax_checkpoint``) and mapped by
+``convert.from_flax``, as ``tools/convert_reference_ckpt.py`` converts it.
+Each norm entry fills only a norm of its own flax kind, as JAX's
+checkpointer matches flax names: the port's own files and a ``.ckpt`` say
+the kind, and JAX's ``torch_to_flax`` names every ``.norm`` of any other
+``.pth``/``.pkl`` ``FrozenBatchNorm_0``, so a ``SyncBatchNorm`` of the model
+takes none of a detectron2 file's entries: they are unexpected and the norm
+keeps its values.
 """
 from __future__ import annotations
 
@@ -30,15 +38,19 @@ import torch
 from torch import nn
 
 
-def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+def read_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
     """A ``.pth`` (``torch.save``), ``.pkl`` (detectron2 model zoo) or
     ``.ckpt`` (the JAX package's flax msgpack) file -> its flat state dict of
-    detectron2 names on the CPU; ``{"model": ...}`` wrappers and a ``model.``
-    key prefix are taken off."""
+    detectron2 names on the CPU (``{"model": ...}`` wrappers and a
+    ``model.`` key prefix taken off), and the flax norm of each norm entry:
+    a ``.ckpt``'s own, those a port file records under ``"norms"``
+    (``DetectionCheckpointer.save``, the converter), and for any other
+    ``.pth``/``.pkl`` (detectron2's, ckpt surgery's) ``FrozenBatchNorm_0``
+    for every ``.norm.`` entry, JAX's ``torch_to_flax`` rule."""
     if path.endswith(".ckpt"):
-        from lvc_tpu_torch.checkpoint.convert import from_flax, load_flax_checkpoint
+        from lvc_tpu_torch.checkpoint.convert import flax_state_dict, load_flax_checkpoint
 
-        return from_flax(load_flax_checkpoint(path))
+        return flax_state_dict(load_flax_checkpoint(path))
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = pickle.load(f, encoding="latin1")
@@ -51,11 +63,50 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
             continue
         k = k[len("model."):] if k.startswith("model.") else k
         out[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-    return out
+    norms = data.get("norms") or {k: "FrozenBatchNorm_0" for k in out if ".norm." in k}
+    return out, norms
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """``read_checkpoint``'s state dict."""
+    return read_checkpoint(path)[0]
 
 
 # detectron2 state-dict entries that are no weights of the port's models
 IGNORED_KEYS = ("num_batches_tracked", "anchor_generator.cell_anchors", "pixel_mean", "pixel_std")
+
+
+def flax_norms(model: nn.Module) -> Dict[str, str]:
+    """The flax norm of each of ``model``'s norm entries, by state-dict key."""
+    from lvc_tpu_torch.modeling.layers import FrozenBatchNorm, GroupNorm, SyncBatchNorm
+
+    kinds = ((SyncBatchNorm, "SyncBatchNorm_0"), (FrozenBatchNorm, "FrozenBatchNorm_0"), (GroupNorm, "GroupNorm_0"))
+    return {f"{n}.{k}": name for n, m in model.named_modules() for cls, name in kinds if isinstance(m, cls)
+            for k in m.state_dict()}
+
+
+def misplaced_norms(model: nn.Module, norms: Dict[str, str]) -> Dict[str, str]:
+    """The norm entries of a file (``norms``: ``read_checkpoint``'s) that
+    the JAX package's checkpointer does not place in ``model``, each with the
+    model's norm there. JAX matches flax names, so an entry fills only a
+    norm of its own kind: a detectron2 file's norms are all FrozenBN to it,
+    and a SyncBN norm takes none of them. One exception stays the port's: a
+    FrozenBN entry fills a GroupNorm by name (a detectron2 GN file, which
+    JAX cannot load)."""
+    kinds = flax_norms(model)
+    return {k: kinds[k] for k, kind in norms.items() if kinds.get(k, kind) != kind
+            and (kind, kinds[k]) != ("FrozenBatchNorm_0", "GroupNorm_0")}
+
+
+def load_for_model(model: nn.Module, path: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``path`` that fill ``model`` as the JAX package's
+    checkpointer fills it (``misplaced_norms``); the others are printed as
+    unexpected and left out."""
+    sd, norms = read_checkpoint(path)
+    off = misplaced_norms(model, norms)
+    for k in sorted(off):
+        print(f"[checkpoint] unexpected key in model: {k} ({norms[k]} to JAX, not the model's {off[k]})")
+    return {k: v for k, v in sd.items() if k not in off}
 
 
 def load_into_model(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
@@ -99,7 +150,7 @@ class DetectionCheckpointer:
         if not self.save_to_disk:
             return path
         os.makedirs(self.save_dir, exist_ok=True)
-        data = {"model": self.model.state_dict(), "iteration": int(iteration)}
+        data = {"model": self.model.state_dict(), "norms": flax_norms(self.model), "iteration": int(iteration)}
         if self.optimizer is not None:
             data["optimizer"] = self.optimizer.state_dict()
         if self.scheduler is not None:
@@ -115,9 +166,10 @@ class DetectionCheckpointer:
     def load(self, path: str, resume: bool = False) -> Optional[int]:
         """Load the model weights of ``path``. With ``resume`` and a native
         checkpoint, also the optimizer and the scheduler; returns the
-        checkpoint's iteration then, else None."""
+        checkpoint's iteration then, else None. Without ``resume``, the
+        file's norms load as JAX loads them (``load_for_model``)."""
         if not resume:
-            load_into_model(self.model, load_state_dict_file(path))
+            load_into_model(self.model, load_for_model(self.model, path))
             return None
         data = torch.load(path, map_location="cpu", weights_only=False)
         load_into_model(self.model, data["model"])

@@ -4,9 +4,15 @@ The port's module names are detectron2's ``state_dict`` names, which
 ``lvc_tpu/checkpoint/convert.py:28`` (``torch_to_flax``) already maps onto the
 flax tree. ``from_flax`` is the inverse of that mapping (as ``flax_to_torch``
 at ``convert.py:113`` is): conv kernels HWIO -> OIHW, dense kernels
-(in, out) -> (out, in), FrozenBN affine and statistics to ``<conv>.norm.*``.
-``to_flax`` goes the other way. The cascade heads' stages are
-``box_head_{k}``/``box_predictor_{k}`` in flax and ``box_head.{k}``/
+(in, out) -> (out, in), the affine and statistics of FrozenBN and of
+``SyncBatchNorm`` (``FrozenBatchNorm_0`` and ``SyncBatchNorm_0``, the
+affine in ``params``, the statistics in ``batch_stats``) to
+``<conv>.norm.*``. ``to_flax`` goes the other way; a state dict alone does
+not tell a SyncBN norm from a FrozenBN one (both hold running statistics),
+so ``to_flax`` takes the model for that. JAX's ``torch_to_flax`` names
+every detectron2 ``.norm`` ``FrozenBatchNorm_0``, so its tree of a
+detectron2 SyncBN checkpoint does not hold a SyncBN model's norms. The
+cascade heads' stages are ``box_head_{k}``/``box_predictor_{k}`` in flax and ``box_head.{k}``/
 ``box_predictor.{k}`` in the state_dict (``convert.py:51-53, 119-123``).
 ``CosineSimOutputLayers`` keeps a bare ``cls_score_weight`` (in, K+1) in
 flax and ``cls_score.weight`` (K+1, in) with no bias here; its learnable
@@ -66,7 +72,7 @@ the JAX checkpointer's ``.ckpt`` files (flax's msgpack) into such a dict with
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +93,8 @@ _TOWERS = ("cls_subnet", "bbox_subnet")
 _SWIN_TOP = re.compile(r"^(patch_embed|patch_norm|out_norm\d+|layers\.\d+\.(blocks\.\d+|downsample))$")
 _SWIN_KEY = re.compile(r"^(.*bottom_up)\.(patch_embed\..*|norm\d+\..*|layers\.\d+\.(blocks\.\d+|downsample)\..*)$")
 _SWIN_MODULE = re.compile(r"^(layers\.\d+\.(?:blocks\.\d+|downsample))\.(.*)$")
+_STAT_NORMS = ("FrozenBatchNorm_0", "SyncBatchNorm_0")  # the flax norms with batch_stats
+_NORMS = _STAT_NORMS + ("GroupNorm_0",)
 
 
 def _flax_ndarray(data: bytes) -> np.ndarray:
@@ -203,7 +211,7 @@ def _deform_from_flax(flat):
     """Moves a flax deformable block's leaves to detectron2's places:
     ``conv2/offset_conv`` -> ``conv2_offset`` (a bare conv), ``conv2/weight``
     -> ``conv2/conv/kernel``, the block's ``FrozenBatchNorm_0`` /
-    ``GroupNorm_0`` -> ``conv2``'s."""
+    ``SyncBatchNorm_0`` / ``GroupNorm_0`` -> ``conv2``'s."""
     blocks = {p[:-3] for p in flat if len(p) > 3 and p[-3:-1] == ("conv2", "offset_conv")}
     out = {}
     for path, v in flat.items():
@@ -211,7 +219,7 @@ def _deform_from_flax(flat):
             path = path[:-3] + ("conv2_offset", path[-1])
         elif path[:-2] in blocks and path[-2:] == ("conv2", "weight"):
             path = path[:-2] + ("conv2", "conv", "kernel")
-        elif path[:-2] in blocks and path[-2] in ("FrozenBatchNorm_0", "GroupNorm_0"):
+        elif path[:-2] in blocks and path[-2] in _NORMS:
             path = path[:-2] + ("conv2",) + path[-2:]
         out[path] = v
     return out
@@ -219,7 +227,14 @@ def _deform_from_flax(flat):
 
 def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` numpy tree -> the port's state_dict."""
+    return flax_state_dict(variables)[0]
+
+
+def flax_state_dict(variables: Dict) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+    """``from_flax``'s state_dict, and the flax norm (``FrozenBatchNorm_0``,
+    ``SyncBatchNorm_0``, ``GroupNorm_0``) of each of its norm entries."""
     out: Dict[str, torch.Tensor] = {}
+    norms: Dict[str, str] = {}
     params = _flatten(variables.get("params", {}))
     for path, v in _deform_from_flax(params).items():
         swin = _swin_from_flax(path, v)
@@ -239,26 +254,31 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[".".join(parts[:-1]) + ".weight"] = v.T
         elif parts[-1] == "cls_score_weight":
             out[".".join(parts[:-1] + ["cls_score", "weight"])] = v.T
-        elif parts[-2] == "FrozenBatchNorm_0":
-            out[".".join(parts[:-2]) + ".norm." + parts[-1]] = v
-        elif parts[-2] == "GroupNorm_0":
-            out[".".join(parts[:-2]) + ".norm." + {"scale": "weight"}.get(parts[-1], parts[-1])] = v
+        elif parts[-2] in _NORMS:
+            key = ".".join(parts[:-2]) + ".norm." + {"scale": "weight"}.get(parts[-1], parts[-1])
+            out[key], norms[key] = v, parts[-2]
         else:
             out[".".join(parts)] = v
     for path, v in _flatten(variables.get("batch_stats", {})).items():
         path = _twin_to_torch(path)
-        if path[-2] == "FrozenBatchNorm_0" and path[:-2] + ("conv2", "offset_conv", "kernel") in params:
+        if path[-2] in _STAT_NORMS and path[:-2] + ("conv2", "offset_conv", "kernel") in params:
             path = path[:-2] + ("conv2",) + path[-2:]  # a deformable block's norm
-        if path[-2] != "FrozenBatchNorm_0":
+        if path[-2] not in _STAT_NORMS:
             raise KeyError(f"unexpected batch_stats entry {'/'.join(path)}")
-        out[".".join(path[:-2]) + ".norm." + path[-1]] = v
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+        key = ".".join(path[:-2]) + ".norm." + path[-1]
+        out[key], norms[key] = v, path[-2]
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}, norms
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+def to_flax(state_dict: Dict[str, torch.Tensor], model: Optional[torch.nn.Module] = None) -> Dict:
     """The port's state_dict -> ``{"params", "batch_stats"}`` numpy tree, the
-    layout ``torch_to_flax`` produces. A norm with running statistics is
-    FrozenBN; one without them is GroupNorm (``GroupNorm_0/{scale,bias}``)."""
+    layout ``torch_to_flax`` produces. A norm without running statistics is
+    GroupNorm (``GroupNorm_0/{scale,bias}``); one with them is
+    ``SyncBatchNorm_0`` where it is a ``SyncBatchNorm`` of ``model`` (the
+    module the state dict came from), else FrozenBN."""
+    from lvc_tpu_torch.modeling.layers import SyncBatchNorm
+
+    sync = set() if model is None else {n for n, m in model.named_modules() if isinstance(m, SyncBatchNorm)}
     params: Dict[Tuple[str, ...], np.ndarray] = {}
     stats: Dict[Tuple[str, ...], np.ndarray] = {}
     deform = {k[: -len(".conv2_offset.weight")] for k in state_dict if k.endswith(".conv2_offset.weight")}
@@ -273,7 +293,7 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             continue
         block, _, rest = key.rpartition(".conv2")
         if block in deform and (rest in (".weight", "_offset.weight", "_offset.bias") or rest.startswith(".norm.")):
-            path, kind = _deform_to_flax(_block_parts(block), rest, key, state_dict)
+            path, kind = _deform_to_flax(_block_parts(block), rest, key, state_dict, sync)
             (stats if kind == "stats" else params)[path] = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v
             continue
         parts = []
@@ -299,7 +319,7 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 raise KeyError(f"unrecognized norm key {key}")
             params[tuple(mod[:-1] + ["GroupNorm_0", {"weight": "scale"}.get(name, name)])] = v
         elif mod and mod[-1] == "norm":
-            base = mod[:-1] + ["FrozenBatchNorm_0"]
+            base = mod[:-1] + [_stat_norm(key, sync)]
             if name in ("weight", "bias"):
                 params[tuple(base + [name])] = v
             elif name in ("running_mean", "running_var"):
@@ -328,6 +348,12 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return out
 
 
+def _stat_norm(key: str, sync) -> str:
+    """The flax name of the norm holding ``key``, one with running
+    statistics."""
+    return "SyncBatchNorm_0" if key.rsplit(".", 1)[0] in sync else "FrozenBatchNorm_0"
+
+
 def _block_parts(block: str):
     """A block's port path as flax parts (``res3.0`` fused)."""
     parts = []
@@ -339,9 +365,10 @@ def _block_parts(block: str):
     return parts
 
 
-def _deform_to_flax(block, rest: str, key: str, state_dict):
+def _deform_to_flax(block, rest: str, key: str, state_dict, sync):
     """(flax path, "params" or "stats") of a deformable block's 3x3 leaf
-    (``rest``: what follows ``conv2`` in ``key``)."""
+    (``rest``: what follows ``conv2`` in ``key``; ``sync``: the names of
+    the SyncBN norms)."""
     if rest == ".weight":
         return tuple(block + ["conv2", "weight"]), "params"
     if rest.startswith("_offset."):
@@ -349,7 +376,7 @@ def _deform_to_flax(block, rest: str, key: str, state_dict):
     leaf = rest[len(".norm."):]
     if key.rsplit(".", 1)[0] + ".running_var" not in state_dict:
         return tuple(block + ["GroupNorm_0", {"weight": "scale"}.get(leaf, leaf)]), "params"
-    return tuple(block + ["FrozenBatchNorm_0", leaf]), "stats" if leaf.startswith("running_") else "params"
+    return tuple(block + [_stat_norm(key, sync), leaf]), "stats" if leaf.startswith("running_") else "params"
 
 
 def _swin_to_flax(head, rest: str, v):

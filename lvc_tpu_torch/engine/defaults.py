@@ -14,9 +14,10 @@ config dump, checkpoints, ``metrics.json`` and TensorBoard events.
 The trainer builds the model, fills its weights through ``_materialize``
 (the ``"he"`` rule, which subclasses override), loads ``MODEL.WEIGHTS`` or
 resumes on top, and runs ``make_train_step`` under the hooks: the iteration
-timer, the LR logger, the periodic checkpointer, the evaluation hook and
-the metric writers. Each step takes a numpy batch from the loader (its wait
-is the ``data_time`` scalar), moves it to the device, and passes the step a
+timer, the LR logger, PreciseBN (``TEST.PRECISE_BN.ENABLED``), the
+periodic checkpointer, the evaluation hook and the metric writers. Each step
+takes a numpy batch from the loader (its wait is the ``data_time``
+scalar), moves it to the device, and passes the step a
 seed from ``SEED`` and the iteration, from which the step seeds one generator
 per image at the image's global position (and dropout's from the rank): a
 resumed run samples as an uninterrupted one would, and an image samples the
@@ -187,14 +188,14 @@ class DefaultTrainer:
 
     def build_hooks(self) -> List[hooks_mod.HookBase]:
         cfg = self.cfg
-        if cfg.TEST.PRECISE_BN.ENABLED:
-            raise NotImplementedError(
-                "TEST.PRECISE_BN needs BatchNorm, which is not ported yet "
-                "(ROADMAP.md queue 1, item 12: BatchNorm)"
-            )
         ret = [
             hooks_mod.IterationTimer(),
             hooks_mod.LRSchedulerHook(lr_schedule(cfg)),
+        ]
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            ret.append(hooks_mod.PreciseBN(cfg.TEST.EVAL_PERIOD, self.model, self._loader_iter,
+                                           cfg.TEST.PRECISE_BN.NUM_ITER))
+        ret += [
             hooks_mod.PeriodicCheckpointerHook(
                 self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER
             ),

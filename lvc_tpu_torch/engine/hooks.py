@@ -1,16 +1,16 @@
 """Trainer hooks (counterpart of ``lvc_tpu/engine/hooks.py``).
 
 Counterpart of detectron2/engine/hooks.py (IterationTimer:75,
-PeriodicWriter:146, PeriodicCheckpointer:177, LRScheduler:196, EvalHook:300)
-and lvc/engine/hooks.py (EvalHookFsdet:16 with flattened-scalar storage and
-inference/res_final.json dumps).
+PeriodicWriter:146, PeriodicCheckpointer:177, LRScheduler:196, EvalHook:300,
+PreciseBN:357) and lvc/engine/hooks.py (EvalHookFsdet:16 with
+flattened-scalar storage and inference/res_final.json dumps).
 
 ``LRSchedulerHook`` only logs the scheduled learning rate, as the JAX hook
 does: the port's train step steps its ``LambdaLR`` itself
 (``engine/train_loop.py``), so a hook that stepped it too would advance the
-schedule twice per iteration. PreciseBN has no counterpart: it refreshes
-BatchNorm statistics, and BN is not ported (the trainer raises when
-``TEST.PRECISE_BN.ENABLED``).
+schedule twice per iteration. ``PreciseBN`` and ``update_bn_stats`` compute
+what the JAX package's do (``hooks.py:137-202``), EMA inversion and float32
+rounding included.
 """
 from __future__ import annotations
 
@@ -151,6 +151,82 @@ class ProfilerHook(HookBase):
     def after_train(self):
         if self._prof is not None:
             self._stop()
+
+
+def update_bn_stats(model, batches, momentum: float = 0.9) -> int:
+    """Sets the running statistics of every FrozenBN and ``SyncBatchNorm`` of
+    ``model`` to the plain average of the batch moments over ``batches``, as
+    the JAX package's ``update_bn_stats`` (``hooks.py:137-175``) does: each
+    batch runs through the model's training forward under ``no_grad`` in its
+    build dtype (no AMP), starting from the old statistics; the batch moment
+    is recovered from the updated statistics by inverting the EMA in float32,
+    ``(new - momentum * old) / (1 - momentum)``, summed in batch order and
+    divided by the count. A detector's norms never take batch moments (every
+    call site normalises with the running statistics), so a refresh leaves
+    them where they were up to that arithmetic's rounding, as in JAX. The
+    divisions are by 0-dim tensors on the statistics' device: CUDA computes
+    a division by a Python scalar as a product with its reciprocal, which is
+    not the CPU's IEEE division. Returns the number of batches (0: nothing
+    changed, also when the model has no such norms)."""
+    from lvc_tpu_torch.modeling.layers import FrozenBatchNorm, SyncBatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, (FrozenBatchNorm, SyncBatchNorm))]
+    if not norms:
+        return 0
+    device = norms[0].running_mean.device
+    old = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    m_t = torch.tensor(momentum, dtype=torch.float32, device=device)
+    keep = torch.tensor(1.0 - momentum, dtype=torch.float32, device=device)
+    acc, n = None, 0
+    was_training = model.training
+    model.train()
+    generator = torch.Generator(device=device).manual_seed(0)
+    try:
+        with torch.no_grad():
+            for batch in batches:
+                batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+                model(batch, generator=generator)
+                raw = [((m.running_mean - m_t * om) / keep, (m.running_var - m_t * ov) / keep)
+                       for m, (om, ov) in zip(norms, old)]
+                acc = raw if acc is None else [(a + r, b + q) for (a, b), (r, q) in zip(acc, raw)]
+                n += 1
+                for m, (om, ov) in zip(norms, old):
+                    m.running_mean.copy_(om)
+                    m.running_var.copy_(ov)
+            if n:
+                count = torch.tensor(float(n), dtype=torch.float32, device=device)
+                for m, (a, b) in zip(norms, acc):
+                    m.running_mean.copy_(a / count)
+                    m.running_var.copy_(b / count)
+    finally:
+        model.train(was_training)
+    return n
+
+
+class PreciseBN(HookBase):
+    """Refreshes the BN running statistics from ``num_iter`` batches of the
+    trainer's own loader (``update_bn_stats``) after every ``period``-th
+    iteration and after the last, before the checkpointer and the
+    evaluation run (the JAX hook, ``hooks.py:178-202``; d2 hooks.py:357).
+    It draws the batches whenever the model has a FrozenBN or SyncBN norm,
+    so the steps after a refresh see the loader's batches after them, as
+    in JAX."""
+
+    def __init__(self, period: int, model, data_iter, num_iter: int = 200):
+        self._period = period
+        self._model = model
+        self._data_iter = data_iter
+        self._num_iter = num_iter
+
+    def _run(self):
+        batches = (next(self._data_iter) for _ in range(self._num_iter))
+        if update_bn_stats(self._model, batches):
+            logger.info("PreciseBN: refreshed the BN statistics over %d batches", self._num_iter)
+
+    def after_step(self):
+        it = self.trainer.iter + 1
+        if self._period > 0 and (it % self._period == 0 or it >= self.trainer.max_iter):
+            self._run()
 
 
 class EvalHookFsdet(HookBase):

@@ -25,9 +25,11 @@ same sampled slots, losses and gradients up to the order of float32 sums.
 ``mixed_precision`` mirrors the JAX step's AMP (``train_loop.py:75-97``):
 the parameters stay float32 masters; the raw image is cast to bf16 and
 normalized in bf16, and the forward runs in bf16 through the model's compute
-dtype (every conv and linear casts its weight to its input's dtype, so the
-gradients come back float32); the losses are float32. ``torch.autocast`` is
-not used: its per-op dtype lists are not the JAX package's.
+dtype (every conv and linear casts its input and weight to it, so the
+gradients come back float32); ``SyncBatchNorm`` sees its affine rounded to
+bf16 (``layers.bf16_params``), as JAX's step casts every param; the losses
+are float32. ``torch.autocast`` is not used: its per-op dtype lists are not
+the JAX package's.
 
 The backward and the optimizer step run in profiler ranges ``backward`` and
 ``optimizer``; the model's forward adds ``backbone``, ``rpn`` and
@@ -43,6 +45,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
+from lvc_tpu_torch.modeling.layers import compute_dtype_scope
 from lvc_tpu_torch.modeling.sampling import data_rank, fold_in, per_image_generators, sampling_axis_scope
 from lvc_tpu_torch.utils import comm
 
@@ -67,11 +70,14 @@ def make_train_step(
                 seed = generator
                 generator = per_image_generators(seed, len(batch["image"]), device)
                 torch.manual_seed(fold_in(seed, 1, data_rank()))
+            amp = nullcontext()
             if mixed_precision:
                 model.compute_dtype = torch.bfloat16
                 batch = dict(batch, image=torch.as_tensor(batch["image"]).to(torch.bfloat16))
+                amp = compute_dtype_scope(torch.bfloat16, bf16_params=True)
             try:
-                losses = forward(batch, generator=generator)
+                with amp:
+                    losses = forward(batch, generator=generator)
             finally:
                 model.compute_dtype = saved
         losses = {k: v.float() for k, v in losses.items()}
@@ -102,8 +108,11 @@ def make_data_parallel_train_step(
     under ``DistributedDataParallel`` (rank 0's parameters broadcast to the
     others when it is wrapped), the batch this rank's share of the global
     batch. The parameters stay ``model``'s, so the checkpointer and the
-    evaluation use ``model`` itself. The model has no BatchNorm statistics
-    (BN is not ported), so no buffer is broadcast per step. DDP searches the
+    evaluation use ``model`` itself. No buffer is broadcast per step: the
+    running statistics of FrozenBN and ``SyncBatchNorm`` do not move in a
+    step (every detector call site normalises with them, as JAX's do), and
+    a PreciseBN refresh does the same arithmetic on every rank, from the
+    same statistics, so the ranks' buffers stay equal. DDP searches the
     graph for trainable parameters that get no gradient only where the
     model says it has them (``unused_parameters``: the context detector, and
     a mask or keypoint model, whose head gets none from a batch without its

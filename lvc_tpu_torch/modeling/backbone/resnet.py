@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from lvc_tpu_torch.modeling.layers import Conv2d, max_pool_torch
+from lvc_tpu_torch.modeling.layers import Conv2d, max_pool_torch, recompute_in_scope
 from lvc_tpu_torch.ops.deform_conv import DeformConv
 
 
@@ -250,7 +250,7 @@ class ResNet(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.stage_names:
             for block in getattr(self, name):
-                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+                x = checkpoint(block, x, use_reentrant=False, context_fn=recompute_in_scope) if remat else block(x)
             if name in self.out_features:
                 out[name] = x
         return out

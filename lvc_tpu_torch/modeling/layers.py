@@ -1,14 +1,18 @@
 """Neural-net building blocks (PyTorch, NCHW tensors in channels_last memory).
 
-Counterpart of ``lvc_tpu/modeling/layers.py`` (FrozenBatchNorm:59,
-GroupNorm:127, get_norm:131, Conv2d:257, ASPP:401, max_pool_torch:438). Module and buffer names follow
+Counterpart of ``lvc_tpu/modeling/layers.py`` (compute_dtype_scope:40,
+FrozenBatchNorm:59, SyncBatchNorm:91, GroupNorm:127, get_norm:131,
+Conv2d:257, ASPP:401, max_pool_torch:438). Module and buffer names follow
 detectron2's ``state_dict`` (``conv1.weight``, ``conv1.norm.running_var``), so
 the weight bridge in ``lvc_tpu_torch/checkpoint/convert.py`` is a rename.
 
-Parameters stay float32, as in the JAX package. A convolution runs in the
-dtype of its input: the model casts the image to ``MODEL.DTYPE`` once and
-every conv casts its weight to match, which is what flax's
-``nn.Conv(dtype=...)`` does.
+Parameters stay float32, as in the JAX package. ``Conv2d`` (and the box
+head's linears) run in the model's compute dtype, which the model's forward
+sets (``compute_dtype_scope``, JAX's ``get_compute_dtype``): the input and
+the weight are cast to it, which is what flax's ``nn.Conv(dtype=...)`` does.
+Outside a model's forward they run in their input's dtype. The cast matters
+after ``SyncBatchNorm``, whose float32 affine promotes a bf16 activation to
+float32 as JAX's does; every other layer hands on the compute dtype.
 
 There is no space-to-depth stem here: that is a TPU layout trick. The stem
 runs the plain 7x7/s2/p3 conv, whose output equals the JAX s2d stem's.
@@ -33,6 +37,45 @@ from torch import nn
 
 
 FUSED_RESIDUAL_ENV = "LVC_TPU_FUSED_RESIDUAL"
+
+# the dtype the convolutions and the heads' linears run in (None: their
+# input's), and whether the forward sees its parameters rounded to bf16, as
+# the JAX package's AMP step casts its params; set by the model's forward
+# and the AMP train step
+_COMPUTE_DTYPE: Optional[torch.dtype] = None
+_BF16_PARAMS = False
+
+
+@contextlib.contextmanager
+def compute_dtype_scope(dtype: Optional[torch.dtype], bf16_params: Optional[bool] = None):
+    """``compute_dtype(x)`` is ``dtype`` inside the block (JAX's
+    ``compute_dtype_scope``); with ``bf16_params`` set, so is
+    ``bf16_params()``."""
+    global _COMPUTE_DTYPE, _BF16_PARAMS
+    saved = _COMPUTE_DTYPE, _BF16_PARAMS
+    _COMPUTE_DTYPE = dtype
+    if bf16_params is not None:
+        _BF16_PARAMS = bf16_params
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE, _BF16_PARAMS = saved
+
+
+def recompute_in_scope():
+    """``context_fn`` of ``torch.utils.checkpoint``: the backward's recompute
+    runs in the forward's compute dtype and parameter rounding."""
+    return contextlib.nullcontext(), compute_dtype_scope(_COMPUTE_DTYPE, _BF16_PARAMS)
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a convolution or a head's linear runs ``x`` in."""
+    return _COMPUTE_DTYPE or x.dtype
+
+
+def bf16_params() -> bool:
+    """True inside the AMP train step's forward."""
+    return _BF16_PARAMS
 
 
 @contextlib.contextmanager
@@ -76,6 +119,74 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 
+class SyncBatchNorm(nn.Module):
+    """The JAX package's ``SyncBatchNorm`` (``layers.py:91-124``), which its
+    ``get_norm`` builds for ``BN``, ``SyncBN`` and ``naiveSyncBN``: a
+    trainable affine (``weight``, ``bias``) and float32 running statistics.
+
+    ``forward(x)`` is the form every detector call site uses: ``x * scale +
+    (bias - running_mean * scale)`` with ``scale = weight *
+    rsqrt(running_var + eps)`` in float32 and no cast of ``x``, so a bf16
+    activation comes out float32 (flax promotes it). XLA's rsqrt is its own
+    approximation, a float32 ulp from torch's for about a third of the
+    variances, so the two packages' outputs differ by a few ulps of
+    ``|x * scale| + |shift|``. Inside the AMP train step the affine is
+    first rounded to bf16, as JAX's AMP step casts its params; bf16 serving
+    keeps it float32, as JAX's does. The statistics never change in a
+    detector's step.
+
+    ``forward(x, train=True)`` normalises with the batch's biased moments,
+    ``mean(x)`` and ``mean(x^2) - mean^2`` over every dimension but the
+    channels (averaged over ``process_group`` when it is set, as JAX's
+    ``pmean`` over ``axis_name``), and moves the running statistics by
+    ``momentum * running + (1 - momentum) * batch``. ``update_bn_stats`` and
+    modules that ask for it use this form; no detector does. It is not
+    ``torch.nn.SyncBatchNorm``: no unbiased variance, momentum on the old
+    value, no clamp."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9, process_group=None):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.process_group = process_group
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if bf16_params():
+            weight, bias = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+        if train:
+            mean, var = self._batch_moments(x)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = weight * torch.rsqrt(var + self.eps)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        # one pass and one rounding, as XLA contracts the affine into an FMA
+        return torch.addcmul((bias - mean * scale).view(shape), x, scale.view(shape))
+
+    def _batch_moments(self, x: torch.Tensor):
+        dims = (0,) + tuple(range(2, x.dim()))
+        mean, mean2 = x.mean(dims), (x * x).mean(dims)
+        if self.process_group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            # pmean: the sum over the group divided by its size (a 0-dim tensor: CUDA would multiply by the
+            # reciprocal of a Python scalar)
+            world = torch.tensor(float(torch.distributed.get_world_size(self.process_group)), device=x.device)
+            moments = all_reduce(torch.stack([mean, mean2]), group=self.process_group) / world
+            mean, mean2 = moments[0], moments[1]
+        var = mean2 - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
+
 class GroupNorm(nn.Module):
     """flax's ``nn.GroupNorm(num_groups=32)``, what the JAX package's
     ``get_norm("GN")`` builds: epsilon 1e-6 (torch's default is 1e-5), the
@@ -110,9 +221,9 @@ class GroupNorm(nn.Module):
 
 
 def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
-    """Norm factory by detectron2 name (``layers.py:131``): ``FrozenBN`` and
-    ``GN`` (32 groups). ``BN``/``SyncBN`` raise: they wait for a JAX
-    reference that trains them (ROADMAP.md queue 1, item 12)."""
+    """Norm factory by detectron2 name (``layers.py:131``): ``FrozenBN``,
+    ``GN`` (32 groups), and ``BN``, ``SyncBN`` and ``naiveSyncBN``, which
+    all build ``SyncBatchNorm`` with no process group, as JAX's does."""
     if not norm:
         return None
     if norm == "FrozenBN":
@@ -120,9 +231,7 @@ def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
     if norm == "GN":
         return GroupNorm(32, num_features)
     if norm in ("BN", "SyncBN", "naiveSyncBN"):
-        raise NotImplementedError(
-            f"norm {norm!r} is not ported yet (ROADMAP.md queue 1, item 12: BatchNorm)"
-        )
+        return SyncBatchNorm(num_features)
     raise ValueError(f"Unknown norm: {norm}")
 
 
@@ -138,6 +247,7 @@ class Conv2d(nn.Conv2d):
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        x = x.to(compute_dtype(x))
         if residual is not None and self._fuses(x):
             return self._fused(x, residual)
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -156,7 +266,8 @@ class Conv2d(nn.Conv2d):
     def _fuses(self, x: torch.Tensor) -> bool:
         """The JAX package's gate (``layers.py:317-335``), read at call time
         as JAX reads it at trace time. Its "backend is TPU" condition is the
-        wrapper's own dispatch by device."""
+        wrapper's own dispatch by device. Only FrozenBN folds: a
+        ``SyncBatchNorm`` conv never fuses, as in JAX."""
         fold_bn = self.bias is None and isinstance(self.norm, FrozenBatchNorm)
         bias_only = self.bias is not None and self.norm is None
         return (

@@ -16,7 +16,8 @@ the proposals); every ROI head JAX's ``build_roi_heads`` builds:
 ``Res5ROIHeads``, ``StandardROIHeadsCascadeBBox``, ``CascadeStandardROIHeads``
 and ``ParallelStandardROIHeads``, with their training keys; the mask and
 keypoint heads (``MODEL.MASK_ON``, ``MODEL.KEYPOINT_ON``,
-``ROI_MASK_HEAD.{NUM_CONV, CONV_DIM, POOLER_RESOLUTION, CLS_AGNOSTIC_MASK}``,
+``ROI_MASK_HEAD.{NUM_CONV, CONV_DIM, POOLER_RESOLUTION, CLS_AGNOSTIC_MASK}``
+(not ``NORM``, which JAX does not read),
 ``ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS, NUM_CONV, CONV_DIM, POOLER_RESOLUTION}``,
 ``lvc_tpu/modeling/meta_arch/build.py:156-165``) in the heads that JAX
 builds them in and with what they do there; and the dense meta-architectures

@@ -36,7 +36,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.backbone.fpn import FPN
-from lvc_tpu_torch.modeling.layers import Conv2d
+from lvc_tpu_torch.modeling.layers import Conv2d, compute_dtype_scope
 from lvc_tpu_torch.modeling.proposal_generator.rbg import RBG
 from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
@@ -73,6 +73,12 @@ class GeneralizedRCNN(nn.Module):
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
         self.compute_dtype = compute_dtype
 
+    def __call__(self, *args, **kwargs):
+        # the convolutions and the heads' linears run in the compute dtype,
+        # which JAX reads from its global at trace time
+        with compute_dtype_scope(self.compute_dtype):
+            return super().__call__(*args, **kwargs)
+
     @property
     def device(self) -> torch.device:
         return self.pixel_mean.device
@@ -103,13 +109,15 @@ class GeneralizedRCNN(nn.Module):
 
     @torch.no_grad()
     def backbone_features(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return self.backbone(self.model_images(batch))
+        with compute_dtype_scope(self.compute_dtype):
+            return self.backbone(self.model_images(batch))
 
     @torch.no_grad()
     def proposals(self, batch: Dict):
         """Backbone + RPN: (proposals, objectness, valid), for probing."""
-        features = self.backbone(self.model_images(batch))
-        return self.proposal_generator(features, self._as_tensor(batch["image_size"]))[:3]
+        with compute_dtype_scope(self.compute_dtype):
+            features = self.backbone(self.model_images(batch))
+            return self.proposal_generator(features, self._as_tensor(batch["image_size"]))[:3]
 
     def forward(self, batch: Dict, generator: Generators = None):
         """Detections, or the loss dict in training mode with gt in the batch.

@@ -1,13 +1,15 @@
 """Box feature head (counterpart of ``lvc_tpu/modeling/roi_heads/box_head.py:17``):
 N convs then M fcs with ReLU, and dropout after each fc's ReLU in training
-(``ROI_BOX_HEAD.DROPOUT``, default 0)."""
+(``ROI_BOX_HEAD.DROPOUT``, default 0). The fcs run in the compute dtype
+(``layers.compute_dtype``), as JAX's ``nn.Dense(dtype=...)``: after a
+``SyncBN`` conv their input is float32."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lvc_tpu_torch.modeling.layers import Conv2d
+from lvc_tpu_torch.modeling.layers import Conv2d, compute_dtype
 
 
 class FastRCNNConvFCHead(nn.Module):
@@ -47,6 +49,7 @@ class FastRCNNConvFCHead(nn.Module):
         if self.num_fc:
             # flatten in (C, H, W) order, as detectron2 and the JAX head do
             x = x.reshape(x.shape[0], -1)
+            x = x.to(compute_dtype(x))
             for k in range(self.num_fc):
                 fc = getattr(self, f"fc{k + 1}")
                 x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lvc_tpu_torch.modeling.box_regression import Box2BoxTransform
+from lvc_tpu_torch.modeling.layers import compute_dtype
 from lvc_tpu_torch.modeling.proposal_generator.rpn import smooth_l1
 from lvc_tpu_torch.modeling.sampling import global_ratio
 from lvc_tpu_torch.ops.nms import batched_nms_mask, masked_topk
@@ -24,7 +25,8 @@ from lvc_tpu_torch.structures import boxes as box_ops
 class FastRCNNOutputLayers(nn.Module):
     """Linear classifier (K+1) + box regressor (``box_dim`` K, or
     ``box_dim`` class-agnostic; 5 for rotated boxes). The linears run in the
-    input dtype and hand float32 to decode and softmax."""
+    compute dtype (``layers.compute_dtype``, as JAX's ``nn.Dense(dtype=...)``)
+    and hand float32 to decode and softmax."""
 
     def __init__(self, in_features: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
         super().__init__()
@@ -33,6 +35,7 @@ class FastRCNNOutputLayers(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x = x.reshape(x.shape[0], -1)
+        x = x.to(compute_dtype(x))
         scores = F.linear(x, self.cls_score.weight.to(x.dtype), self.cls_score.bias.to(x.dtype))
         deltas = F.linear(x, self.bbox_pred.weight.to(x.dtype), self.bbox_pred.bias.to(x.dtype))
         return scores.float(), deltas.float()

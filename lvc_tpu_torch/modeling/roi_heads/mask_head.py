@@ -8,6 +8,9 @@ mask logits (NCHW; K classes, or 1 class-agnostic). Its modules carry
 detectron2's names (``mask_fcn{1..n}``, ``deconv``, ``predictor``), so a
 reference ``.pth`` loads as it is. It runs in float32 whatever the pooled
 features' dtype, as flax promotes a bf16 input against float32 parameters.
+It has no norm: ``ROI_MASK_HEAD.NORM`` is not read, in either package, so
+detectron2's SyncBN Mask R-CNN (``NORM "SyncBN"`` in its mask head too)
+builds a mask head without one, as the JAX package builds it.
 
 Training crops each sampled slot's matched gt bitmask to the mask size with
 JAX's half-pixel bilinear gather (not a RoIAlign), and the loss is the

@@ -69,7 +69,9 @@ def build_lr_schedule(cfg, optimizer: torch.optim.Optimizer) -> torch.optim.lr_s
 # ------------------------------------------------------------------- masking
 def trainability_mask(model: nn.Module, cfg) -> Dict[str, bool]:
     """parameter name -> trainable, by the JAX path rules (``build.py:98-130``)
-    on detectron2 names. FrozenBN holds buffers only, so it has no entry."""
+    on detectron2 names. FrozenBN holds buffers only, so it has no entry; a
+    ``SyncBatchNorm`` affine follows the path rules (its running statistics
+    are buffers, never parameters)."""
     m = cfg.MODEL
     freeze_at = m.BACKBONE.FREEZE_AT
 
@@ -96,15 +98,17 @@ def trainability_mask(model: nn.Module, cfg) -> Dict[str, bool]:
 
 def wd_groups(model: nn.Module) -> Dict[str, str]:
     """parameter name -> its weight-decay group by JAX's path rule
-    (``_wd_group_masks``, ``build.py:133-149``): "norm" for a GroupNorm's
-    parameters (JAX: the path holds ``GroupNorm``; FrozenBN holds buffers
-    here and BatchNorm is not ported); "bias" for any other ``bias`` (JAX: a
+    (``_wd_group_masks``, ``build.py:133-149``): "norm" for the parameters
+    of a GroupNorm or a ``SyncBatchNorm`` (JAX: the path holds ``GroupNorm``
+    or ``SyncBatchNorm``; FrozenBN holds buffers here); "bias" for any other
+    ``bias`` (JAX: a
     path ending in ``/bias`` without ``Norm``, which takes Swin's LayerNorm
     biases, flax-named ``norm1`` and the like); "other" for the rest, Swin's
     LayerNorm scales among them."""
-    from lvc_tpu_torch.modeling.layers import GroupNorm
+    from lvc_tpu_torch.modeling.layers import GroupNorm, SyncBatchNorm
 
-    norm = {id(p) for m in model.modules() if isinstance(m, GroupNorm) for p in m.parameters(recurse=False)}
+    norm = {id(p) for m in model.modules() if isinstance(m, (GroupNorm, SyncBatchNorm))
+            for p in m.parameters(recurse=False)}
     return {
         name: "norm" if id(p) in norm else "bias" if name.endswith(".bias") or name == "bias" else "other"
         for name, p in model.named_parameters()

@@ -15,8 +15,13 @@ mapped to detectron2 names by ``checkpoint.convert.from_flax``; ``.pth`` and
 ``KEY VALUE`` overrides) every key and shape is checked strictly against the
 model ``build_model(cfg)`` builds on the meta device (no weights
 materialised): a missing or unexpected key fails unless ``--allow-partial``,
-a shape mismatch always. The output ``{"model": state_dict, "iteration": 0}``
-loads with ``MODEL.WEIGHTS``, as the trainer's checkpoints do.
+a shape mismatch always. A norm entry counts only where it fills a norm of
+its own flax kind (``checkpointer.misplaced_norms``): as in JAX's converter,
+whose ``torch_to_flax`` names every ``.norm`` FrozenBN, a detectron2
+``.pth``/``.pkl`` fills no SyncBN norm, its entries there unexpected and
+those norms missing. The output ``{"model": state_dict, "norms",
+"iteration": 0}`` keeps the source's norm kinds and loads with
+``MODEL.WEIGHTS``, as the trainer's checkpoints do.
 """
 from __future__ import annotations
 
@@ -42,10 +47,12 @@ def parse_args(argv=None):
 
 
 def validate_against_config(
-    sd: Dict[str, torch.Tensor], config_file: str, opts: List[str], allow_partial: bool
+    sd: Dict[str, torch.Tensor], norms: Dict[str, str], config_file: str, opts: List[str], allow_partial: bool
 ) -> bool:
-    """Every key and shape of ``sd`` against the config's model (built on
-    the meta device); prints each fault, returns whether it passes."""
+    """Every key and shape of ``sd`` (its norm kinds ``norms``) against the
+    config's model (built on the meta device); prints each fault, returns
+    whether it passes."""
+    from lvc_tpu_torch.checkpoint.checkpointer import misplaced_norms
     from lvc_tpu_torch.config import get_cfg
     from lvc_tpu_torch.modeling.meta_arch.build import build_model
 
@@ -54,15 +61,17 @@ def validate_against_config(
     if opts:
         cfg.merge_from_list(opts)
     with torch.device("meta"):
-        want = build_model(cfg, device="meta").state_dict()
+        model = build_model(cfg, device="meta")
+    want = model.state_dict()
+    misplaced = misplaced_norms(model, norms).keys()
     ok = True
-    for k in sorted(want.keys() - sd.keys()):
+    for k in sorted(want.keys() - (sd.keys() - misplaced)):
         print(f"[convert] missing in checkpoint: {k}")
         ok = ok and allow_partial
-    for k in sorted(sd.keys() - want.keys()):
+    for k in sorted((sd.keys() - want.keys()) | misplaced):
         print(f"[convert] unexpected in checkpoint: {k}")
         ok = ok and allow_partial
-    for k in sorted(want.keys() & sd.keys()):
+    for k in sorted(want.keys() & (sd.keys() - misplaced)):
         ws, hs = tuple(want[k].shape), tuple(sd[k].shape)
         if ws != hs:
             print(f"[convert] SHAPE MISMATCH {k}: ckpt {hs} vs model {ws}")
@@ -71,20 +80,21 @@ def validate_against_config(
 
 
 def main(argv=None) -> int:
-    from lvc_tpu_torch.checkpoint.checkpointer import IGNORED_KEYS, load_state_dict_file
+    from lvc_tpu_torch.checkpoint.checkpointer import IGNORED_KEYS, read_checkpoint
 
     args = parse_args(argv)
-    sd = {k: v for k, v in load_state_dict_file(args.src).items() if not any(s in k for s in IGNORED_KEYS)}
+    sd, norms = read_checkpoint(args.src)
+    sd = {k: v for k, v in sd.items() if not any(s in k for s in IGNORED_KEYS)}
     n_params = sum(v.numel() for v in sd.values())
     print(f"[convert] {args.src}: {len(sd)} tensors, {n_params / 1e6:.1f} M values")
     if args.config_file:
-        if not validate_against_config(sd, args.config_file, args.opts, args.allow_partial):
+        if not validate_against_config(sd, norms, args.config_file, args.opts, args.allow_partial):
             print("[convert] validation FAILED (see messages above); "
                   "use --allow-partial to write anyway with missing/extra keys")
             return 1
         print("[convert] validation OK against", args.config_file)
     os.makedirs(os.path.dirname(os.path.abspath(args.dst)), exist_ok=True)
-    torch.save({"model": sd, "iteration": 0}, args.dst)
+    torch.save({"model": sd, "norms": norms, "iteration": 0}, args.dst)
     print(f"[convert] wrote {args.dst} ({os.path.getsize(args.dst) / 1e6:.1f} MB)")
     return 0
 

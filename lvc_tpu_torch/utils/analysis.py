@@ -5,7 +5,9 @@ FlopCountAnalysis, parameter_count). Parameters are counted over
 ``named_parameters`` by top-level module, the keys of JAX's params tree, plus
 the affine ``weight`` and ``bias`` of every ``FrozenBatchNorm``: frozen
 parameters that the port keeps as buffers and flax keeps in ``params``, so
-that the counts equal JAX's.
+that the counts equal JAX's. A ``SyncBatchNorm``'s affine is a parameter in
+both packages and counts as one; the running statistics of either norm are
+``batch_stats`` in flax and count in neither.
 FLOPs come from ``torch.utils.flop_counter.FlopCounterMode``, which counts
 the matmuls and convolutions that run (a multiply-add as 2) and nothing
 else; JAX reads XLA's cost analysis of the compiled program, which counts

@@ -30,7 +30,7 @@ from lvc_tpu.modeling.meta_arch.build import build_model as jax_build_model
 from lvc_tpu.utils.init import materialize_variables
 from lvc_tpu_torch.checkpoint.convert import from_flax, to_flax
 from lvc_tpu_torch.config import get_cfg
-from lvc_tpu_torch.modeling.layers import GroupNorm, get_norm
+from lvc_tpu_torch.modeling.layers import GroupNorm, SyncBatchNorm, get_norm
 from lvc_tpu_torch.modeling.meta_arch.build import build_model
 from lvc_tpu_torch.utils.init import he_init
 
@@ -76,9 +76,10 @@ def test_group_norm_in_bf16_matches_flax_with_bf16_parameters():
 def test_get_norm_builds_gn_and_refuses_batch_norm():
     gn = get_norm("GN", 64)
     assert isinstance(gn, GroupNorm) and gn.num_groups == 32
+    # BN and SyncBN are the JAX package's SyncBatchNorm (tests/test_torch_batchnorm.py), never GN
     for name in ("BN", "SyncBN"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            get_norm(name, 64)
+        bn = get_norm(name, 64)
+        assert isinstance(bn, SyncBatchNorm) and not isinstance(bn, GroupNorm) and bn.num_features == 64
 
 
 def _cfg(cfg):

@@ -214,8 +214,10 @@ def test_checkpoints_and_files(runs):
     assert (port / "last_checkpoint").read_text() == "model_0000002.pth"
     first = torch.load(port / "model_0000001.pth", map_location="cpu", weights_only=False)
     assert first["iteration"] == 2 and first["scheduler"]["last_epoch"] == 2
-    assert set(first) == {"model", "optimizer", "scheduler", "iteration"}
+    assert set(first) == {"model", "norms", "optimizer", "scheduler", "iteration"}
     assert first["model"].keys() == pt.model.state_dict().keys()
+    # the flax norm of each norm entry: all FrozenBN in this model
+    assert first["norms"] == {k: "FrozenBatchNorm_0" for k in first["model"] if ".norm." in k}
 
 
 def test_resume_reproduces_the_uninterrupted_step(tree, tmp_path):
@@ -314,8 +316,9 @@ def test_checkpointer_partial_load_and_refusals(runs, tmp_path, capsys):
 def test_trainer_refusals(tree, tmp_path):
     variables = _variables()
     T = _port_trainer(variables)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T(_port_cfg(str(tmp_path), **{"TEST.PRECISE_BN.ENABLED": True}))
+    # TEST.PRECISE_BN builds the hook where JAX's trainer puts it (tests/test_torch_batchnorm.py runs it)
+    precise = T(_port_cfg(str(tmp_path), **{"TEST.PRECISE_BN.ENABLED": True}))
+    assert [type(h).__name__ for h in precise._hooks][1:4] == ["LRSchedulerHook", "PreciseBN", "PeriodicCheckpointerHook"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             T(_port_cfg(str(tmp_path), **{"MODEL.DEVICE": "cuda"}))
