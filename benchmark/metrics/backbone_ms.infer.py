@@ -1,0 +1,6 @@
+"""Device ms a batch of the program's ``backbone`` profiler range in the traced
+section: the kernels whose launch falls inside the range (ResNet and FPN)."""
+
+
+def read(ctx):
+    return ctx.range_ms("backbone") if ctx.mode == "infer" else None
