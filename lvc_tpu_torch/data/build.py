@@ -37,6 +37,7 @@ from lvc_tpu_torch.data.samplers import (
     TrainingSampler,
 )
 from lvc_tpu_torch.structures.boxes import BoxMode
+from lvc_tpu_torch.utils.tracing import span
 
 
 def get_detection_dataset_dicts(names, filter_empty: bool = True) -> List[dict]:
@@ -129,7 +130,9 @@ def _build_sampler(cfg, dataset_dicts, rank: int = 0, world_size: int = 1):
 
 def _bounded_map(fn, iterable, pool: ThreadPoolExecutor, prefetch: int):
     """In-order map with a bounded number of in-flight tasks (plain
-    Executor.map would eagerly consume an infinite iterator)."""
+    Executor.map would eagerly consume an infinite iterator). The wait for
+    each result is the span ``loader.wait``: the consumer starved by the
+    workers."""
     from collections import deque
 
     it = iter(iterable)
@@ -140,7 +143,8 @@ def _bounded_map(fn, iterable, pool: ThreadPoolExecutor, prefetch: int):
     except StopIteration:
         it = None
     while inflight:
-        out = inflight.popleft().result()
+        with span("loader.wait", device=False):
+            out = inflight.popleft().result()
         if it is not None:
             try:
                 inflight.append(pool.submit(fn, next(it)))
@@ -154,7 +158,8 @@ class TrainLoader:
 
     A thread pool maps dataset dicts ahead; batches are formed from
     examples sharing a canvas bucket (the fixed-shape analogue of
-    AspectRatioGroupedDataset, d2 common.py:115)."""
+    AspectRatioGroupedDataset, d2 common.py:115). Stacking a batch is the
+    span ``loader.collate``, on the thread that iterates."""
 
     def __init__(self, dataset_dicts, mapper: DatasetMapper, batch_size: int, num_workers: int = 4, sampler=None):
         self.dataset_dicts = dataset_dicts
@@ -180,7 +185,9 @@ class TrainLoader:
                 b = buckets.setdefault(ex["canvas"], [])
                 b.append(ex)
                 if len(b) == self.batch_size:
-                    yield collate(b, train=True)
+                    with span("loader.collate", device=False):
+                        batch = collate(b, train=True)
+                    yield batch
                     buckets[ex["canvas"]] = []
         finally:
             pool.shutdown(wait=False, cancel_futures=True)

@@ -24,6 +24,7 @@ from PIL import Image
 from lvc_tpu_torch.data import native_io
 from lvc_tpu_torch.data import transforms as T
 from lvc_tpu_torch.structures.boxes import BoxMode
+from lvc_tpu_torch.utils.tracing import span
 
 
 def read_image(file_name: str, fmt: str = "BGR") -> np.ndarray:
@@ -112,7 +113,12 @@ class DatasetMapper:
 
     # -------------------------------------------------------------- mapping
     def __call__(self, dataset_dict: dict) -> Dict[str, np.ndarray]:
-        return self._map_loaded(dataset_dict, read_image(dataset_dict["file_name"], self.fmt))
+        """Decodes (span ``loader.decode``), then maps (span
+        ``loader.augment``), on the loader's worker thread."""
+        with span("loader.decode", device=False):
+            image = read_image(dataset_dict["file_name"], self.fmt)
+        with span("loader.augment", device=False):
+            return self._map_loaded(dataset_dict, image)
 
     def _map_loaded(self, dataset_dict: dict, image: np.ndarray) -> Dict[str, np.ndarray]:
         d = dataset_dict

@@ -23,7 +23,7 @@ from typing import Callable
 import torch
 
 from lvc_tpu_torch.evaluation.testing import flatten_results_dict
-from lvc_tpu_torch.utils import comm
+from lvc_tpu_torch.utils import comm, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -120,7 +120,10 @@ class ProfilerHook(HookBase):
     """A ``torch.profiler`` trace over the steps ``start_iter`` to
     ``end_iter`` (counterpart of the JAX hook's ``jax.profiler`` capture and
     the reference's AutogradProfiler, d2 hooks.py:236-297), written as a
-    Chrome trace to ``<output_dir>/profiler/trace.json``."""
+    Chrome trace to ``<output_dir>/profiler/trace.json``, with the ranges of
+    every thread. The program's spans and counters (``utils/tracing.py``),
+    cleared when the trace starts, go to ``profiler/spans.json`` beside it
+    and to the log, one line a span."""
 
     def __init__(self, start_iter: int, end_iter: int, output_dir: str):
         self._start = start_iter
@@ -133,7 +136,10 @@ class ProfilerHook(HookBase):
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=activities)
+            tracing.reset()
+            # the loader's worker threads' ranges too
+            every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+            self._prof = torch.profiler.profile(activities=activities, experimental_config=every_thread)
             self._prof.start()
 
     def _stop(self):
@@ -142,7 +148,14 @@ class ProfilerHook(HookBase):
         path = os.path.join(self._dir, "trace.json")
         self._prof.export_chrome_trace(path)
         self._prof = None
+        spans = tracing.totals()
+        with open(os.path.join(self._dir, "spans.json"), "w") as f:
+            json.dump(spans, f, indent=1, sort_keys=True)
         logger.info("Saved profiler trace to %s", path)
+        for name, t in sorted(spans.items()):
+            stream = "-" if t["stream_ms"] is None else f"{t['stream_ms']:.3f}"
+            logger.info("span %s: %d calls, host %.3f ms, stream %s ms, counts %s",
+                        name or "(none)", t["calls"], t["host_ms"], stream, t["counts"])
 
     def after_step(self):
         if self._prof is not None and self.trainer.iter >= self._end:

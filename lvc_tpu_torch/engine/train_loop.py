@@ -31,9 +31,9 @@ bf16 (``layers.bf16_params``), as JAX's step casts every param; the losses
 are float32. ``torch.autocast`` is not used: its per-op dtype lists are not
 the JAX package's.
 
-The backward and the optimizer step run in profiler ranges ``backward`` and
-``optimizer``; the model's forward adds ``backbone``, ``rpn`` and
-``roi_heads``.
+The backward and the optimizer step run in the spans ``backward`` and
+``optimizer`` (``utils/tracing.py``); the model's forward adds ``backbone``,
+``rpn`` and ``roi_heads``.
 """
 from __future__ import annotations
 
@@ -43,11 +43,11 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.layers import compute_dtype_scope
 from lvc_tpu_torch.modeling.sampling import data_rank, fold_in, per_image_generators, sampling_axis_scope
 from lvc_tpu_torch.utils import comm
+from lvc_tpu_torch.utils.tracing import span
 
 
 def make_train_step(
@@ -82,10 +82,10 @@ def make_train_step(
                 model.compute_dtype = saved
         losses = {k: v.float() for k, v in losses.items()}
         total = sum(losses.values())
-        with record_function("backward"):
+        with span("backward"):
             optimizer.zero_grad(set_to_none=True)
             total.backward()
-        with record_function("optimizer"):
+        with span("optimizer"):
             optimizer.step()
             scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}

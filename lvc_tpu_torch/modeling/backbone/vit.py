@@ -22,9 +22,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from lvc_tpu_torch.ops.attention import flash_attention
+from lvc_tpu_torch.utils.tracing import span
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -40,7 +40,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        with record_function("mlp"):
+        with span("mlp"):
             return _linear(self.fc2, F.gelu(_linear(self.fc1, x, dtype)), dtype)
 
 
@@ -55,7 +55,7 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        with record_function("attention"):
+        with span("attention"):
             B, N, C = x.shape
             H = self.num_heads
             qkv = _linear(self.qkv, x, dtype).view(B, N, 3, H, C // H)
@@ -112,7 +112,7 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]
         C = self.embed_dim
-        with record_function("patch_embed"):
+        with span("patch_embed"):
             x = self.patch_embed.proj(x.permute(0, 3, 1, 2))  # (B, C, h, w)
             h, w = x.shape[2:]
             x = x.flatten(2).transpose(1, 2)  # (B, h*w, C), row-major over (h, w)

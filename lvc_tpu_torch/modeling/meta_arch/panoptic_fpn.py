@@ -24,10 +24,10 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN
 from lvc_tpu_torch.modeling.meta_arch.semantic_seg import SemSegFPNHead
+from lvc_tpu_torch.utils.tracing import span
 
 
 class PanopticFPN(GeneralizedRCNN):
@@ -51,17 +51,17 @@ class PanopticFPN(GeneralizedRCNN):
                     "sem_seg": sem_logits}
 
     def _panoptic_losses(self, batch: Dict, generator) -> Dict[str, torch.Tensor]:
-        with record_function("backbone"):
+        with span("backbone"):
             features = self.backbone(self.model_images(batch))
-        with record_function("sem_seg_head"):
+        with span("sem_seg_head"):
             losses = self.sem_seg_head.losses(self.sem_seg_head(features), self._as_tensor(batch["sem_seg"]))
         image_sizes = self._as_tensor(batch["image_size"])
         gt = self._gt(batch, ignores=False)
         if "gt_masks" in batch:
             gt["masks"] = self._as_tensor(batch["gt_masks"])
-        with record_function("rpn"):
+        with span("rpn"):
             proposals, _, prop_valid, rpn_losses = self._propose(batch, features, image_sizes, gt, generator)
-        with record_function("roi_heads"):
+        with span("roi_heads"):
             out = self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator)
         losses.update({k: v * self.instance_loss_weight for k, v in {**out, **rpn_losses}.items()})
         return losses

@@ -33,7 +33,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.backbone.fpn import FPN
 from lvc_tpu_torch.modeling.layers import Conv2d, compute_dtype_scope
@@ -42,6 +41,7 @@ from lvc_tpu_torch.modeling.proposal_generator.rpn import RPN
 from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
 from lvc_tpu_torch.modeling.roi_heads.roi_heads import StandardROIHeads
 from lvc_tpu_torch.modeling.sampling import Generators, global_ratio
+from lvc_tpu_torch.utils.tracing import span
 
 
 _PROPOSAL_KEYS = ("proposal_boxes", "proposal_logits", "proposal_valid")
@@ -127,10 +127,13 @@ class GeneralizedRCNN(nn.Module):
         if self.training and "gt_boxes" in batch:
             return self._losses(batch, generator)
         with torch.no_grad():
-            features = self.backbone(self.model_images(batch))
+            with span("backbone"):
+                features = self.backbone(self.model_images(batch))
             image_sizes = self._as_tensor(batch["image_size"])
-            proposals, _, prop_valid, _ = self._propose(batch, features, image_sizes)
-            return self.roi_heads(features, proposals, prop_valid, image_sizes)
+            with span("rpn"):
+                proposals, _, prop_valid, _ = self._propose(batch, features, image_sizes)
+            with span("roi_heads"):
+                return self.roi_heads(features, proposals, prop_valid, image_sizes)
 
     def _gt(self, batch: Dict, ignores: bool = True, tasks: bool = False) -> Dict[str, torch.Tensor]:
         """The ROI heads' gt dict; with ``tasks`` also the batch's
@@ -165,15 +168,15 @@ class GeneralizedRCNN(nn.Module):
         )
 
     def _losses(self, batch: Dict, generator) -> Dict[str, torch.Tensor]:
-        """The stages run in profiler ranges ``backbone``, ``rpn`` and
-        ``roi_heads`` (a profiler reads each range's device time)."""
-        with record_function("backbone"):
+        """The stages run in the spans ``backbone``, ``rpn`` and
+        ``roi_heads`` (``utils/tracing.py``), as the eval forward's do."""
+        with span("backbone"):
             features = self.backbone(self.model_images(batch))
         image_sizes = self._as_tensor(batch["image_size"])
         gt = self._gt(batch, ignores=self.train_ignores, tasks=self.train_tasks)
-        with record_function("rpn"):
+        with span("rpn"):
             proposals, _, prop_valid, rpn_losses = self._propose(batch, features, image_sizes, gt, generator)
-        with record_function("roi_heads"):
+        with span("roi_heads"):
             losses = dict(self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator))
         losses.update(rpn_losses)
         return losses
@@ -227,7 +230,7 @@ class GeneralizedRCNN_Context(GeneralizedRCNN):
         return {"detections": dets, "image_scores": image_scores}
 
     def _context_losses(self, batch: Dict, generator) -> Dict[str, torch.Tensor]:
-        with record_function("backbone"):
+        with span("backbone"):
             features = self.backbone(self.model_images(batch))
         gt = self._gt(batch)
         logits = self.context_logits(features)
@@ -239,11 +242,11 @@ class GeneralizedRCNN_Context(GeneralizedRCNN):
         if self.images_only:
             return losses
         image_sizes = self._as_tensor(batch["image_size"])
-        with record_function("rpn"):
+        with span("rpn"):
             proposals, _, prop_valid, rpn_losses = self._propose(
                 batch, features, image_sizes, {"boxes": gt["boxes"], "valid": gt["valid"]}, generator
             )
-        with record_function("roi_heads"):
+        with span("roi_heads"):
             losses.update(self.roi_heads(features, proposals, prop_valid, image_sizes, gt, generator))
         losses.update(rpn_losses)
         return losses

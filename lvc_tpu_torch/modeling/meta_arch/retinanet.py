@@ -35,7 +35,6 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.anchors import AnchorGenerator
 from lvc_tpu_torch.modeling.box_regression import Box2BoxTransform
@@ -47,6 +46,7 @@ from lvc_tpu_torch.modeling.roi_heads.fast_rcnn import Detections
 from lvc_tpu_torch.modeling.sampling import global_ratio
 from lvc_tpu_torch.ops.nms import NEG_INF, batched_nms_mask, masked_topk
 from lvc_tpu_torch.structures import boxes as box_ops
+from lvc_tpu_torch.utils.tracing import span
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float, gamma: float) -> torch.Tensor:
@@ -161,12 +161,12 @@ class RetinaNet(GeneralizedRCNN):
 
     def forward(self, batch: Dict, generator=None):
         if self.training and "gt_boxes" in batch:
-            with record_function("backbone"):
+            with span("backbone"):
                 features = self.backbone(self.model_images(batch))
-            with record_function("head"):
+            with span("head"):
                 anchors, logits, deltas = self.head_outputs(features)
             gt = self._gt(batch, ignores=False)
-            with record_function("losses"):
+            with span("losses"):
                 return self.losses(anchors, logits, deltas, gt["boxes"], gt["classes"], gt["valid"])
         with torch.no_grad():
             features = self.backbone(self.model_images(batch))

@@ -30,11 +30,11 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from lvc_tpu_torch.modeling.layers import Conv2d
 from lvc_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN
 from lvc_tpu_torch.modeling.sampling import global_ratio
+from lvc_tpu_torch.utils.tracing import span
 
 
 class SemSegFPNHead(nn.Module):
@@ -112,9 +112,9 @@ class SemanticSegmentor(GeneralizedRCNN):
 
     def forward(self, batch: Dict, generator=None):
         if self.training and "sem_seg" in batch:
-            with record_function("backbone"):
+            with span("backbone"):
                 features = self.backbone(self.model_images(batch))
-            with record_function("sem_seg_head"):
+            with span("sem_seg_head"):
                 logits = self.sem_seg_head(features)
                 return self.sem_seg_head.losses(logits, self._as_tensor(batch["sem_seg"]))
         with torch.no_grad():

@@ -33,6 +33,7 @@ from lvc_tpu_torch.modeling.matcher import Matcher
 from lvc_tpu_torch.modeling.sampling import Generators, global_ratio, image_generator, subsample_labels
 from lvc_tpu_torch.ops.nms import NEG_INF, masked_topk, nms_mask
 from lvc_tpu_torch.structures import boxes as box_ops
+from lvc_tpu_torch.utils.tracing import span
 
 
 class StandardRPNHead(nn.Module):
@@ -140,17 +141,19 @@ class RPN(nn.Module):
     def losses(self, anchors_lvl, logits_lvl, deltas_lvl, gt_boxes, gt_valid, gt_ignores=None,
                generator=None) -> Dict[str, torch.Tensor]:
         """Objectness BCE and box L1 over the sampled anchors only; deltas stay
-        in the conv dtype until the sampled rows are gathered."""
+        in the conv dtype until the sampled rows are gathered. The matching
+        and sampling of every image run in the span ``rpn.match``."""
         anchors = torch.cat(anchors_lvl, dim=0)  # (R, 4)
         logits = torch.cat(logits_lvl, dim=1)  # (B, R) f32
         deltas = torch.cat(deltas_lvl, dim=1)  # (B, R, 4)
         B = logits.shape[0]
         if not self.ignore_regions:
             gt_ignores = None  # JAX zeroes them: the labels are those with no ignore rows
-        sampled = [self._label_one(anchors, gt_boxes[b], gt_valid[b],
-                                   None if gt_ignores is None else gt_ignores[b], image_generator(generator, b))
-                   for b in range(B)]
-        idxs, is_pos, slot_valid, s_anchors, s_gt = (torch.stack(t) for t in zip(*sampled))
+        with span("rpn.match"):
+            sampled = [self._label_one(anchors, gt_boxes[b], gt_valid[b],
+                                       None if gt_ignores is None else gt_ignores[b], image_generator(generator, b))
+                       for b in range(B)]
+            idxs, is_pos, slot_valid, s_anchors, s_gt = (torch.stack(t) for t in zip(*sampled))
 
         s_logits = torch.gather(logits, 1, idxs).float()  # (B, S)
         s_deltas = torch.gather(deltas, 1, idxs[..., None].expand(-1, -1, 4)).float()
@@ -187,38 +190,41 @@ class RPN(nn.Module):
 
     def predict_proposals(self, anchors_lvl, logits_lvl, deltas_lvl, image_sizes):
         """Per-level top-k, decode, clip, per-level NMS, top-k of the image;
-        the ``*_TRAIN`` sizes in training mode."""
+        the ``*_TRAIN`` sizes in training mode. The selection runs in the
+        span ``rpn.select``, the NMS and the image's top-k in ``rpn.nms``."""
         pre_nms_topk = self.pre_nms_topk_train if self.training else self.pre_nms_topk_test
         post_nms_topk = self.post_nms_topk_train if self.training else self.post_nms_topk_test
         B = logits_lvl[0].shape[0]
         k_max = min(pre_nms_topk, max(l.shape[1] for l in logits_lvl))
         sizes = image_sizes.to(torch.float32)
         lvl_boxes, lvl_scores, lvl_valid = [], [], []
-        for anchors, logit, delta in zip(anchors_lvl, logits_lvl, deltas_lvl):
-            k = min(pre_nms_topk, logit.shape[1])
-            # exact top-k with ties toward the lower index (stable sort)
-            order = torch.sort(logit, dim=1, descending=True, stable=True).indices[:, :k]
-            scores = torch.gather(logit, 1, order)
-            d_k = torch.gather(delta, 1, order[..., None].expand(B, k, 4)).float()
-            boxes = self.box2box.apply_deltas(d_k, anchors[order])
-            boxes = box_ops.clip(boxes, sizes[:, 0:1], sizes[:, 1:2])
-            valid = box_ops.nonempty(boxes, self.min_box_size) & torch.isfinite(scores)
-            pad = k_max - k
-            if pad > 0:
-                boxes = F.pad(boxes, (0, 0, 0, pad))
-                scores = F.pad(scores, (0, pad), value=NEG_INF)
-                valid = F.pad(valid, (0, pad))
-            lvl_boxes.append(boxes)
-            lvl_scores.append(scores)
-            lvl_valid.append(valid)
+        with span("rpn.select"):
+            for anchors, logit, delta in zip(anchors_lvl, logits_lvl, deltas_lvl):
+                k = min(pre_nms_topk, logit.shape[1])
+                # exact top-k with ties toward the lower index (stable sort)
+                order = torch.sort(logit, dim=1, descending=True, stable=True).indices[:, :k]
+                scores = torch.gather(logit, 1, order)
+                d_k = torch.gather(delta, 1, order[..., None].expand(B, k, 4)).float()
+                boxes = self.box2box.apply_deltas(d_k, anchors[order])
+                boxes = box_ops.clip(boxes, sizes[:, 0:1], sizes[:, 1:2])
+                valid = box_ops.nonempty(boxes, self.min_box_size) & torch.isfinite(scores)
+                pad = k_max - k
+                if pad > 0:
+                    boxes = F.pad(boxes, (0, 0, 0, pad))
+                    scores = F.pad(scores, (0, pad), value=NEG_INF)
+                    valid = F.pad(valid, (0, pad))
+                lvl_boxes.append(boxes)
+                lvl_scores.append(scores)
+                lvl_valid.append(valid)
 
-        boxes = torch.stack(lvl_boxes, dim=1)  # (B, L, K, 4)
-        scores = torch.stack(lvl_scores, dim=1)
-        valid = torch.stack(lvl_valid, dim=1)
-        # per-level NMS, all images and levels in one call
-        keep = nms_mask(boxes, scores, valid, self.nms_thresh) & valid
-        boxes = boxes.reshape(B, -1, 4)
-        scores = scores.reshape(B, -1)
-        order, topk_valid = masked_topk(scores, keep.reshape(B, -1), post_nms_topk)
-        boxes = torch.gather(boxes, 1, order[..., None].expand(order.shape + (4,)))
-        return boxes, torch.gather(scores, 1, order), topk_valid
+            boxes = torch.stack(lvl_boxes, dim=1)  # (B, L, K, 4)
+            scores = torch.stack(lvl_scores, dim=1)
+            valid = torch.stack(lvl_valid, dim=1)
+        with span("rpn.nms"):
+            # per-level NMS, all images and levels in one call
+            keep = nms_mask(boxes, scores, valid, self.nms_thresh) & valid
+            boxes = boxes.reshape(B, -1, 4)
+            scores = scores.reshape(B, -1)
+            order, topk_valid = masked_topk(scores, keep.reshape(B, -1), post_nms_topk)
+            boxes = torch.gather(boxes, 1, order[..., None].expand(order.shape + (4,)))
+            return boxes, torch.gather(scores, 1, order), topk_valid

@@ -20,6 +20,7 @@ from lvc_tpu_torch.modeling.proposal_generator.rpn import smooth_l1
 from lvc_tpu_torch.modeling.sampling import global_ratio
 from lvc_tpu_torch.ops.nms import batched_nms_mask, masked_topk
 from lvc_tpu_torch.structures import boxes as box_ops
+from lvc_tpu_torch.utils.tracing import span
 
 
 class FastRCNNOutputLayers(nn.Module):
@@ -163,7 +164,8 @@ def fast_rcnn_inference(
 ) -> Detections:
     """Score filter -> per-class NMS -> top-k, all fixed-shape. The static
     ``pre_nms_candidates`` cap on (box, class) pairs entering NMS is the one
-    divergence from the reference, as in the JAX package."""
+    divergence from the reference, as in the JAX package. The NMS and the
+    top-k run in the span ``roi_heads.nms``."""
     B, r, k1 = scores.shape
     k = k1 - 1
     fg_scores = scores[..., :-1]
@@ -183,8 +185,9 @@ def fast_rcnn_inference(
     cand_boxes = torch.gather(flat_boxes, 1, sel)
     cand_scores = torch.gather(flat_scores, 1, cand_idx)
 
-    keep = batched_nms_mask(cand_boxes, cand_scores, cls_idx, cand_ok, nms_thresh)
-    order, det_valid = masked_topk(cand_scores, keep, topk_per_image)
+    with span("roi_heads.nms"):
+        keep = batched_nms_mask(cand_boxes, cand_scores, cls_idx, cand_ok, nms_thresh)
+        order, det_valid = masked_topk(cand_scores, keep, topk_per_image)
     return Detections(
         boxes=torch.gather(cand_boxes, 1, order[..., None].expand(-1, -1, 4)),
         scores=torch.gather(cand_scores, 1, order),

@@ -35,6 +35,7 @@ import torch
 
 from lvc_tpu_torch.structures import boxes as box_ops
 from lvc_tpu_torch.structures import rotated_boxes as rbox_ops
+from lvc_tpu_torch.utils.tracing import count
 
 NEG_INF = -1e10
 
@@ -66,10 +67,12 @@ def nms_fixpoint(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Iterate ``x[j] = valid[j] & not any_i(sup[i, j] & x[i])`` from
     ``x = valid`` to its fixpoint: (..., N, N) and (..., N) bool in rank
     order. A custom op, so that ``torch.export`` records the loop, which
-    reads one bool back a round, as one node."""
+    reads one bool back a round, as one node. Each round adds one to the
+    counter ``nms.rounds`` of the innermost open span."""
     cur = valid.clone()
     while True:
         nxt = valid & ~(sup & cur[..., :, None]).any(dim=-2)
+        count("nms.rounds")
         if torch.equal(nxt, cur):  # one host sync per round
             return cur
         cur = nxt
