@@ -6,8 +6,9 @@ build_detection_train_loader:165, build_detection_test_loader:296) and
 d2's build_batch_data_loader. Examples are padded fixed-shape numpy arrays
 bucketed by canvas; a thread pool decodes/augments ahead of the train step
 (no worker processes: the heavy lifting is the native decoder, PIL and
-numpy, which release the GIL). The loaders yield numpy arrays; the trainer
-moves each batch to its device. ``INPUT.MOSAIC > 0`` wraps the default
+numpy, which release the GIL), and the train loader assembles its batches
+on a thread of its own. The loaders yield numpy arrays; the trainer moves
+each batch to its device. ``INPUT.MOSAIC > 0`` wraps the default
 train mapper in ``MosaicDatasetMapper`` (``lvc_tpu/data/build.py:241-250``).
 
 In a data-parallel run each rank builds its own loaders from its ``rank``
@@ -20,14 +21,17 @@ from __future__ import annotations
 
 import itertools
 import pickle
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from lvc_tpu_torch.data import utils as data_utils
 from lvc_tpu_torch.data.catalog import DatasetCatalog
-from lvc_tpu_torch.data.dataset_mapper import DatasetMapper, collate
+from lvc_tpu_torch.data.dataset_mapper import MODEL_KEYS, DatasetMapper, collate
 from lvc_tpu_torch.data.mosaic import MosaicDatasetMapper
 from lvc_tpu_torch.data.samplers import (
     CategoryAreaAwareSampler,
@@ -37,7 +41,12 @@ from lvc_tpu_torch.data.samplers import (
     TrainingSampler,
 )
 from lvc_tpu_torch.structures.boxes import BoxMode
-from lvc_tpu_torch.utils.tracing import span
+from lvc_tpu_torch.utils.tracing import count, span
+
+# finished train batches the assembler may hold ahead of the consumer
+_READY_DEPTH = 2
+# seconds a closing train loader waits for its assembler to stop
+_JOIN_S = 10.0
 
 
 def get_detection_dataset_dicts(names, filter_empty: bool = True) -> List[dict]:
@@ -153,13 +162,40 @@ def _bounded_map(fn, iterable, pool: ThreadPoolExecutor, prefetch: int):
         yield out
 
 
+def _collate_into(examples: List[Dict[str, np.ndarray]], pinned: bool) -> Dict[str, np.ndarray]:
+    """``collate(examples, train=True)``, its images copied into a fresh
+    array. ``pinned``: a view of a page-locked block of torch's caching host
+    allocator, which takes the block back for reuse once nothing refers to
+    the array, so the copy to the card goes by DMA with no staging copy and
+    no page is faulted in anew."""
+    first = examples[0]["image"]
+    shape = (len(examples),) + first.shape
+    if pinned:
+        block = torch.empty(len(examples) * first.nbytes, dtype=torch.uint8, pin_memory=True)
+        image = block.numpy().view(first.dtype).reshape(shape)
+    else:
+        image = np.empty(shape, first.dtype)
+    for i, e in enumerate(examples):
+        image[i] = e["image"]
+    batch = {"image": image}
+    batch.update((k, np.stack([e[k] for e in examples])) for k in MODEL_KEYS)
+    return batch
+
+
 class TrainLoader:
-    """Infinite iterator of collated train batches, bucketed by canvas.
+    """Iterator of collated train batches, bucketed by canvas, as long as
+    the sampler (the training samplers are infinite).
 
     A thread pool maps dataset dicts ahead; batches are formed from
     examples sharing a canvas bucket (the fixed-shape analogue of
-    AspectRatioGroupedDataset, d2 common.py:115). Stacking a batch is the
-    span ``loader.collate``, on the thread that iterates."""
+    AspectRatioGroupedDataset, d2 common.py:115). An assembler thread
+    consumes the mapped examples in order, collates each full bucket (the
+    span ``loader.collate``) into a fresh image array, page-locked where
+    CUDA is present, and queues up to ``_READY_DEPTH`` finished batches.
+    The iterating thread takes them (the span ``loader.take``, with the
+    counter ``loader.ready`` when a batch was already waiting); a worker's
+    or the assembler's exception is raised from its ``next()``. Closing
+    the iterator (or collecting it) stops the assembler and the pool."""
 
     def __init__(self, dataset_dicts, mapper: DatasetMapper, batch_size: int, num_workers: int = 4, sampler=None):
         self.dataset_dicts = dataset_dicts
@@ -170,27 +206,55 @@ class TrainLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = ThreadPoolExecutor(self.num_workers)
-        idx_iter = iter(self.sampler)
-
-        def gen_examples():
-            while True:
-                yield self.dataset_dicts[next(idx_iter)]
-
-        examples = _bounded_map(
-            self.mapper, gen_examples(), pool, prefetch=4 * self.num_workers
-        )
-        buckets: Dict[Tuple[int, int], List] = {}
+        ready: queue.Queue = queue.Queue(_READY_DEPTH)
+        stop = threading.Event()
+        assembler = threading.Thread(target=self._assemble, args=(pool, ready, stop, torch.cuda.is_available()),
+                                     name="TrainLoader-assembler", daemon=True)
+        assembler.start()
         try:
+            while True:
+                with span("loader.take", device=False):
+                    try:
+                        item = ready.get_nowait()
+                        count("loader.ready")
+                    except queue.Empty:
+                        item = ready.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            try:  # wakes an assembler blocked on the full queue
+                while True:
+                    ready.get_nowait()
+            except queue.Empty:
+                pass
+            assembler.join(_JOIN_S)
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def _assemble(self, pool: ThreadPoolExecutor, ready: queue.Queue, stop: threading.Event, pinned: bool) -> None:
+        """The assembler thread: queues each finished batch, then None where
+        the sampler ends, or the exception that stopped it; returns once
+        ``stop`` is set."""
+        try:
+            examples = _bounded_map(self.mapper, (self.dataset_dicts[i] for i in self.sampler), pool,
+                                    prefetch=4 * self.num_workers)
+            buckets: Dict[Tuple[int, int], List] = {}
             for ex in examples:
+                if stop.is_set():
+                    return
                 b = buckets.setdefault(ex["canvas"], [])
                 b.append(ex)
                 if len(b) == self.batch_size:
                     with span("loader.collate", device=False):
-                        batch = collate(b, train=True)
-                    yield batch
+                        batch = _collate_into(b, pinned)
                     buckets[ex["canvas"]] = []
-        finally:
-            pool.shutdown(wait=False, cancel_futures=True)
+                    ready.put(batch)
+            ready.put(None)
+        except Exception as e:  # raised again on the iterating thread
+            ready.put(e)
 
 
 class EvalLoader:

@@ -166,7 +166,8 @@ def _mini_loader(tmp_path, n=4):
     cfg.INPUT.MAX_SIZE_TRAIN = 96
     cfg.PAD.CANVAS_BUCKETS = ((64, 96), (96, 64))
     cfg.PAD.MAX_GT_PER_IMAGE = 4
-    return TrainLoader(dicts, DatasetMapper(cfg, is_train=True), batch_size=2, num_workers=2)
+    return TrainLoader(dicts, DatasetMapper(cfg, is_train=True), batch_size=2, num_workers=2,
+                       sampler=range(n))  # n // 2 batches, then the loader ends
 
 
 def test_loader_worker_spans_land_in_totals(tmp_path):
@@ -191,9 +192,12 @@ def test_loader_worker_spans_land_in_totals(tmp_path):
     assert [b["image"].shape for b in batches] == [(2, 64, 96, 3)] * 2
     assert t["loader.collate"]["calls"] == 2 and t["loader.wait"]["calls"] >= 4
     assert t["loader.decode"]["calls"] >= 4 and t["loader.augment"]["calls"] >= 4
+    assert t["loader.take"]["calls"] == 2
     assert all(v["stream_ms"] is None and v["host_ms"] > 0 for v in t.values())
-    assert {("loader.decode", False), ("loader.augment", False), ("loader.wait", True),
-            ("loader.collate", True)} <= seen
+    # the workers and the assembler thread map and collate; the iterating
+    # thread only takes finished batches
+    assert {("loader.decode", False), ("loader.augment", False), ("loader.wait", False),
+            ("loader.collate", False), ("loader.take", True)} == seen
 
 
 def test_nms_rounds_count_the_host_reads(monkeypatch):
@@ -321,6 +325,7 @@ SYNTHETIC = {
     "loader.augment": {"calls": 80, "host_ms": 1000.0, "stream_ms": None, "counts": {}},
     "loader.collate": {"calls": 4, "host_ms": 100.0, "stream_ms": None, "counts": {}},
     "loader.wait": {"calls": 64, "host_ms": 480.0, "stream_ms": None, "counts": {}},
+    "loader.take": {"calls": 4, "host_ms": 2.0, "stream_ms": None, "counts": {"loader.ready": 3}},
 }
 READERS = [  # (metric, mode, value from SYNTHETIC over 4 traced steps)
     ("rpn_match_ms.train", "train", 30.0), ("rpn_select_ms.train", "train", 5.0),
@@ -329,6 +334,7 @@ READERS = [  # (metric, mode, value from SYNTHETIC over 4 traced steps)
     ("det_nms_ms.infer", "infer", 4.0), ("det_nms_rounds.infer", "infer", 7.0),
     ("loader_decode_ms.train", "train", 5.0), ("loader_augment_ms.train", "train", 12.5),
     ("loader_collate_ms.train", "train", 25.0), ("loader_starved_ms.train", "train", 120.0),
+    ("loader_ready_pct.train", "train", 75.0),
 ]
 
 
