@@ -370,6 +370,10 @@ _C.SOLVER.LR_SCHEDULER_NAME = "WarmupMultiStepLR"
 _C.SOLVER.MAX_ITER = 40000
 _C.SOLVER.BASE_LR = 0.001
 _C.SOLVER.CLIP_LR = 0.001
+# "SGD" (momentum, the JAX package's optimizer) or "AdamW" (the Swin detection
+# recipe: decay 0 for norms and Swin's position tables, BETAS)
+_C.SOLVER.OPTIMIZER = "SGD"
+_C.SOLVER.BETAS = (0.9, 0.999)
 _C.SOLVER.MOMENTUM = 0.9
 _C.SOLVER.NESTEROV = False
 _C.SOLVER.WEIGHT_DECAY = 0.0001

@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lvc_tpu_torch.utils.tracing import count, span
+
 SWIN_CONFIGS = {
     "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
     "small": dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24)),
@@ -162,20 +164,26 @@ class SwinBlock(nn.Module):
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention branch in the span ``swin.attention`` (its counter
+        ``swin.windows``: the windows attended), the MLP branch in
+        ``swin.mlp``, each through its residual add."""
         B, H, W, C = x.shape
         ws, s = self.window_size, self.shift
         pad_h, pad_w = (-H) % ws, (-W) % ws
-        y = F.pad(self.norm1(x), (0, 0, 0, pad_w, 0, pad_h))
         Hp, Wp = H + pad_h, W + pad_w
-        mask = None
-        if s:
-            y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
-            mask = self._attn_mask(Hp, Wp, y)
-        y = window_reverse(self.attn(window_partition(y, ws), mask), ws, Hp, Wp)
-        if s:
-            y = torch.roll(y, shifts=(s, s), dims=(1, 2))
-        x = x + y[:, :H, :W]
-        return x + self.mlp(self.norm2(x))
+        with span("swin.attention"):
+            count("swin.windows", B * (Hp // ws) * (Wp // ws))
+            y = F.pad(self.norm1(x), (0, 0, 0, pad_w, 0, pad_h))
+            mask = None
+            if s:
+                y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
+                mask = self._attn_mask(Hp, Wp, y)
+            y = window_reverse(self.attn(window_partition(y, ws), mask), ws, Hp, Wp)
+            if s:
+                y = torch.roll(y, shifts=(s, s), dims=(1, 2))
+            x = x + y[:, :H, :W]
+        with span("swin.mlp"):
+            return x + self.mlp(self.norm2(x))
 
 
 class PatchMerging(nn.Module):
@@ -185,10 +193,12 @@ class PatchMerging(nn.Module):
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        H, W = x.shape[1:3]
-        x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return _linear(self.reduction, self.norm(x))
+        """In the span ``swin.merge``."""
+        with span("swin.merge"):
+            H, W = x.shape[1:3]
+            x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            return _linear(self.reduction, self.norm(x))
 
 
 class SwinStage(nn.Module):

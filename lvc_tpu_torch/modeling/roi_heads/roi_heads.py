@@ -52,6 +52,7 @@ from lvc_tpu_torch.modeling.roi_heads.mask_head import (
 from lvc_tpu_torch.modeling.sampling import Generators, image_generator, subsample_labels
 from lvc_tpu_torch.ops import roi_align
 from lvc_tpu_torch.structures import boxes as box_ops
+from lvc_tpu_torch.utils.tracing import count, span
 
 _POOLER_IMPLS = ("auto", "pallas", "pallas_fast", "pallas_band", "pallas_train",
                  "pallas_train_flat", "exact")
@@ -300,10 +301,13 @@ class StandardROIHeads(nn.Module):
         boxes."""
         B, D = dets.classes.shape
         if self.mask_on:
-            pooled = self.pool(features, dets.boxes, self.mask_pooler_resolution)
-            logits = self.mask_head(pooled.reshape(B * D, *pooled.shape[2:]))
-            masks = mask_rcnn_inference(logits, dets.classes.reshape(B * D))
-            dets = dets._replace(masks=masks.reshape(B, D, *masks.shape[1:]))
+            with span("roi_heads.mask"):
+                count("mask.slots", B * D)
+                count("mask.fg_slots", lambda: dets.valid.sum())
+                pooled = self.pool(features, dets.boxes, self.mask_pooler_resolution)
+                logits = self.mask_head(pooled.reshape(B * D, *pooled.shape[2:]))
+                masks = mask_rcnn_inference(logits, dets.classes.reshape(B * D))
+                dets = dets._replace(masks=masks.reshape(B, D, *masks.shape[1:]))
         if self.keypoint_on:
             pooled = self.pool(features, dets.boxes, self.keypoint_pooler_resolution)
             logits = self.keypoint_head(pooled.reshape(B * D, *pooled.shape[2:]))
@@ -357,20 +361,25 @@ class StandardROIHeads(nn.Module):
     def _mask_loss(self, features, sampled: SampledProposals, gt_masks: torch.Tensor, fg: torch.Tensor):
         """BCE of every sampled slot's mask against its matched gt bitmask
         cropped to the box; the bitmasks' scale of the canvas is read from
-        their height."""
+        their height. In the span ``roi_heads.mask``, with the counters
+        ``mask.slots`` (slots pooled) and ``mask.fg_slots`` (foreground
+        among them: a host read, made only while a profiler records)."""
         B, S = sampled.gt_classes.shape
         G = gt_masks.shape[1]
         M = 2 * self.mask_pooler_resolution  # the head upsamples 2x
         canvas_h = features[self.in_features[0]].shape[2] * self.strides[0]
         scale = gt_masks.shape[2] / canvas_h
-        pooled = self.pool(features, sampled.boxes, self.mask_pooler_resolution)
-        logits = self.mask_head(pooled.reshape(B * S, *pooled.shape[2:]))
-        image = torch.arange(B, device=fg.device)[:, None] * G
-        crops = crop_gt_masks(
-            gt_masks.reshape(B * G, *gt_masks.shape[2:]), sampled.boxes.reshape(B * S, 4) * scale,
-            (sampled.gt_idx + image).reshape(B * S), M,
-        )
-        return mask_rcnn_loss(logits, crops, sampled.gt_classes.reshape(B * S), fg.reshape(B * S))
+        with span("roi_heads.mask"):
+            count("mask.slots", B * S)
+            count("mask.fg_slots", lambda: fg.sum())
+            pooled = self.pool(features, sampled.boxes, self.mask_pooler_resolution)
+            logits = self.mask_head(pooled.reshape(B * S, *pooled.shape[2:]))
+            image = torch.arange(B, device=fg.device)[:, None] * G
+            crops = crop_gt_masks(
+                gt_masks.reshape(B * G, *gt_masks.shape[2:]), sampled.boxes.reshape(B * S, 4) * scale,
+                (sampled.gt_idx + image).reshape(B * S), M,
+            )
+            return mask_rcnn_loss(logits, crops, sampled.gt_classes.reshape(B * S), fg.reshape(B * S))
 
     def _keypoint_loss(self, features, sampled: SampledProposals, gt_keypoints: torch.Tensor, fg: torch.Tensor):
         """Heatmap CE of every sampled slot against its matched gt's

@@ -11,6 +11,15 @@ that; frozen parameters get ``requires_grad=False`` and stay out of the
 optimizer. The schedule is a ``LambdaLR`` whose factor at count 0 is the
 JAX schedule at count 0, which optax uses for the first update.
 
+With ``SOLVER.OPTIMIZER "AdamW"`` (the Swin detection recipe, which the JAX
+package does not have) ``build_optimizer`` returns ``torch.optim.AdamW``
+with ``SOLVER.BETAS`` and two groups: decay 0 for the affine of every
+LayerNorm, GroupNorm and BatchNorm and for Swin's
+``relative_position_bias_table`` and ``absolute_pos_embed``,
+``WEIGHT_DECAY`` for everything else, biases included (mmdetection's
+``paramwise_cfg`` for Swin; its default ``decay_mult`` is 1). The
+trainability mask, the clipping and the schedule are SGD's.
+
 ``build_clip_optimizer`` (``build.py:195-208``, the ResNet-D retrain of
 ``train_net_qe_ig``) scales the whole SGD update of ``backbone.bottom_up``
 by ``CLIP_LR / max(BASE_LR, 1e-12)``. With dampening 0 the momentum buffer
@@ -116,12 +125,27 @@ def wd_groups(model: nn.Module) -> Dict[str, str]:
 
 
 # ---------------------------------------------------------------- optimizer
-class SGD(torch.optim.SGD):
-    """``torch.optim.SGD`` that first clips the raw gradients (by value, or by
-    their global L2 norm as ``optax.clip_by_global_norm`` does:
-    ``g / norm * max`` when ``norm >= max``), then lets SGD add the weight
-    decay. A trainable parameter without a gradient steps with a zero one,
-    as every leaf of the optax tree does."""
+NO_DECAY_NAMES = ("relative_position_bias_table", "absolute_pos_embed")
+
+
+def adamw_no_decay(model: nn.Module) -> set:
+    """Names of the parameters that AdamW does not decay: every norm's
+    affine, Swin's relative position bias tables and absolute position
+    embedding."""
+    from lvc_tpu_torch.modeling.layers import GroupNorm, SyncBatchNorm
+
+    kinds = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm, GroupNorm, SyncBatchNorm)
+    norm = {id(p) for m in model.modules() if isinstance(m, kinds) for p in m.parameters(recurse=False)}
+    return {name for name, p in model.named_parameters()
+            if id(p) in norm or name.rsplit(".", 1)[-1] in NO_DECAY_NAMES}
+
+
+class _Clipped:
+    """An optimizer whose ``step`` first gives each parameter without a
+    gradient a zero one (every leaf of the optax tree steps), then clips the
+    raw gradients: by value, or by their global L2 norm as
+    ``optax.clip_by_global_norm`` does (``g / norm * max`` when
+    ``norm >= max``)."""
 
     def __init__(self, params: Iterable, clip_type: Optional[str] = None, clip_value: float = 0.0,
                  **kwargs):
@@ -150,34 +174,50 @@ class SGD(torch.optim.SGD):
         return super().step(closure)
 
 
-def build_optimizer(cfg, model: nn.Module, lr_scale=None) -> SGD:
-    """SGD with momentum, d2's weight-decay groups and the freeze mask:
-    frozen parameters get ``requires_grad=False`` and no group.
-    ``lr_scale``: name -> a factor on that parameter's learning rate (its
-    groups are split from the others')."""
+class SGD(_Clipped, torch.optim.SGD):
+    """``torch.optim.SGD`` on the clipped gradients; SGD adds the weight
+    decay to them."""
+
+
+class AdamW(_Clipped, torch.optim.AdamW):
+    """``torch.optim.AdamW`` on the clipped gradients; its decay is
+    decoupled from them."""
+
+
+def build_optimizer(cfg, model: nn.Module, lr_scale=None) -> torch.optim.Optimizer:
+    """``SOLVER.OPTIMIZER``: "SGD" (momentum, d2's weight-decay groups) or
+    "AdamW" (decay 0 for ``adamw_no_decay``), under the freeze mask: frozen
+    parameters get ``requires_grad=False`` and no group. ``lr_scale``: name
+    -> a factor on that parameter's learning rate (its groups are split
+    from the others')."""
     s = cfg.SOLVER
+    if s.OPTIMIZER not in ("SGD", "AdamW"):
+        raise ValueError(f"Unknown SOLVER.OPTIMIZER {s.OPTIMIZER!r}")
     mask = trainability_mask(model, cfg)
-    decay = {"other": s.WEIGHT_DECAY, "bias": s.WEIGHT_DECAY_BIAS, "norm": s.WEIGHT_DECAY_NORM}
-    wd = wd_groups(model)
+    if s.OPTIMIZER == "AdamW":
+        decay = {"other": s.WEIGHT_DECAY, "none": 0.0}
+        no_decay = adamw_no_decay(model)
+        group = {name: "none" if name in no_decay else "other" for name, _ in model.named_parameters()}
+    else:
+        decay = {"other": s.WEIGHT_DECAY, "bias": s.WEIGHT_DECAY_BIAS, "norm": s.WEIGHT_DECAY_NORM}
+        group = wd_groups(model)
     groups: Dict[tuple, list] = {}
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
             scale = 1.0 if lr_scale is None else lr_scale(name)
-            groups.setdefault((wd[name], scale), []).append(p)
+            groups.setdefault((group[name], scale), []).append(p)
     param_groups = [
         {"params": ps, "weight_decay": decay[k], "lr": s.BASE_LR * scale}
         for (k, scale), ps in sorted(groups.items(), key=lambda kv: (kv[0][1] != 1.0, list(decay).index(kv[0][0])))
     ]
     clip = s.CLIP_GRADIENTS
-    return SGD(
-        param_groups,
-        clip_type=("value" if clip.CLIP_TYPE == "value" else "norm") if clip.ENABLED else None,
-        clip_value=clip.CLIP_VALUE,
-        lr=s.BASE_LR,
-        momentum=s.MOMENTUM,
-        nesterov=s.NESTEROV,
-    )
+    clip_type = ("value" if clip.CLIP_TYPE == "value" else "norm") if clip.ENABLED else None
+    if s.OPTIMIZER == "AdamW":
+        return AdamW(param_groups, clip_type=clip_type, clip_value=clip.CLIP_VALUE, lr=s.BASE_LR,
+                     betas=tuple(s.BETAS))
+    return SGD(param_groups, clip_type=clip_type, clip_value=clip.CLIP_VALUE, lr=s.BASE_LR,
+               momentum=s.MOMENTUM, nesterov=s.NESTEROV)
 
 
 def build_clip_optimizer(cfg, model: nn.Module) -> SGD:

@@ -1,8 +1,9 @@
 """The port's spans and counters: on exactly while a torch profiler records.
 
 ``span(name)`` marks a stage of the program; ``count(name, n)`` adds to the
-innermost span open on the calling thread. Both read one flag first,
-``torch.autograd.profiler._is_profiler_enabled``, which every
+innermost span open on the calling thread (``n`` an int, or a function
+that returns one, called only while a profiler records). Both read one
+flag first, ``torch.autograd.profiler._is_profiler_enabled``, which every
 ``torch.profiler.profile`` sets while it records (the benchmark's traced
 section, the trainer's ``ProfilerHook``). While it is off a span is one
 shared no-op context and a count returns at once: no ``record_function``,
@@ -121,9 +122,10 @@ class Tracer:
             return _OFF
         return _Span(self, name, device)
 
-    def count(self, name: str, n: int = 1) -> None:
+    def count(self, name: str, n=1) -> None:
         if not _profiler._is_profiler_enabled:
             return
+        n = int(n() if callable(n) else n)
         stack = self._stack()
         if not stack:
             self._add("", 0.0, None, {name: n}, calls=0)
@@ -189,9 +191,11 @@ def span(name: str, device: bool = True):
     return _TRACER.span(name, device)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Adds ``n`` to counter ``name`` of the innermost span open on this
-    thread, while a profiler records."""
+    thread, while a profiler records. ``n`` may be a function that returns
+    it, called only while recording: a count that needs a device read (a
+    launch and a synchronisation) costs an untraced step nothing."""
     _TRACER.count(name, n)
 
 

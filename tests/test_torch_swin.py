@@ -153,7 +153,7 @@ def jax_detector_run(opts, rescale=None):
     jmodel = jax_build_model(cfg)
     var = detector_variables(jmodel, rescale)
     tx = _keep_grads(jax_build_optimizer(cfg, var["params"]))
-    state = TrainState.create(jax.tree_util.tree_map(jnp.asarray, var), tx)
+    state = jax.jit(lambda v: TrainState.create(v, tx))(var)  # one compile, not one a leaf shape
     batch = {k: jnp.asarray(v) for k, v in detector_batch().items()}
     state, metrics = jax.jit(jax_make_train_step(jmodel, tx))(state, batch, jax.random.PRNGKey(7))
     grads = jax.tree_util.tree_map(np.asarray, state.opt_state[1])
@@ -286,7 +286,10 @@ def _port_transformer(var):
     return m
 
 
-def test_swin_transformer_matches_jax():
+@functools.lru_cache(maxsize=None)
+def _transformer_grads():
+    """JAX's float32 outputs of the narrow Swin, the output weights, and the
+    gradients of sum(out * weights) for the parameters and the input."""
     jm, var, x = _transformer()
     xj = jnp.asarray(x.transpose(0, 2, 3, 1))
     rng = np.random.RandomState(2)
@@ -299,6 +302,12 @@ def test_swin_transformer_matches_jax():
         return sum(jnp.sum(out[k] * wts[k]) for k in out), out
 
     (_, j_out), (j_gp, j_gx) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(var["params"], xj)
+    return j_out, wts, j_gp, j_gx
+
+
+def test_swin_transformer_matches_jax():
+    jm, var, x = _transformer()
+    j_out, wts, j_gp, j_gx = _transformer_grads()
     m = _port_transformer(var)
     tx = torch.from_numpy(x).requires_grad_(True)
     out = m(tx)
@@ -317,8 +326,7 @@ def test_swin_transformer_bf16_matches_jax():
     jm, var, x = _transformer()
     xj = jnp.asarray(x.transpose(0, 2, 3, 1))
     vb = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.bfloat16), var)
-    apply = jax.jit(jm.apply)
-    j_out, j_f32 = apply(vb, xj.astype(jnp.bfloat16)), apply(var, xj)
+    j_out, j_f32 = jax.jit(jm.apply)(vb, xj.astype(jnp.bfloat16)), _transformer_grads()[0]
     out = _port_transformer(var)(torch.from_numpy(x).bfloat16())
     for k, want in j_out.items():
         assert out[k].dtype == torch.bfloat16

@@ -64,6 +64,7 @@ def test_off_span_opens_nothing(monkeypatch):
     assert tracer.span("a") is tracer.span("b", device=False) is tracing.span("c")
     with tracer.span("a"):
         tracer.count("n", 3)
+        tracer.count("read", _Raises)  # a device read is never made
     assert tracer._table == {} and tracer._pending == []
 
 
